@@ -22,7 +22,7 @@ def _vit(name: str, layers: int, d: int, heads: int, moe: bool) -> ModelConfig:
         glu=False,
         attn=AttnConfig(num_heads=heads, num_kv_heads=heads,
                         head_dim=d // heads, rope_theta=0.0),
-        moe=MoEConfig(num_experts=16, top_k=2, d_ff=4 * d)
+        moe=MoEConfig(num_experts=16, top_k=2, d_ff=4 * d, moe_every=2)
         if moe else None,
         num_classes=1000,
         image_tokens=197,

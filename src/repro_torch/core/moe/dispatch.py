@@ -44,8 +44,26 @@ def grouped_dispatch(x: torch.Tensor, experts: torch.Tensor,
 
 def grouped_combine(y_sorted: torch.Tensor, d: GroupedDispatch,
                     num_tokens: int) -> torch.Tensor:
-    """Weighted scatter-add back to token order (Eq. 5 aggregation)."""
-    y_w = y_sorted * d.weights_sorted[:, None].to(y_sorted.dtype)
-    out = torch.zeros((num_tokens, y_sorted.shape[-1]), dtype=y_sorted.dtype,
-                      device=y_sorted.device)
-    return out.index_add_(0, d.token_idx, y_w)
+    """Weighted sum back to token order (Eq. 5 aggregation).
+
+    The reference scatter-adds the rows into zeros in buffer order. Here
+    the inverse of the dispatch permutation lines each token's k rows up,
+    sorting those k buffer positions restores their buffer order, and one
+    op adds them one after another in that order, in f32, on either
+    device: the sum neither changes from run to run (a float scatter-add
+    on the card is atomic, and the same prompt would not decode the same
+    way twice) nor with the number of tokens in the batch. On the card
+    that op is a cumsum over the k rows (a sequential scan along a middle
+    dim; a sum there may split the k rows across threads by tensor size);
+    on the CPU a sum (sequential there; the CPU cumsum accumulates in
+    f64)."""
+    n, D = y_sorted.shape
+    k = n // max(num_tokens, 1)
+    inv = torch.empty_like(d.sort_idx)
+    inv[d.sort_idx] = torch.arange(n, device=inv.device)
+    order = inv.view(num_tokens, k).sort(dim=1).values.reshape(-1)
+    rows = y_sorted[order] * d.weights_sorted[order, None].to(y_sorted.dtype)
+    rows = rows.view(num_tokens, k, D)
+    if rows.is_cuda and k:
+        return rows.cumsum(dim=1)[:, -1]
+    return rows.sum(dim=1)

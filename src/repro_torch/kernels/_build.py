@@ -31,9 +31,11 @@ _P, _I, _F, _SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 _SIGNATURES = {
     "int8_matmul_launch": (_I, [_P] * 6 + [_I] * 3 + [_P]),
     "grouped_matmul_i8_launch": (_I, [_P] * 9 + [_I] * 4 + [_P]),
+    "grouped_matmul_w4a8_launch": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "grouped_matmul_f32_launch": (_I, [_P] * 7 + [_I] * 4 + [_P]),
     "quant_attention_launch": (_I, [_P] * 4 + [_I] * 7 + [_F, _P]),
     "quant_attention_smem_bytes": (_SZ, [_I, _I]),
+    "lm_attention_launch": (_I, [_P] * 3 + [_I] + [_P] * 7 + [_I] * 9 + [_F] * 2 + [_P]),
 }
 
 

@@ -1,16 +1,21 @@
 // Grouped matmul over expert-sorted rows: y[t] = x[t] @ w[g(t)], for the
 // rows t of each group g given by group_sizes (MoE expert fc1/fc2).
 //   int8 mode: int8 x, int8 w -> (float(acc) * w_scale[g, n]) * a_scale
+//   W4A8 mode: int8 x, nibble-packed int4 w (uint8 [G, ceil(Din/2), Dout],
+//              low nibble = even input row) -> the int8 mode's epilogue
 //   f32 mode:  f32 x, f32 w   -> f32 FMA sum
 //
 // Replaces: src/repro/kernels/expert_linear.py, grouped_matmul / _gmm_kernel
-// (fp32 and int8 modes; the W4A8 nibble-packed mode is not ported yet).
+// (fp32, int8 and the int4_packed W4A8 modes).
 //
 // Bound on the H100: at M3ViT-S (T = 2 * 197 B routed rows, G = 16 experts,
 // 384 -> 1536 and 1536 -> 384) the int8 work, 2 T Din Dout operations, is
 // ~3.7 GOP at B = 8, ~2 us at the int8 tensor-core rate, against ~9.4 MB of
 // expert weights plus ~19 MB of f32 output, ~8.5 us at 3.35 TB/s: bound by
-// bytes. The f32 mode (calibration) is bound by f32 operations.
+// bytes. The f32 mode (calibration) is bound by f32 operations. W4A8 halves
+// the weight bytes: at OLMoE-1B-7B decode (T = 8 slots x top-8 = 64 rows
+// over 64 experts, 2048 -> 2048 for fc1) the packed stack is 134 MB a
+// layer against 0.54 GOP of int8 work: bound by bytes, ~40 us.
 //
 // Design: the work table (one item per (group, 64-row tile) pair that holds
 // rows of the group, padded to the static length ceil(T/64) + G) is built
@@ -21,7 +26,10 @@
 // rows. Every output row belongs to exactly one group, so each output
 // element is written by exactly one block, with no accumulator carried
 // between blocks (the TPU kernel's cross-step VMEM accumulator is not
-// needed). Padding items and T = 0 launch nothing that writes.
+// needed). Padding items and T = 0 launch nothing that writes. The W4A8
+// mode unpacks each nibble to s8 as the weight tile is staged into shared
+// memory (int8_tile.cuh), so its main loop and flush are the int8 mode's
+// and its result is bit-equal to the unpacked int8 product.
 #include <cuda_runtime.h>
 
 #include "int8_tile.cuh"
@@ -51,8 +59,9 @@ __device__ inline WorkItem work_item(const int* g_ids, const int* m_ids,
   return it;
 }
 
+template <bool PACKED>
 __global__ void __launch_bounds__(repro::I8_THREADS)
-    gmm_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+    gmm_i8_kernel(const int8_t* __restrict__ x, const void* __restrict__ w,
                   const int* __restrict__ g_ids, const int* __restrict__ m_ids,
                   const int* __restrict__ row_start,
                   const int* __restrict__ row_end,
@@ -64,8 +73,10 @@ __global__ void __launch_bounds__(repro::I8_THREADS)
   if (it.row_lo >= it.row_hi) return;  // block-uniform
   const int n0 = blockIdx.y * repro::I8_BN;
   int acc[4][4] = {};
-  repro::i8_tile_mainloop(x, w + (size_t)it.g * Din * Dout, Din, Dout, it.m0,
-                          it.row_lo, it.row_hi, n0, sm, acc);
+  const size_t w_rows = PACKED ? (size_t)(Din + 1) / 2 : (size_t)Din;
+  const void* wg = static_cast<const int8_t*>(w) + (size_t)it.g * w_rows * Dout;
+  repro::i8_tile_mainloop<PACKED>(x, wg, Din, Dout, it.m0, it.row_lo,
+                                  it.row_hi, n0, sm, acc);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -137,6 +148,21 @@ __global__ void __launch_bounds__(F_THREADS)
   }
 }
 
+template <bool PACKED>
+int launch_i8(const int8_t* x, const void* w, const int* g_ids,
+              const int* m_ids, const int* row_start, const int* row_end,
+              const float* w_scale, const float* a_scale, float* out, int Din,
+              int Dout, int n_work, int block_m, cudaStream_t stream) {
+  if (block_m != repro::I8_BM) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_work > 0 && Dout > 0) {
+    dim3 grid(n_work, (Dout + repro::I8_BN - 1) / repro::I8_BN);
+    gmm_i8_kernel<PACKED><<<grid, repro::I8_THREADS, 0, stream>>>(
+        x, w, g_ids, m_ids, row_start, row_end, w_scale, a_scale, out, Din,
+        Dout);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // block_m must be the row tile the work table was built with; any other
@@ -146,14 +172,19 @@ extern "C" int grouped_matmul_i8_launch(
     const int* row_start, const int* row_end, const float* w_scale,
     const float* a_scale, float* out, int Din, int Dout, int n_work,
     int block_m, cudaStream_t stream) {
-  if (block_m != repro::I8_BM) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_work > 0 && Dout > 0) {
-    dim3 grid(n_work, (Dout + repro::I8_BN - 1) / repro::I8_BN);
-    gmm_i8_kernel<<<grid, repro::I8_THREADS, 0, stream>>>(
-        x, w, g_ids, m_ids, row_start, row_end, w_scale, a_scale, out, Din,
-        Dout);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_i8<false>(x, w, g_ids, m_ids, row_start, row_end, w_scale,
+                          a_scale, out, Din, Dout, n_work, block_m, stream);
+}
+
+// W4A8: w is the nibble-packed uint8 [G, ceil(Din/2), Dout] stack; Din is
+// the logical (unpacked) input width of x.
+extern "C" int grouped_matmul_w4a8_launch(
+    const int8_t* x, const uint8_t* w, const int* g_ids, const int* m_ids,
+    const int* row_start, const int* row_end, const float* w_scale,
+    const float* a_scale, float* out, int Din, int Dout, int n_work,
+    int block_m, cudaStream_t stream) {
+  return launch_i8<true>(x, w, g_ids, m_ids, row_start, row_end, w_scale,
+                         a_scale, out, Din, Dout, n_work, block_m, stream);
 }
 
 extern "C" int grouped_matmul_f32_launch(const float* x, const float* w,

@@ -1,5 +1,12 @@
 // Shared int8 tile main loop of int8_matmul.cu and grouped_matmul.cu.
 //
+// With PACKED the weight is a nibble-packed int4 matrix, uint8
+// [ceil(K/2), N]: the low nibble of byte p holds row 2p, the high nibble
+// row 2p+1, each a two's-complement 4-bit value (v - 16 (v >> 3)). The
+// nibbles are unpacked to s8 on the way into shared memory, so the __dp4a
+// loop is the int8 one (Hopper has no int4 tensor-core path); for an odd K
+// the pad nibble lies at k = K and loads as zero like any k >= K.
+//
 // One block of I8_THREADS threads owns an I8_BM x I8_BN output tile and walks
 // K in steps of I8_BK. Both operands are staged in shared memory with the
 // contraction dim contiguous (the W tile is transposed on the way in), so
@@ -23,12 +30,25 @@ struct I8Smem {
   int32_t ws[I8_BN][I8_WORDS];  // W columns, k-contiguous
 };
 
+// The weight element (k, c) of w [K, N] (int8) or of its packed form.
+template <bool PACKED>
+__device__ inline int8_t load_w(const void* __restrict__ w, int k, int c, int N) {
+  if constexpr (PACKED) {
+    const int byte = static_cast<const uint8_t*>(w)[(size_t)(k >> 1) * N + c];
+    const int v = (k & 1) ? (byte >> 4) : (byte & 0xF);
+    return static_cast<int8_t>(v - ((v & 0x8) << 1));
+  } else {
+    return static_cast<const int8_t*>(w)[(size_t)k * N + c];
+  }
+}
+
 // acc[i][j] += sum_k x[r, k] * w[k, c] for r = m0 + ty + 16 i and
 // c = n0 + tx + 16 j (tx = tid % 16, ty = tid / 16). Rows outside
 // [row_lo, row_hi), columns >= N and k >= K load as zero, which masks the
 // ragged edges and the rows of other groups.
+template <bool PACKED = false>
 __device__ inline void i8_tile_mainloop(const int8_t* __restrict__ x,
-                                        const int8_t* __restrict__ w, int K,
+                                        const void* __restrict__ w, int K,
                                         int N, int m0, int row_lo, int row_hi,
                                         int n0, I8Smem& sm, int acc[4][4]) {
   const int tid = threadIdx.x;
@@ -48,7 +68,7 @@ __device__ inline void i8_tile_mainloop(const int8_t* __restrict__ x,
       const int kk = e / I8_BN, c = e % I8_BN;
       const int k = k0 + kk, col = n0 + c;
       int8_t v = 0;
-      if (k < K && col < N) v = w[(size_t)k * N + col];
+      if (k < K && col < N) v = load_w<PACKED>(w, k, col, N);
       ws8[c * ROW_BYTES + kk] = v;
     }
     __syncthreads();

@@ -1,11 +1,13 @@
 """Unified sparse/dense grouped matmul on the card (CoQMoE section 4.2(b)):
-y[t] = x[t] @ w[g(t)] over expert-sorted rows, fp32 or int8 with the fused
-per-expert ``w_scale`` and per-tensor ``a_scale`` rescale.
+y[t] = x[t] @ w[g(t)] over expert-sorted rows, fp32, int8, or W4A8 (int8
+rows against a nibble-packed int4 ``uint8`` stack), the integer modes with
+the fused per-expert ``w_scale`` and per-tensor ``a_scale`` rescale.
 
 The CUDA kernel is ``csrc/grouped_matmul.cu`` (it replaces the Pallas
 kernel ``repro/kernels/expert_linear.py:grouped_matmul``); its plain
-versions are ``ref.grouped_matmul_ref`` / ``ref.grouped_matmul_q_ref``,
-which ``kernels/ops.py`` takes for CPU tensors. The work table is the port
+versions are ``ref.grouped_matmul_ref`` / ``ref.grouped_matmul_q_ref`` /
+``ref.grouped_matmul_q4_ref``, which ``kernels/ops.py`` takes for CPU
+tensors. The work table is the port
 of the reference's ``_route_metadata``, built with torch ops on the device.
 """
 from __future__ import annotations
@@ -46,25 +48,25 @@ def route_metadata(group_sizes: torch.Tensor, block_m: int, n_work: int):
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                    *, w_scale: Optional[torch.Tensor] = None,
                    a_scale=None) -> torch.Tensor:
-    """x [T, Din] rows sorted by group, w [G, Din, Dout], group_sizes [G]
-    (sum == T) -> f32 [T, Dout]. int8 x and w: int8 mode with optional
-    ``w_scale`` [G, Dout] and ``a_scale``; f32 x and w: fp32 mode, no
-    scales. CUDA tensors only."""
+    """x [T, Din] rows sorted by group, w [G, Din, Dout] (W4A8: uint8
+    [G, ceil(Din/2), Dout]), group_sizes [G] (sum == T) -> f32 [T, Dout].
+    int8 x with int8 or packed w: integer modes with optional ``w_scale``
+    [G, Dout] and ``a_scale``; f32 x and w: fp32 mode, no scales. CUDA
+    tensors only."""
     _build.require_cuda("grouped_matmul", x, w, group_sizes, w_scale, a_scale)
-    if w.dtype == torch.uint8:
-        raise NotImplementedError(
-            "nibble-packed int4 (W4A8) expert stacks are not ported to CUDA yet")
     T, Din = x.shape
-    G, Din2, Dout = w.shape
-    if Din != Din2 or group_sizes.shape != (G,) or (
+    G, w_rows, Dout = w.shape
+    packed = w.dtype == torch.uint8
+    if w_rows != (-(-Din // 2) if packed else Din) or group_sizes.shape != (G,) or (
             w_scale is not None and w_scale.shape != (G, Dout)):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"group_sizes {tuple(group_sizes.shape)}")
-    int8 = x.dtype == torch.int8 and w.dtype == torch.int8
+    int8 = x.dtype == torch.int8 and w.dtype in (torch.int8, torch.uint8)
     if not int8 and not (x.dtype == torch.float32 and w.dtype == torch.float32):
-        raise TypeError(f"int8/int8 or f32/f32 operands required, got {x.dtype}, {w.dtype}")
+        raise TypeError(f"int8/int8, int8/packed-int4 or f32/f32 operands required, "
+                        f"got {x.dtype}, {w.dtype}")
     if not int8 and (w_scale is not None or a_scale is not None):
-        raise ValueError("scales apply to int8 operands only")
+        raise ValueError("scales apply to integer operands only")
     out = torch.empty((T, Dout), dtype=torch.float32, device=x.device)
     if T == 0:  # nothing routed
         return out
@@ -76,7 +78,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         if int8:
             ws = None if w_scale is None else w_scale.to(torch.float32).contiguous()
             as_ = None if a_scale is None else _build.scalar(a_scale, x)
-            err = lib.grouped_matmul_i8_launch(
+            launch = lib.grouped_matmul_w4a8_launch if packed else lib.grouped_matmul_i8_launch
+            err = launch(
                 x.data_ptr(), w.data_ptr(), g_ids.data_ptr(), m_ids.data_ptr(),
                 row_start.data_ptr(), row_end.data_ptr(),
                 None if ws is None else ws.data_ptr(),
@@ -88,8 +91,11 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                 row_start.data_ptr(), row_end.data_ptr(), out.data_ptr(),
                 Din, Dout, n_work, BLOCK_M, _build.stream(x))
     _build.check(err, "grouped_matmul")
+    mode = "w4a8" if packed else ("int8" if int8 else "f32")
     grouped_matmul.launches += 1
+    grouped_matmul.launches_by_mode[mode] = grouped_matmul.launches_by_mode.get(mode, 0) + 1
     return out
 
 
 grouped_matmul.launches = 0
+grouped_matmul.launches_by_mode = {}

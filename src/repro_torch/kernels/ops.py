@@ -16,17 +16,40 @@ from repro_torch.core.quant.qtypes import quantize_sym
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.expert_linear import grouped_matmul as _gmm_kernel
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_kernel
-from repro_torch.kernels.quant_attention import streaming_attention
+from repro_torch.kernels.quant_attention import (
+    fits_in_shared_memory,
+    lm_attention,
+    streaming_attention,
+)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = False, quant_bits: int = 0) -> torch.Tensor:
-    """Streaming attention over [B, S, H, hd] (GQA-native k/v)."""
-    if causal:
-        raise NotImplementedError("causal attention comes with the LM path")
-    if q.is_cuda:
+              causal: bool = True, q_offset=0, quant_bits: int = 0,
+              logit_softcap: float = 0.0, local_window: int = 0,
+              k_scale: Optional[torch.Tensor] = None,
+              v_scale: Optional[torch.Tensor] = None,
+              kv_valid_len: Optional[torch.Tensor] = None,
+              q_segment_ids: Optional[torch.Tensor] = None,
+              kv_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Streaming attention over [B, S, H, hd] (GQA-native k/v), the
+    reference's keyword contract. On the card the non-causal, cache-free,
+    quantized f32 case of the vision models takes ``streaming_attention``
+    (K/V of a head in shared memory) while it fits; every other case takes
+    ``lm_attention``."""
+    kw = dict(causal=causal, q_offset=q_offset, quant_bits=quant_bits,
+              logit_softcap=logit_softcap, local_window=local_window,
+              k_scale=k_scale, v_scale=v_scale, kv_valid_len=kv_valid_len,
+              q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+    if not q.is_cuda:
+        return _ref.flash_attention_ref(q, k, v, **kw)
+    vision = (not causal and quant_bits > 0 and not logit_softcap
+              and not local_window and isinstance(q_offset, int) and q_offset == 0
+              and k_scale is None and kv_valid_len is None and q_segment_ids is None
+              and q.dtype == k.dtype == v.dtype == torch.float32
+              and fits_in_shared_memory(k.shape[1], q.shape[-1]))
+    if vision:
         return streaming_attention(q, k, v, quant_bits=quant_bits)
-    return _ref.flash_attention_ref(q, k, v, quant_bits=quant_bits)
+    return lm_attention(q, k, v, **kw)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
@@ -35,20 +58,22 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                    a_bits: int = 8) -> torch.Tensor:
     """Unified sparse/dense linear: y[t] = x[t] @ w[group(t)].
 
-    int8 weights execute as stored: an fp ``x`` is quantized here with the
-    folded ``a_scale``, the contraction accumulates in int32 and the
-    product-of-scales dequant lands once on the accumulator."""
-    if w.dtype == torch.uint8:
-        raise NotImplementedError("nibble-packed int4 expert stacks are not ported yet")
-    if w.dtype == torch.int8 and x.dtype != torch.int8:
+    int8 weights and nibble-packed int4 (``uint8``, W4A8) stacks execute as
+    stored: an fp ``x`` is quantized here with the folded ``a_scale``, the
+    contraction accumulates in int32 and the product-of-scales dequant
+    lands once on the accumulator."""
+    integer_w = w.dtype in (torch.int8, torch.uint8)
+    if integer_w and x.dtype != torch.int8:
         if a_scale is None:
             raise ValueError(
-                "int8 grouped weights need the folded activation scale (a PTQ "
-                "QuantizedParams tree carries it as the `wi_as` / `wo_a_scale` "
-                "leaf)")
+                f"{'int4' if w.dtype == torch.uint8 else 'int8'} grouped weights "
+                "need the folded activation scale (a PTQ QuantizedParams tree "
+                "carries it as the `wi_as` / `wo_a_scale` leaf)")
         x = quantize_sym(x.float(), a_scale, a_bits)
     if x.is_cuda:
         return _gmm_kernel(x, w, group_sizes, w_scale=w_scale, a_scale=a_scale)
+    if w.dtype == torch.uint8:
+        return _ref.grouped_matmul_q4_ref(x, w, group_sizes, w_scale, a_scale)
     if w.dtype == torch.int8:
         return _ref.grouped_matmul_q_ref(x, w, group_sizes, w_scale, a_scale)
     return _ref.grouped_matmul_ref(x, w, group_sizes)
@@ -69,8 +94,8 @@ def grouped_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                 wo_scale: Optional[torch.Tensor] = None,
                 wi_a_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Expert MLP over sorted rows: fc1 (+bi) -> act -> fc2 (+bo), with the
-    fc2 input quantized by ``mid_a_scale`` (int8 fc2: the real quantizer;
-    fp fc2: its fake-quant oracle)."""
+    fc2 input quantized by ``mid_a_scale`` (int8 or packed-int4 fc2: the
+    real quantizer; fp fc2: its fake-quant oracle)."""
     from repro_torch.models.layers import act_fn  # lazy: layers imports ops
 
     seg = None
@@ -86,7 +111,7 @@ def grouped_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     else:
         h = act_fn(act)(h)
     maybe_record(taps, "moe_mid", h)
-    if wo.dtype == torch.int8:
+    if wo.dtype in (torch.int8, torch.uint8):
         y = grouped_matmul(h, wo, group_sizes, w_scale=wo_scale,
                            a_scale=mid_a_scale, a_bits=a_bits)
     else:

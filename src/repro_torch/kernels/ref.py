@@ -15,22 +15,64 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quant.qtypes import unpack_int4
 from repro_torch.core.quant.softmax_quant import logsqrt2_dequantize
 
 LOG2E = 1.4426950408889634  # log2(e)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, quant_bits: int = 0) -> torch.Tensor:
-    """Non-causal attention over q [B, Sq, H, hd] and GQA k/v [B, Sk, KVH,
-    hd], with the log-sqrt2 quantized softmax numerator when ``quant_bits``
-    > 0 (paper sections 3.2/4.3): codes are taken against the exact row
-    max, the denominator is the exact sum of exp(s - m)."""
+                        *, causal: bool = True, q_offset=0, quant_bits: int = 0,
+                        logit_softcap: float = 0.0, local_window: int = 0,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None,
+                        kv_valid_len: Optional[torch.Tensor] = None,
+                        q_segment_ids: Optional[torch.Tensor] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over q [B, Sq, H, hd] and GQA k/v [B, Sk, KVH, hd] (f32,
+    bf16 or int8 with per-(position, head) ``k_scale``/``v_scale`` [B, Sk,
+    KVH]): causal and local-window masks on absolute positions (``q_offset``
+    scalar or [B], the position of q[0]), ``kv_valid_len`` [B] fill levels,
+    packed-prefill segment ids (a position attends only within its own id),
+    tanh ``logit_softcap``, and the log-sqrt2 quantized softmax numerator
+    when ``quant_bits`` > 0 (paper sections 3.2/4.3): codes against the
+    exact row max, the denominator the exact sum of exp(s - m), masked keys
+    exactly zero. A row with no visible key gives 0.
+
+    The reference's order of operations is kept: scores are
+    ``(q.k) * k_scale / sqrt(hd)``, the V scale is folded into the
+    probabilities, and with a bf16 V the probabilities are rounded to bf16
+    before P.V (f32 accumulation)."""
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
+    dev = q.device
     qg = q.reshape(B, Sq, KVH, G, hd).float()
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    if k_scale is not None:
+        scores = scores * k_scale.float().permute(0, 2, 1)[:, :, None, None, :]
+    # a true division by sqrt(hd) held as an f32 tensor: a Python scalar
+    # divisor may be applied on the card as a multiplication by its
+    # reciprocal, which rounds differently from the kernel's division
+    scores = scores / torch.tensor(math.sqrt(hd), dtype=torch.float32, device=dev)
+    if logit_softcap > 0:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
+    off = torch.as_tensor(q_offset, dtype=torch.int32, device=dev).broadcast_to((B,))
+    qpos = off[:, None] + torch.arange(Sq, device=dev, dtype=torch.int32)  # [B, Sq]
+    kpos = torch.arange(Sk, device=dev, dtype=torch.int32)
+    ok = torch.ones((B, Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        ok &= kpos[None, None, :] <= qpos[:, :, None]
+    if local_window > 0:
+        ok &= qpos[:, :, None] - kpos[None, None, :] < local_window
+    if q_segment_ids is not None:
+        kv_seg = kv_segment_ids if kv_segment_ids is not None else q_segment_ids
+        ok &= q_segment_ids[:, :, None] == kv_seg[:, None, :]
+    mask = ok[:, None, None]  # [B, 1, 1, Sq, Sk]
+    if kv_valid_len is not None:
+        valid = kpos[None, :] < kv_valid_len.to(torch.int32)[:, None]  # [B, Sk]
+        mask = mask & valid[:, None, None, None, :]
+    scores = torch.where(mask, scores, -math.inf)
     m = torch.clamp(torch.amax(scores, dim=-1, keepdim=True), min=-1e30)
     f = torch.exp(scores - m)
     l = torch.sum(f, dim=-1, keepdim=True)
@@ -38,8 +80,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # Eq. 18 in affine-code form: -2 log2(exp(s - m)) == -2 log2(e) (s - m)
         codes = torch.clamp(
             torch.round(-2.0 * LOG2E * (scores - m)), 0, 2**quant_bits - 1)
-        f = logsqrt2_dequantize(codes.to(torch.int32))
-    out = torch.einsum("bkgqs,bskh->bqkgh", f, v.float()) / torch.clamp(
+        f = torch.where(mask, logsqrt2_dequantize(codes.to(torch.int32)), 0.0)
+    if v_scale is not None:
+        f = f * v_scale.float().permute(0, 2, 1)[:, :, None, None, :]
+    if v.dtype not in (torch.int8, torch.float32):
+        f = f.to(v.dtype)  # the reference rounds P to V's type before P.V
+    out = torch.einsum("bkgqs,bskh->bqkgh", f.float(), v.float()) / torch.clamp(
         l.permute(0, 3, 1, 2, 4), min=1e-30)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
@@ -77,6 +123,15 @@ def grouped_matmul_q_ref(x_q: torch.Tensor, w_q: torch.Tensor,
     if a_scale is not None:
         y = y * a_scale
     return y
+
+
+def grouped_matmul_q4_ref(x_q: torch.Tensor, w_packed: torch.Tensor,
+                          group_sizes: torch.Tensor, w_scale: torch.Tensor,
+                          a_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W4A8: nibble-packed int4 stack ``uint8 [G, ceil(Din/2), Dout]``
+    unpacked to int4 values held in int8, then the int8 product above."""
+    w_q = unpack_int4(w_packed, x_q.shape[1])
+    return grouped_matmul_q_ref(x_q, w_q, group_sizes, w_scale, a_scale)
 
 
 def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale,

@@ -1,8 +1,11 @@
-"""Shared model layers of the vision path, ported from
-``repro.models.layers``: LayerNorm, the quantized/full-precision linear
-seam, the MLP and the cache-free non-causal attention block. Plain functions
-over nested dicts of tensors."""
+"""Shared model layers, ported from ``repro.models.layers``: LayerNorm and
+RMSNorm, RoPE, the quantized/full-precision linear seam, the MLP, the int8
+K/V quantizer and the attention block (cache-free, and over a K/V cache
+with per-slot fill positions and packed-prefill segment ids). Plain
+functions over nested dicts of tensors."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -28,10 +31,19 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (y * gamma + beta).to(dt)
 
 
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + gamma)).to(dt)  # gemma-style (1+g); init gamma=0
+
+
 def apply_norm(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.norm != "layernorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
-    y = layernorm(x, p["scale"], p["bias"])
+    if cfg.norm == "layernorm":
+        y = layernorm(x, p["scale"], p["bias"])
+    else:
+        y = rmsnorm(x, p["scale"])
     if "a_scale" in p:
         # PTQ runtime: per-layer symmetric quantizer with the reparam scale
         y = fake_quant_activation(y.float(), p["a_scale"],
@@ -107,13 +119,66 @@ def mlp_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, taps=None) -> torch.Te
     return y
 
 
-def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
-                    a: AttnConfig, taps=None) -> torch.Tensor:
-    """Cache-free, non-causal MSA block: qkv proj -> streaming attention ->
-    out proj (the vision models' only attention)."""
-    if a.rope_theta > 0 or a.qk_norm or a.logit_softcap or a.local_window:
-        raise NotImplementedError(
-            "RoPE, QK-norm, softcap and local windows come with the LM path")
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Split-half rotary embedding with f32 angles. x: [..., S, H, hd];
+    positions: [..., S] integer."""
+    if theta <= 0:
+        return x
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., :, None].float() * freq  # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]  # [..., S, 1, half]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per (position, head) symmetric int8: x [B, S, KVH, hd] -> (int8,
+    f32 scale [B, S, KVH]); divides by the scale and rounds half to even."""
+    xf = x.float()
+    absmax = torch.clamp(torch.amax(torch.abs(xf), dim=-1), min=1e-6)
+    scale = absmax / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -128, 127)
+    return q.to(torch.int8), scale
+
+
+def _cache_put(buf: torch.Tensor, new: torch.Tensor, idx) -> None:
+    """Write ``new`` [B, S, ...] into ``buf`` [B, Smax, ...] at row ``idx``
+    (an int, or a [B] tensor: one fill position per slot), in place. The
+    start clamps so the rows fit, as ``lax.dynamic_update_slice`` does."""
+    S, smax = new.shape[1], buf.shape[1]
+    if isinstance(idx, int):
+        start = min(max(idx, 0), smax - S)
+        buf[:, start:start + S] = new.to(buf.dtype)
+        return
+    start = torch.clamp(idx.long(), 0, smax - S)
+    rows = start[:, None] + torch.arange(S, device=buf.device)  # [B, S]
+    batch = torch.arange(buf.shape[0], device=buf.device)[:, None].expand_as(rows)
+    buf[batch, rows] = new.to(buf.dtype)
+
+
+def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *,
+                    positions: Optional[torch.Tensor] = None, causal: bool = True,
+                    local_window: int = 0, cache: Optional[dict] = None,
+                    cache_index=None, segment_ids: Optional[torch.Tensor] = None,
+                    taps=None):
+    """MSA block: qkv proj -> (QK-norm) -> RoPE -> streaming attention ->
+    out proj. Returns (y, cache).
+
+    cache: {"k", "v": [B, Smax, KVH, hd] (int8 or fp), with int8 also
+    "k_scale", "v_scale": [B, Smax, KVH]}. The new K/V rows are written
+    into it IN PLACE at ``cache_index`` (an int, or a [B] tensor of per-slot
+    fill positions) -- the reference returns a new cache; the port updates
+    the one it is given and returns it -- and attention runs over the whole
+    buffer with ``kv_valid_len = cache_index + S``.
+
+    segment_ids [B, S] (packed prefill): attention is confined to equal
+    ids; RoPE uses ``positions`` (within-segment) while causal masking runs
+    on buffer indices, equal to within-segment distances inside a
+    contiguous segment. Cache rows beyond S carry the never-matching id -2.
+    """
     B, S, _ = x.shape
     q = quant_linear(x, p, "wq", cfg).reshape(B, S, a.num_heads, a.head_dim)
     k = quant_linear(x, p, "wk", cfg).reshape(B, S, a.num_kv_heads, a.head_dim)
@@ -123,8 +188,52 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     if "bk" in p:
         k = k + p["bk"].reshape(1, 1, a.num_kv_heads, a.head_dim)
         v = v + p["bv"].reshape(1, 1, a.num_kv_heads, a.head_dim)
+    if a.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    if positions is not None:
+        q = rope(q, positions, a.rope_theta)
+        k = rope(k, positions, a.rope_theta)
+    elif a.rope_theta > 0:
+        raise ValueError("RoPE needs positions")
     quant_bits = cfg.quant.attn_bits if cfg.quant.enable else 0
-    out = ops.attention(q, k, v, causal=False, quant_bits=quant_bits)
+    if cache is None:
+        out = ops.attention(
+            q, k, v, causal=causal, quant_bits=quant_bits,
+            logit_softcap=a.logit_softcap, local_window=local_window,
+            q_segment_ids=(None if segment_ids is None
+                           else segment_ids.to(torch.int32)))
+    else:
+        smax = cache["k"].shape[1]
+        if 0 < local_window and smax <= local_window:
+            raise NotImplementedError(
+                "sliding-window ring caches (smax <= local_window) are not ported")
+        idx = cache_index
+        if isinstance(idx, torch.Tensor):
+            idx = idx.to(device=x.device, dtype=torch.int32).expand(B)
+        if cache["k"].dtype == torch.int8:
+            k_q, k_s = quantize_kv(k)
+            v_q, v_s = quantize_kv(v)
+            for name, new in (("k", k_q), ("v", v_q), ("k_scale", k_s), ("v_scale", v_s)):
+                _cache_put(cache[name], new, idx)
+            ks, vs = cache["k_scale"], cache["v_scale"]
+        else:
+            _cache_put(cache["k"], k, idx)
+            _cache_put(cache["v"], v, idx)
+            ks = vs = None
+        valid = (idx + S if isinstance(idx, torch.Tensor)
+                 else torch.full((B,), idx + S, dtype=torch.int32, device=x.device))
+        kv_segs = None
+        if segment_ids is not None:
+            kv_segs = torch.nn.functional.pad(
+                segment_ids.to(torch.int32), (0, smax - S), value=-2)
+        out = ops.attention(
+            q, cache["k"], cache["v"], causal=causal, q_offset=idx,
+            quant_bits=quant_bits, logit_softcap=a.logit_softcap,
+            local_window=local_window, k_scale=ks, v_scale=vs, kv_valid_len=valid,
+            q_segment_ids=(None if segment_ids is None
+                           else segment_ids.to(torch.int32)),
+            kv_segment_ids=kv_segs)
     out = out.reshape(B, S, a.num_heads * a.head_dim)
     maybe_record(taps, "attn_out", out)
     if p["wo"].dtype != torch.int8:
@@ -132,4 +241,4 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     y = quant_linear(out, p, "wo", cfg)
     if "bo" in p:
         y = y + p["bo"]
-    return y
+    return y, cache

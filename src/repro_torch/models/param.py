@@ -70,6 +70,13 @@ def init_params(tree, gen: torch.Generator, device):
     return _materialize(tree, gen, device)
 
 
+def tree_to(tree, device):
+    """A nested dict of tensors moved to ``device`` (leaf dtypes kept)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def tree_bytes(tree) -> int:
     """Total bytes of a concrete tree, honoring leaf dtypes."""
     if isinstance(tree, dict):

@@ -38,6 +38,7 @@ from repro_torch.models.transformer import (
     _moe_apply,
     _moe_pdefs,
     _norm_pdefs,
+    layer,
 )
 
 PATCH_DIM = 768  # 16*16*3
@@ -98,13 +99,6 @@ def synth_patches(cfg: ModelConfig, batch: int, seed: int = 0,
         (batch, cfg.image_tokens - 1, PATCH_DIM))).astype(np.float32)
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked subtree."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def embed(params, cfg: ModelConfig, patches: torch.Tensor) -> torch.Tensor:
     """patches [B, image_tokens-1, PATCH_DIM] -> tokens [B, image_tokens, D]
     (patch projection, [CLS], position embedding)."""
@@ -123,17 +117,17 @@ def layers(params, cfg: ModelConfig):
         for i in range(cfg.num_layers // 2):
             for kind in ("pairs_dense", "pairs_moe"):
                 yield (f"L{kind.removeprefix('pairs_')}{i:03d}",
-                       _layer(params[kind], i))
+                       layer(params[kind], i))
     else:
         for i in range(cfg.num_layers):
-            yield f"L{i:03d}", _layer(params["layers"], i)
+            yield f"L{i:03d}", layer(params["layers"], i)
 
 
 def block(x, lp, cfg, taps=None):
     """One pre-norm block; returns (x, aux_loss, expert_counts)."""
     h = apply_norm(x, lp["ln1"], cfg)
     maybe_record(taps, "post_ln1", h)
-    x = x + attention_block(h, lp["attn"], cfg, cfg.attn, taps=taps)
+    x = x + attention_block(h, lp["attn"], cfg, cfg.attn, causal=False, taps=taps)[0]
     h = apply_norm(x, lp["ln2"], cfg)
     maybe_record(taps, "post_ln2", h)
     aux = torch.zeros((), device=x.device)

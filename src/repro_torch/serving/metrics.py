@@ -1,7 +1,8 @@
 """Serving metrics of one engine, a framework-free copy of the engine half
 of ``repro.serving.metrics``: ``hist_percentile``, ``LatencyTracker`` and
-``EngineMetrics`` (the cluster roll-up, program roofline rows and the
-Prometheus export are not ported yet).
+``EngineMetrics`` with the vision and LM counters, tokens/s and per-expert
+occupancy (the cluster roll-up, program roofline rows, expert-health monitor
+and the Prometheus export are not ported yet).
 
 ``EngineMetrics`` is host-side instrumentation only -- counters, latency
 trackers, queue-depth samples and the per-expert routed-token occupancy --
@@ -107,11 +108,21 @@ class LatencyTracker:
 class EngineMetrics:
     """Counters + latency + occupancy for one engine instance.
 
-    Counters the vision engine uses: submitted / completed / rejected
-    (request lifecycle), batches (device batches dispatched), frames (images
-    completed), padded_frames (pad rows added to fill a bucket),
-    pack_real_tokens / pack_pad_tokens (patch tokens dispatched, real and
-    padding).
+    Counters (an engine touches the subset that applies):
+      submitted / completed / rejected -- request lifecycle
+      cancelled        -- deadline drops, queued or mid-generation (LM)
+      batches          -- device batches dispatched (vision)
+      prefill_batches  -- packed-prefill dispatches (LM admission)
+      decode_ticks     -- decode steps dispatched (LM)
+      frames           -- images completed (vision)
+      padded_frames    -- pad rows added to fill a bucket (vision)
+      tokens           -- decode tokens produced (LM)
+      pack_real_tokens / pack_pad_tokens -- real and padding tokens of the
+                          dispatched buffers (LM pack buffer, vision patches)
+      callback_errors / retire_errors    -- ``on_done`` or a retirement
+                          event raised (LM)
+    ``expert_tokens`` accumulates the per-expert routed-token histogram
+    (MoE archs): the occupancy metric.
     """
 
     def __init__(self, num_experts: int = 0,
@@ -178,9 +189,9 @@ class EngineMetrics:
 
     @property
     def fps(self) -> float:
-        """Completed frames per wall second, from the first submission to
-        the last completion."""
-        n = self.counters.get("frames", 0)
+        """Completed frames (or tokens, for the LM engine) per wall second,
+        from the first submission to the last completion."""
+        n = self.counters.get("frames", 0) or self.counters.get("tokens", 0)
         if self._first_t is None or self._last_t is None \
                 or self._last_t <= self._first_t:
             return float("nan")

@@ -26,17 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.param import require_device
+from repro_torch.models.param import require_device, tree_to
 from repro_torch.models.vit import PATCH_DIM, classify
+from repro_torch.serving.engine import serving_config
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.scheduler import MicroBatcher
-
-
-def serving_config(cfg: ModelConfig) -> ModelConfig:
-    """Serving always uses the dropless grouped MoE path."""
-    if cfg.moe is not None and cfg.moe.impl != "grouped":
-        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, impl="grouped"))
-    return cfg
 
 
 @dataclasses.dataclass
@@ -64,12 +58,6 @@ class _InFlight(NamedTuple):
     dispatched_at: float
 
 
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 class VisionEngine:
     """Dynamic-batching MoE-ViT classifier engine on one device (the card
     unless ``device="cpu"``)."""
@@ -90,7 +78,7 @@ class VisionEngine:
             raise ValueError(f"vision families only, got {cfg.family!r}")
         self.device = require_device(device)
         self.cfg = serving_config(cfg)
-        self.params = _to_device(params, self.device)
+        self.params = tree_to(params, self.device)
         self.top_k = min(top_k, cfg.num_classes)
         self.n_patches = cfg.image_tokens - 1
         self.scheduler = MicroBatcher(

@@ -13,6 +13,8 @@ Tolerances:
   * attention, quant_bits=4: atol 1e-4. The score dot products run in
     another order, which can move a score across a .5 code boundary and
     change that key's weight by a factor of sqrt(2).
+The LM attention modes and grouped W4A8 are held in
+tests/test_torch_attention.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +31,7 @@ from repro.kernels.quant_attention import streaming_attention as jax_attention
 from repro_torch.kernels import ops
 from repro_torch.kernels.expert_linear import grouped_matmul, route_metadata
 from repro_torch.kernels.int8_matmul import int8_matmul
-from repro_torch.kernels.quant_attention import streaming_attention
+from repro_torch.kernels.quant_attention import lm_attention, streaming_attention
 
 
 def _i8(rng, *shape):
@@ -168,10 +170,19 @@ def test_attention_matches_reference(B, S, H, KVH, hd, qb):
     np.testing.assert_allclose(port.numpy(), np.asarray(j_kernel), atol=1e-4, rtol=0)
 
 
-def test_causal_attention_is_refused():
-    x = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError):
-        ops.attention(x, x, x, causal=True, quant_bits=4)
+@pytest.mark.parametrize("qb", [0, 4])
+def test_causal_attention_on_cpu_matches_reference(qb):
+    """Causal attention of CPU tensors runs the plain version (the LM
+    kernel's CPU path) and matches the reference oracle."""
+    rng = np.random.default_rng(qb)
+    q = rng.standard_normal((2, 9, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 9, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 9, 2, 16)).astype(np.float32)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    causal=True, quant_bits=qb)
+    got = ops.attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                        causal=True, quant_bits=qb)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("call", [
@@ -179,9 +190,16 @@ def test_causal_attention_is_refused():
                         torch.zeros((4, 3), dtype=torch.int8), 1.0, torch.ones(3)),
     lambda: grouped_matmul(torch.zeros((2, 4)), torch.zeros((1, 4, 3)),
                            torch.tensor([2], dtype=torch.int32)),
+    lambda: grouped_matmul(torch.zeros((2, 4), dtype=torch.int8),
+                           torch.zeros((1, 2, 3), dtype=torch.uint8),
+                           torch.tensor([2], dtype=torch.int32)),
     lambda: streaming_attention(torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 2, 8)),
                                 torch.zeros((1, 4, 2, 8)), quant_bits=4),
-], ids=["int8_matmul", "grouped_matmul", "streaming_attention"])
+    lambda: lm_attention(torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 2, 8), dtype=torch.int8),
+                         torch.zeros((1, 4, 2, 8), dtype=torch.int8), quant_bits=4,
+                         k_scale=torch.ones((1, 4, 2)), v_scale=torch.ones((1, 4, 2))),
+], ids=["int8_matmul", "grouped_matmul", "grouped_matmul_w4a8", "streaming_attention",
+        "lm_attention"])
 def test_kernel_wrappers_launch_only_on_cuda_tensors(call):
     """A kernel wrapper never falls back to its plain version: given CPU
     tensors it refuses (ops routes CPU tensors to the plain versions)."""
@@ -190,25 +208,35 @@ def test_kernel_wrappers_launch_only_on_cuda_tensors(call):
 
 
 def test_cpu_tensors_never_reach_a_kernel():
-    counts = [f.launches for f in (int8_matmul, grouped_matmul, streaming_attention)]
+    kernels = (int8_matmul, grouped_matmul, streaming_attention, lm_attention)
+    counts = [f.launches for f in kernels]
     x = torch.zeros((1, 4, 2, 8))
-    ops.attention(x, x, x, quant_bits=4)
+    x8, s = torch.zeros((1, 4, 2, 8), dtype=torch.int8), torch.ones((1, 4, 2))
+    ops.attention(x, x, x, causal=False, quant_bits=4)
+    ops.attention(x, x, x, causal=True, quant_bits=0)
+    ops.attention(x, x8, x8, quant_bits=4, k_scale=s, v_scale=s,
+                  q_offset=torch.tensor([2]), kv_valid_len=torch.tensor([3]))
     ops.int8_matmul(torch.zeros((2, 4), dtype=torch.int8),
                     torch.zeros((4, 3), dtype=torch.int8), torch.tensor(1.0),
                     torch.ones(3))
     ops.grouped_matmul(torch.zeros((2, 4)), torch.zeros((1, 4, 3)),
                        torch.tensor([2], dtype=torch.int32))
-    assert counts == [f.launches
-                      for f in (int8_matmul, grouped_matmul, streaming_attention)]
+    ops.grouped_matmul(torch.zeros((2, 4)), torch.zeros((1, 2, 3), dtype=torch.uint8),
+                       torch.tensor([2], dtype=torch.int32), w_scale=torch.ones((1, 3)),
+                       a_scale=torch.tensor(0.1))
+    assert counts == [f.launches for f in kernels]
 
 
-@pytest.mark.parametrize("source", ["int8_matmul.cu", "grouped_matmul.cu",
-                                    "quant_attention.cu"])
-def test_kernel_sources_carry_their_notes(source):
+@pytest.mark.parametrize("source,mode", [
+    ("int8_matmul.cu", ""), ("grouped_matmul.cu", ""), ("grouped_matmul.cu", "W4A8"),
+    ("quant_attention.cu", ""), ("lm_attention.cu", ""),
+])
+def test_kernel_sources_carry_their_notes(source, mode):
     """Each CUDA source names the TPU kernel it replaces, what bounds it on
-    the H100 and what its design does about that."""
+    the H100 and what its design does about that (for each mode it runs)."""
     import repro_torch.kernels as K
 
     text = (Path(K.__file__).parent / "csrc" / source).read_text()
     assert "Replaces: src/repro/kernels/" in text
     assert "Bound on the H100" in text and "Design:" in text
+    assert text.count(mode) >= 3  # named in the summary, the bound and the design
