@@ -17,7 +17,11 @@ caught:
                  M3ViT-S shape; then every LM mode of the attention kernel and
                  the grouped W4A8 mode at the OLMoE-1B-7B shapes
                  (``scaled_dot_product_attention`` timed beside each
-                 ``quant_bits=0`` row);
+                 ``quant_bits=0`` row); then ``selective_scan`` at the
+                 falcon-mamba-7b prefill shapes [B, S, di, N] = [1, 256, 8192,
+                 16], [8, 256, 8192, 16] and a ragged S = 200, and state 8 at
+                 [2, 100, 256, 8] (y and h_last within atol = rtol = 1e-5),
+                 timed beside its plain version;
   4. serving  -- full-width M3ViT-S (``configs/moe_vit.py:CONFIG``): seeded fp
                  init on the card, calibration on 2 batches of 2, PTQ to the
                  int8 tree, ``VisionEngine(buckets=(1, 4, 8))`` serving 24
@@ -44,7 +48,22 @@ caught:
                  combine of 8 tokens equals theirs among 512. Printed, not
                  gated: the worst request served alone, and one RMSNorm of 8
                  rows alone against the same rows among 512. Then one decode
-                 tick and one 512-token packed prefill are profiled.
+                 tick and one 512-token packed prefill are profiled;
+  8. ssm      -- the OLMoE trees and engines freed (at most 1 GB of the
+                 earlier phases may stay allocated), full-width falcon-mamba-7b
+                 (``configs/falcon_mamba_7b.py``, seeded f32 init on the card,
+                 28 GB) served by
+                 ``ServeEngine(batch_slots=8, max_len=512)`` through the grouped
+                 same-length admission path: 16 seeded requests with prompts
+                 of 64, 128 or 256 tokens and 32 new tokens. Gates: the scan
+                 launches exactly 64 times per grouped prefill dispatch and
+                 never in a decode tick, no other kernel is launched, every
+                 request completes, and the engine's logits at every step of
+                 every request match ``forward`` over the same prefix within
+                 ``SSM_TF_LIMIT``, and the first wave served again with TF32
+                 matmuls or with a bf16 conv history fails that gate. One
+                 decode tick and one grouped prefill of 8 x 256 tokens are
+                 profiled.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before that
@@ -74,12 +93,14 @@ REPLACES = {
     "grouped_matmul": "src/repro/kernels/expert_linear.py:172",
     "streaming_attention": "src/repro/kernels/quant_attention.py:207",
     "lm_attention": "src/repro/kernels/quant_attention.py:207",
+    "selective_scan": "src/repro/kernels/selective_scan.py:70",
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
     "streaming_attention": "src/repro_torch/kernels/csrc/quant_attention.cu",
     "lm_attention": "src/repro_torch/kernels/csrc/lm_attention.cu",
+    "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
 }
 # kernel launches per int8 forward of M3ViT-S: 6 dense layers x (q, k, v, o,
 # fc1, fc2) + 6 MoE layers x (q, k, v, o, gate) + head; 6 MoE layers x (fc1,
@@ -99,6 +120,27 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 512, 16, 32
 # or scale) moves nearly every step by the size of the logits.
 LM_TF_STEPS = (0, 1, 2, 3, 5, 8, 13, 21, 31)
 LM_TF_LIMITS = {"int8": (0.15, 0.4, 14), "int4": (0.15, 0.4, 14)}
+# falcon-mamba-7b serving: 64 layers, one selective_scan launch each per
+# grouped prefill dispatch; 8 slots, 16 requests of 64, 128 or 256 prompt
+# tokens and 32 new tokens
+SSM_LAYERS, SSM_SLOTS, SSM_MAX_LEN = 64, 8, 512
+SSM_REQUESTS, SSM_NEW_TOKENS, SSM_PROMPT_LENS = 16, 32, (64, 128, 256)
+# teacher-forced gate: at every step of every request, max |engine logit -
+# forward logit| / max |forward logit|, limits on the median and the max
+# over all steps. All f32 with no quantizer and no routing: the two differ
+# only in the order of f32 sums (matmuls of other shapes, the scan against
+# the one-step decode update), but 64 random-weight layers amplify a
+# last-bit difference ~1e3-1e4-fold (``tests/test_torch_ssm.py::
+# test_deep_decode_is_as_accurate_as_forward``: ~3e-4 on the CPU, and the
+# f32 forward as far from f64). An H100 read median 5.34e-4, max 3.92e-3;
+# the limits sit 3x above. Two controls of rounding size must fail it
+# (``SSM_CONTROLS``), and a fault (wrong slot, state, row or position) moves
+# a step's logits by their size.
+SSM_TF_LIMIT = (1.6e-3, 1.2e-2)
+# the controls: the first admission wave served again with TF32 matmuls
+# (10-bit mantissa), and with its conv history rounded to bf16 (the
+# reference engine's cache layout)
+SSM_CONTROLS = ("tf32 matmuls", "bf16 conv history")
 
 
 def emit(obj) -> None:
@@ -539,10 +581,66 @@ def _check_attention(gen) -> dict:
     }
 
 
+def _check_selective_scan(gen) -> dict:
+    """The scan at the falcon-mamba-7b prefill shapes (d_inner 8192, state
+    16): one prompt and a group of 8 of 256 tokens, and a ragged S = 200;
+    then state 8 (the smoke config's) at [2, 100, 256, 8].
+    dt as the model makes it (softplus), A as Mamba initializes it
+    (-(n + 1)). Only the order of the 16-term sum in y differs from the
+    plain version; h_last is reported bit-equal or not."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    di, N = 8192, 16
+    tol = dict(atol=1e-5, rtol=1e-5)
+    a = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32).expand(di, N).contiguous()
+    d = torch.randn((di,), generator=gen, device="cuda")
+    row = {"name": "selective_scan", "max_abs_err": 0.0, "h_bit_equal": [],
+           "tolerance": "atol=1e-5, rtol=1e-5", "library_ms": None, "timings": []}
+    for B, S in ((1, 256), (8, 200), (8, 256)):
+        x = torch.randn((B, S, di), generator=gen, device="cuda")
+        dt = torch.nn.functional.softplus(torch.randn((B, S, di), generator=gen, device="cuda"))
+        b, c = (torch.randn((B, S, N), generator=gen, device="cuda") for _ in "bc")
+        (y, h), (yr, hr) = selective_scan(x, dt, b, c, a, d), ref.selective_scan_ref(
+            x, dt, b, c, a, d)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, yr, **tol)
+        torch.testing.assert_close(h, hr, **tol)
+        row["max_abs_err"] = max(row["max_abs_err"], max_err(y, yr), max_err(h, hr))
+        row["h_bit_equal"].append(torch.equal(h, hr))
+        if S == 200:
+            continue
+        nb, by = bound_ms(4 * (3 * B * S * di + 2 * B * S * N + di * N + di + B * di * N),
+                          7.0 * B * S * di * N, F32_OPS_PER_S)
+        t = {"label": f"prefill_{B}x{S}", "shape": [B, S, di, N],
+             "ms": time_ms(lambda: selective_scan(x, dt, b, c, a, d)),
+             "plain_ms": time_ms(lambda: ref.selective_scan_ref(x, dt, b, c, a, d), iters=3),
+             "bound_ms": nb, "bound_by": by}
+        row["timings"].append(t)
+    # the other state size the kernel is built for, at the smoke config's
+    # d_inner and a ragged S
+    B, S, di8, N8 = 2, 100, 256, 8
+    x, dt = (torch.randn((B, S, di8), generator=gen, device="cuda") for _ in "xt")
+    dt = torch.nn.functional.softplus(dt)
+    b, c = (torch.randn((B, S, N8), generator=gen, device="cuda") for _ in "bc")
+    a8 = -torch.arange(1, N8 + 1, device="cuda", dtype=torch.float32).expand(di8, N8).contiguous()
+    d8 = torch.randn((di8,), generator=gen, device="cuda")
+    (y, h), (yr, hr) = (selective_scan(x, dt, b, c, a8, d8),
+                        ref.selective_scan_ref(x, dt, b, c, a8, d8))
+    torch.testing.assert_close(y, yr, **tol)
+    torch.testing.assert_close(h, hr, **tol)
+    row["max_abs_err"] = max(row["max_abs_err"], max_err(y, yr), max_err(h, hr))
+    row["h_bit_equal"].append(torch.equal(h, hr))
+    row.update({k: row["timings"][-1][k] for k in
+                ("shape", "ms", "plain_ms", "bound_ms", "bound_by")})
+    return row
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [_check_int8_matmul(gen), *_check_grouped_matmul(gen), _check_attention(gen),
-            _check_grouped_w4a8(gen), *_check_lm_attention(gen)]
+            _check_grouped_w4a8(gen), *_check_lm_attention(gen),
+            _check_selective_scan(gen)]
     for row in rows:
         row["route"] = "cuda"
         base = row["name"].split("[")[0].removesuffix("_f32").removesuffix("_w4a8")
@@ -555,9 +653,11 @@ def _counters():
     from repro_torch.kernels.expert_linear import grouped_matmul
     from repro_torch.kernels.int8_matmul import int8_matmul
     from repro_torch.kernels.quant_attention import lm_attention, streaming_attention
+    from repro_torch.kernels.selective_scan import selective_scan
 
     return {"int8_matmul": int8_matmul, "grouped_matmul": grouped_matmul,
-            "streaming_attention": streaming_attention, "lm_attention": lm_attention}
+            "streaming_attention": streaming_attention, "lm_attention": lm_attention,
+            "selective_scan": selective_scan}
 
 
 def _reset_counts() -> None:
@@ -886,6 +986,148 @@ def _profile(tag: str, label: str, smi: str, n: int, fn) -> dict:
             "kernels": kernels}
 
 
+def phase_ssm(smi: str) -> dict:
+    """Full-width falcon-mamba-7b served through the grouped same-length
+    admission path (see the module docstring, phase 8)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models import init_model_params, ssm_lm, tree_bytes
+    from repro_torch.serving import Request, ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    if left > 1.0:  # the OLMoE trees and engines must be gone
+        raise AssertionError(f"[ssm] {left:.2f} GB of earlier phases still allocated")
+    cfg = get_config("falcon-mamba-7b")
+    t0 = time.perf_counter()
+    params = init_model_params(cfg, seed=0, device="cuda")
+    eng = ServeEngine(cfg, params, batch_slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+                      device="cuda", keep_logits=True)
+    eng.warmup()
+    torch.cuda.synchronize()
+    print(f"[ssm] {cfg.name}: {tree_bytes(params) / 1e9:.2f} GB f32 ({left:.2f} GB "
+          f"of earlier phases left on the card); init + warmup "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(7)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new_tokens=SSM_NEW_TOKENS)
+            for i, n in enumerate(rng.choice(SSM_PROMPT_LENS, SSM_REQUESTS))]
+    c = eng.metrics.counters
+    _reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while eng.active or eng.scheduler.depth:
+        before, dispatches = selective_scan.launches, c.get("prefill_batches", 0)
+        eng.step()
+        steps += 1
+        grew = selective_scan.launches - before
+        if grew != SSM_LAYERS * (c.get("prefill_batches", 0) - dispatches):
+            raise AssertionError(f"[ssm] step {steps}: {grew} scan launches for "
+                                 f"{c.get('prefill_batches', 0) - dispatches} prefill "
+                                 f"dispatches and one decode tick")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    others = {k: n for k, n in counts.items() if n and not k.startswith("selective_scan")}
+    if counts["selective_scan"] != SSM_LAYERS * c["prefill_batches"] or others:
+        raise AssertionError(f"[ssm] launches {counts} for {c['prefill_batches']} dispatches")
+    for r in reqs:
+        if r.status != "completed" or len(r.generated) != SSM_NEW_TOKENS:
+            raise AssertionError(f"[ssm] request {r.uid}: {r.status}, "
+                                 f"{len(r.generated)} tokens")
+    snap = eng.metrics.snapshot()
+    lat = snap["latency_ms"]
+    tokens = sum(len(r.generated) for r in reqs)
+    print(f"[ssm] smoke figure, not a benchmark ({smi}): {len(reqs)} requests, {tokens} "
+          f"tokens in {wall:.2f} s = {tokens / wall:.1f} tok/s; latency p50 "
+          f"{lat['p50']:.1f} ms, p99 {lat['p99']:.1f} ms; {c['prefill_batches']} grouped "
+          f"prefill dispatches, {c['decode_ticks']} ticks; launches {counts} (gate: "
+          f"{SSM_LAYERS} per dispatch, 0 per tick, checked at every step)", flush=True)
+
+    rel, agree = _ssm_teacher_forced(params, cfg, reqs)
+    print(f"[ssm] teacher-forced logits vs forward, {len(reqs)} requests x "
+          f"{SSM_NEW_TOKENS} steps: relative max err median {np.median(rel):.3g}, p90 "
+          f"{np.quantile(rel, 0.9):.3g}, max {rel.max():.3g}; by step (max over "
+          f"requests) {[float(f'{v:.2g}') for v in rel.max(0)]}; greedy token agreement "
+          f"{agree}/{rel.size}; gate: median <= {SSM_TF_LIMIT[0]}, max <= "
+          f"{SSM_TF_LIMIT[1]}", flush=True)
+    if not _ssm_tf_pass(rel):
+        raise AssertionError("[ssm] teacher-forced logits disagree")
+    controls = {name: _ssm_control(name, params, cfg, reqs[:SSM_SLOTS])
+                for name in SSM_CONTROLS}
+
+    tok = torch.zeros((SSM_SLOTS, 1), dtype=torch.int32, device="cuda")
+    group = torch.zeros((SSM_SLOTS, SSM_PROMPT_LENS[-1]), dtype=torch.int32, device="cuda")
+    profile = {
+        "decode tick": _profile("profile ssm", "decode tick, 8 slots", smi, 3,
+                                lambda: ssm_lm.decode_step(params, cfg, tok, eng.cache)),
+        "grouped prefill": _profile("profile ssm", "grouped prefill, 8 x 256", smi, 2,
+                                    lambda: ssm_lm.prefill(params, cfg, group)),
+    }
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"counts": counts, "counters": dict(c), "tok_s": tokens / wall,
+            "latency_ms": lat, "tf_max": float(rel.max()), "controls": controls,
+            "profile": profile}
+
+
+def _ssm_teacher_forced(params, cfg, reqs):
+    """One forward over each request's prompt and generated tokens gives
+    the logits behind every step. Returns (relative max error [requests,
+    steps], the number of steps whose greedy token agrees)."""
+    from repro_torch.models import forward
+
+    rel, agree = [], 0
+    with torch.inference_mode():
+        for r in reqs:
+            toks = torch.tensor([list(map(int, r.prompt)) + r.generated[:-1]], device="cuda")
+            want = forward(params, cfg, toks)[0][0, len(r.prompt) - 1:]
+            got = torch.stack(r.step_logits)
+            rel.append(((got - want).abs().amax(-1) / want.abs().amax(-1)).cpu().numpy())
+            agree += int((want.argmax(-1).cpu() == torch.tensor(r.generated)).sum())
+    return np.stack(rel), agree
+
+
+def _ssm_tf_pass(rel) -> bool:
+    return bool(np.median(rel) <= SSM_TF_LIMIT[0] and rel.max() <= SSM_TF_LIMIT[1])
+
+
+def _ssm_control(name: str, params, cfg, first) -> dict:
+    """Serve the first admission wave again with one rounding fault (see
+    ``SSM_CONTROLS``) and hold it against the f32 forward: the gate must
+    fail it, or it could not see a fault of that size."""
+    from repro_torch.models import ssm_lm
+    from repro_torch.serving import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, batch_slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+                      device="cuda", keep_logits=True)
+    if name == "bf16 conv history":
+        eng.cache = ssm_lm.init_cache(cfg, SSM_SLOTS, SSM_MAX_LEN, device="cuda")
+    reqs = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=SSM_NEW_TOKENS)
+            for r in first]
+    precision = torch.get_float32_matmul_precision()
+    if name == "tf32 matmuls":
+        torch.set_float32_matmul_precision("high")
+    try:
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    rel, agree = _ssm_teacher_forced(params, cfg, reqs)
+    print(f"[ssm] control, {name}: {len(reqs)} requests x {SSM_NEW_TOKENS} steps, "
+          f"relative max err median {np.median(rel):.3g}, max {rel.max():.3g}; greedy "
+          f"token agreement {agree}/{rel.size} (must fail the gate)", flush=True)
+    if _ssm_tf_pass(rel):
+        raise AssertionError(f"[ssm] the teacher-forced gate passes the control {name!r}")
+    return {"median": float(np.median(rel)), "max": float(rel.max()), "agree": agree}
+
+
 def phase_e2e(qcfg, p_int8) -> None:
     """The int8 forward on the card against the same tree on the CPU (plain
     versions). Free-running, the two drift apart: a score or activation
@@ -938,12 +1180,15 @@ def phase_profile(qcfg, p_int8, smi: str) -> None:
              lambda: classify(p_int8, qcfg, x))
 
 
-def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict) -> int:
+def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) -> int:
     """A row's launches on the main path: the vision serving run, and for
     the modes the LM runs, the two OLMoE serving runs (the fp32 grouped and
-    calibration attention rows: the calibration forwards)."""
+    calibration attention rows: the calibration forwards); the scan's, the
+    falcon-mamba serving run."""
     runs = [r["counts"] for r in lm["runs"].values()]
     name = row["name"]
+    if name == "selective_scan":
+        return ssm["counts"]["selective_scan"]
     if name == "grouped_matmul_f32":
         return vision_calib["grouped_matmul"] + lm["calib_counts"]["grouped_matmul:f32"]
     if name == "grouped_matmul":
@@ -967,10 +1212,12 @@ def main() -> None:
     del p_int8
     torch.cuda.empty_cache()
     lm = phase_lm(smi)
+    ssm = phase_ssm(smi)
     for row in rows:
-        row["launches"] = _launches(row, counts, calib_counts, lm)
+        row["launches"] = _launches(row, counts, calib_counts, lm, ssm)
     for name in ("int8_matmul", "grouped_matmul", "grouped_matmul_w4a8",
-                 "lm_attention[packed_prefill]", "lm_attention[decode_int8]"):
+                 "lm_attention[packed_prefill]", "lm_attention[decode_int8]",
+                 "selective_scan"):
         row = next(r for r in rows if r["name"] == name)
         if row["launches"] == 0:
             raise AssertionError(f"{name} was not launched on the main path")

@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the paper's eight vision configs and
-the MoE LM it serves (OLMoE-1B-7B)."""
+"""Architecture registry of the port: the paper's eight vision configs, the
+MoE LM it serves (OLMoE-1B-7B) and the Mamba-1 LM (falcon-mamba-7b)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,10 +12,13 @@ from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
     QuantConfig,
+    SSMConfig,
 )
+from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
 from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE_1B_7B
 
 REGISTRY: Dict[str, ModelConfig] = {OLMOE_1B_7B.name: OLMOE_1B_7B,
+                                    FALCON_MAMBA_7B.name: FALCON_MAMBA_7B,
                                     **_moe_vit.ALL}
 
 
@@ -30,21 +33,25 @@ def get_config(arch: str) -> ModelConfig:
 def smoke_config(arch: str) -> ModelConfig:
     """A reduced config of the same family for CPU smoke tests (the rules of
     ``repro.configs.smoke_config``): 4 layers, d=64, 4 heads of 16, 8
-    experts with d_ff 32, vocab at most 256; vision configs get 10 classes
-    and 17 tokens."""
+    experts with d_ff 32, SSM state 8, vocab at most 256; vision configs get
+    10 classes and 17 tokens."""
     cfg = get_config(arch)
-    ratio = max(1, cfg.attn.num_heads // cfg.attn.num_kv_heads)
     kw = dict(
         name=cfg.name + "-smoke",
         num_layers=min(cfg.num_layers, 4),
         d_model=64,
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 256) if cfg.vocab_size else 0,
-        attn=dataclasses.replace(
+    )
+    if cfg.attn is not None:
+        ratio = max(1, cfg.attn.num_heads // cfg.attn.num_kv_heads)
+        kw["attn"] = dataclasses.replace(
             cfg.attn, num_heads=4, num_kv_heads=max(1, 4 // ratio),
             head_dim=16, local_window=16 if cfg.attn.local_window else 0,
-        ),
-    )
+        )
+    if cfg.ssm is not None:
+        kw["ssm"] = dataclasses.replace(
+            cfg.ssm, state_dim=8, head_dim=16 if cfg.ssm.version == 2 else 64)
     if cfg.moe is not None:
         kw["moe"] = dataclasses.replace(
             cfg.moe, num_experts=8, top_k=min(cfg.moe.top_k, 2), d_ff=32
@@ -62,6 +69,7 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "QuantConfig",
+    "SSMConfig",
     "get_config",
     "smoke_config",
 ]

@@ -1,7 +1,7 @@
 """Config dataclasses of the PyTorch port.
 
-A copy of the fields of ``repro.configs.base`` that the ViT and LM serving
-paths read; the port keeps its own configs so that it never imports the JAX
+A copy of the fields of ``repro.configs.base`` that the ViT, LM and SSM
+serving paths read; the port keeps its own configs so that it never imports the JAX
 package. The names, defaults and meanings are the reference's, so a test can
 compare the two field by field.
 """
@@ -44,6 +44,23 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int
+    version: int = 1  # 1 = Mamba-1 (falcon-mamba), 2 = Mamba-2 (zamba2)
+    expand: int = 2
+    conv_width: int = 4
+    head_dim: int = 64  # mamba2 only
+    dt_rank: int = 0  # mamba1; 0 = ceil(d_model / 16)
+    scan_chunk: int = 128  # the reference's chunked-scan length (unused here)
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_ssm_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class QuantConfig:
     """The paper's dual-stage quantization scheme (CoQMoE section 3)."""
 
@@ -75,7 +92,7 @@ class ContinuousBatchingConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # moe | dense | vit | vit_moe (M3ViT: every other block is MoE)
+    family: str  # moe | dense | ssm | vit | vit_moe (M3ViT: every other block is MoE)
     num_layers: int
     d_model: int
     d_ff: int
@@ -85,6 +102,7 @@ class ModelConfig:
     glu: bool = True
     attn: Optional[AttnConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     tie_embeddings: bool = False
     embed_scale: bool = False  # gemma: scale embeds by sqrt(d_model)
     post_block_norm: bool = False  # gemma2 sandwich norms

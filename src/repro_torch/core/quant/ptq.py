@@ -1,13 +1,13 @@
 """PTQ driver (CoQMoE section 3): calibrate -> reparameterize -> quantize,
-ported from ``repro.core.quant.ptq`` for the vision (vit, vit_moe) and LM
-(dense, moe) families.
+ported from ``repro.core.quant.ptq`` for the vision (vit, vit_moe), LM
+(dense, moe) and Mamba-1 (ssm: fold and fake-quant only) families.
 
   1. ``calibrate_model`` runs the fp model over a few batches while a
      ``TapCollector`` records per-channel min/max at every post-norm site
      and per-tensor absmax at the other linear inputs.
   2. ``ptq_model`` folds the post-norm reparameterization (Eqs. 10-16)
      into each norm and inversely into its consumers (QKV, MLP fc1, every
-     expert's fc1 and the gate; RMSNorm models use the symmetric r2 == 0
+     expert's fc1 and the gate, the Mamba in_proj; RMSNorm models use the symmetric r2 == 0
      variant, ``(1+g)' = (1+g)/r1 - 1``), inserts the ``a_scale`` /
      ``wo_a_scale`` activation scales, and quantizes the weights per output
      channel:
@@ -34,12 +34,16 @@ from repro_torch.core.quant.calibrate import TapCollector
 from repro_torch.core.quant.linear_quant import fake_quant_weight, quantize_weight
 from repro_torch.core.quant.qtypes import ASCALE_SUFFIX, SCALE_SUFFIX, pack_int4, qmax
 
-# Families whose every linear call site routes through ``quant_linear``.
-FAMILIES = frozenset({"dense", "moe", "vit", "vit_moe"})
+# Families PTQ folds and fake-quantizes.
+FAMILIES = frozenset({"dense", "moe", "ssm", "vit", "vit_moe"})
+# Families whose every linear call site routes through ``quant_linear``:
+# the only ones with stored int8 / int4 trees.
+INT8_FAMILIES = frozenset({"dense", "moe", "vit", "vit_moe"})
 
 # Leaf keys treated as quantizable linear weights (per-out-channel int8).
 QUANT_WEIGHT_KEYS = frozenset(
-    {"wq", "wk", "wv", "wo", "wi", "gate", "lm_head", "head", "patch_proj"}
+    {"wq", "wk", "wv", "wo", "wi", "gate", "lm_head", "head", "patch_proj",
+     "in_proj", "out_proj"}
 )
 
 MATERIALIZE_MODES = ("fake", "int8", "int4")
@@ -58,6 +62,7 @@ _ATTN_SITE = (("ln1",), "post_ln1", [(("attn", "wq"), "bq"),
 _MLP_SITE = (("ln2",), "post_ln2", [(("mlp", "wi"), "bi")])
 _MOE_SITE = (("ln2",), "post_ln2", [(("moe", "gate"), "gate_b"),
                                     (("moe", "wi"), "bi")])
+_SSM_SITE = (("ln",), "post_ln1", [(("mamba", "in_proj"), "in_bias")])
 _MID_SITES = [  # (subtree, tap_suffix) -> wo_a_scale insertion points
     (("attn",), "attn_out"),
     (("mlp",), "mlp_mid"),
@@ -252,10 +257,21 @@ def _materialize_stored(tree, bits: int, scheme=None, path: Tuple[str, ...] = ()
     return out
 
 
-def _layer_groups(p) -> List[Tuple[str, str]]:
-    return [(key, prefix) for key, prefix in (
-        ("layers", "L"), ("pairs_dense", "Ldense"), ("pairs_moe", "Lmoe"))
-        if key in p]
+def _layer_groups(cfg: ModelConfig, p) -> List[Tuple[str, str, list]]:
+    """(params key, tap prefix, norm sites) of each stacked layer group."""
+    if cfg.family == "ssm":
+        return [("layers", "L", [_SSM_SITE])]
+    return [(key, prefix, [_ATTN_SITE, _MOE_SITE if "moe" in p[key] else _MLP_SITE])
+            for key, prefix in (("layers", "L"), ("pairs_dense", "Ldense"),
+                                ("pairs_moe", "Lmoe"))
+            if key in p]
+
+
+def _n_stack(sub: dict) -> int:
+    leaf = sub
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
 
 
 def _validated_scheme(cfg: ModelConfig, materialize: str):
@@ -288,19 +304,30 @@ def ptq_model(cfg: ModelConfig, params, taps: TapCollector, *,
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"PTQ of family {cfg.family!r} is not ported (supported: {sorted(FAMILIES)})")
+    if materialize in ("int8", "int4") and not fold_only \
+            and cfg.family not in INT8_FAMILIES:
+        raise NotImplementedError(
+            f"{materialize} materialization needs every linear site of the family "
+            f"to route through quant_linear; {cfg.family!r} does not "
+            f"(supported: {sorted(INT8_FAMILIES)})")
     scheme = _validated_scheme(cfg, materialize)
     rms = cfg.norm == "rmsnorm"
     a_bits = cfg.quant.a_bits
     ascale = materialize in ("int8", "int4") and not fold_only
     p = _copy(params)
-    head_key = "head" if cfg.family in ("vit", "vit_moe") else "lm_head"
+    # the final norm folds into an untied head only: a tied head is the
+    # embedding, which the fold would change for the input too
+    head_key = None
+    if cfg.family in ("vit", "vit_moe"):
+        head_key = "head"
+    elif not cfg.tie_embeddings and "lm_head" in p:
+        head_key = "lm_head"
     device = p["final_norm"]["scale"].device
 
-    for key, prefix in _layer_groups(p):
+    for key, prefix, sites in _layer_groups(cfg, p):
         sub = p[key]
-        n = sub["ln1"]["scale"].shape[0]
-        for norm_path, suffix, consumers in (
-                _ATTN_SITE, _MOE_SITE if "moe" in sub else _MLP_SITE):
+        n = _n_stack(sub)
+        for norm_path, suffix, consumers in sites:
             names = [f"{prefix}{i:03d}.{suffix}" for i in range(n)]
             if any(nm not in taps.stats for nm in names):
                 continue
@@ -325,7 +352,7 @@ def ptq_model(cfg: ModelConfig, params, taps: TapCollector, *,
                     dtype=torch.float32, device=device)
 
     # Final norm -> head consumer (single, unstacked site).
-    if "final_norm" in taps.stats and head_key in p:
+    if "final_norm" in taps.stats and head_key is not None:
         r1, r2, s, s_tilde = _stacked_factors(taps, ["final_norm"], a_bits, rms,
                                               device)
         _fold_norm(p["final_norm"], r1[0], r2[0], s[0], rms)

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "quant_attention_launch": (_I, [_P] * 4 + [_I] * 7 + [_F, _P]),
     "quant_attention_smem_bytes": (_SZ, [_I, _I]),
     "lm_attention_launch": (_I, [_P] * 3 + [_I] + [_P] * 7 + [_I] * 9 + [_F] * 2 + [_P]),
+    "selective_scan_launch": (_I, [_P] * 8 + [_I] * 4 + [_P]),
 }
 
 

@@ -21,6 +21,7 @@ from repro_torch.kernels.quant_attention import (
     lm_attention,
     streaming_attention,
 )
+from repro_torch.kernels.selective_scan import selective_scan as _scan_kernel
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -129,3 +130,13 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale: torch.Te
     if x_q.is_cuda:
         return _int8_kernel(x_q, w_q, x_scale, w_scale, bias)
     return _ref.int8_matmul_ref(x_q, w_q, x_scale, w_scale, bias)
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, d: torch.Tensor):
+    """Mamba-1 selective scan, the state on-chip for the whole sequence
+    (O(S d) device-memory traffic). Returns (y [B, S, di], h_last
+    [B, di, N] f32)."""
+    if x.is_cuda:
+        return _scan_kernel(x, dt, b, c, a, d)
+    return _ref.selective_scan_ref(x, dt, b, c, a, d)

@@ -143,3 +143,27 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale,
     if bias is not None:
         y = y + bias
     return y
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, d: torch.Tensor):
+    """Mamba-1 selective scan over x, dt [B, S, di] (dt after softplus),
+    b, c [B, S, N], a [di, N] (negative) and d [di]:
+    h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) b_t, y_t = h_t c_t + d x_t.
+
+    Returns (y [B, S, di] in x's dtype, h_last [B, di, N] f32). A loop over
+    time in the kernel's order and rounding (each product and sum rounded
+    to f32 on its own), so the state needs [B, di, N] only; the reference's
+    associative scan holds [B, S, di, N]."""
+    f32 = torch.float32
+    B, S, di = x.shape
+    a = a.to(f32)
+    h = torch.zeros((B, di, b.shape[-1]), dtype=f32, device=x.device)
+    y = torch.empty((B, S, di), dtype=f32, device=x.device)
+    for t in range(S):
+        dt_t = dt[:, t].to(f32)
+        decay = torch.exp(dt_t[:, :, None] * a)
+        u = (dt_t * x[:, t].to(f32))[:, :, None] * b[:, t, None, :].to(f32)
+        h = decay * h + u
+        y[:, t] = (h * c[:, t, None, :].to(f32)).sum(-1)
+    return (y + x.to(f32) * d.to(f32)).to(x.dtype), h

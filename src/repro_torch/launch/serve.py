@@ -6,7 +6,12 @@ path).
       --quantized --requests 16 --prompt-len 64 --new-tokens 32 \\
       --slots 8 --max-len 512
 
-Weights are random, drawn on the device from ``--seed``. ``--quantized``
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --requests 16 --prompt-len 64 --new-tokens 32 --slots 8 --max-len 512
+
+The MoE LM admits through packed prefill; falcon-mamba (no packed prefill)
+through the grouped same-length path, its prefill through the selective-scan
+kernel. Weights are random, drawn on the device from ``--seed``. ``--quantized``
 turns on the serving quantization of the reference launcher: the int8 K/V
 cache and the 4-bit log-sqrt2 attention over the fp weights (a PTQ'd
 QuantizedParams tree is served through ``ServeEngine`` directly; see

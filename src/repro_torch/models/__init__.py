@@ -1,10 +1,12 @@
 """Models of the port (``repro.models``): the vision families (ViT, DeiT,
-M3ViT) and the decoder-only LM families (dense, MoE), behind one registry.
+M3ViT), the decoder-only LM families (dense, MoE) and the Mamba-1 LM
+(ssm), behind one registry.
 
 ``module_for(cfg)`` returns the family module; each exposes
 ``abstract_params(cfg)`` and ``forward(params, cfg, x, taps)`` (x: patches
 for the vision families, tokens for the LM), and the LM also ``prefill``,
-``prefill_packed``, ``decode_step`` and ``init_cache``.
+``decode_step`` and ``init_cache`` (the transformer also
+``prefill_packed``).
 """
 from types import ModuleType
 
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer, vit
+from repro_torch.models import ssm_lm, transformer, vit
 from repro_torch.models.param import init_params, require_device, tree_bytes
 from repro_torch.models.vit import (
     PATCH_DIM,
@@ -24,6 +26,7 @@ from repro_torch.models.vit import (
 _FAMILY_MODULES = {
     "dense": transformer,
     "moe": transformer,
+    "ssm": ssm_lm,
     "vit": vit,
     "vit_moe": vit,
 }
@@ -68,6 +71,7 @@ __all__ = [
     "forward",
     "init_model_params",
     "module_for",
+    "ssm_lm",
     "synth_batch",
     "synth_patches",
     "transformer",

@@ -1,6 +1,8 @@
 """Continuous-batching LM serving engine on one device, ported from
 ``repro.serving.engine``: ``Request`` and ``ServeEngine`` with packed
-prefill, the per-slot decode tick and asynchronous retirement.
+prefill, the per-slot decode tick and asynchronous retirement, and the
+grouped same-length admission path of the families without a packed
+prefill (ssm).
 
 A fixed batch of ``batch_slots`` decode slots shares one K/V cache
 [layers, slots, max_len, ...] (int8 with per-position scales under
@@ -18,9 +20,17 @@ the retirement thread, which alone copies it to the host, appends to each
 request, checks ``eos_id`` and fires ``on_done``. Slot lifetimes are
 host-deterministic (emission counts), so slots free without reading tokens.
 
+A family without ``prefill_packed`` (or ``serve.packed_prefill=False``)
+takes the grouped path instead, as the reference decides it: the polled
+prompts of one length prefill as one ``[n, S]`` batch, each row of the
+prefilled state (SSM: ``h`` and the conv history, kept in f32, the dtype
+``prefill`` and ``decode_step`` produce) is copied into its slot, and the
+decode tick reads its tokens from the host, takes the argmax there, checks
+``eos_id`` and retires inline.
+
 The reference's tracer, event log, introspection, expert-health monitor,
-mesh / expert-parallel placement, autotune warmup, eviction and the grouped
-(ring-cache) admission path are not ported.
+mesh / expert-parallel placement, autotune warmup, eviction and ring
+cache are not ported.
 """
 from __future__ import annotations
 
@@ -28,13 +38,14 @@ import dataclasses
 import queue
 import threading
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import module_for
 from repro_torch.models.param import require_device, tree_to
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.scheduler import MicroBatcher
@@ -57,6 +68,26 @@ def _pow2_ladder(lo: int, hi: int) -> Tuple[int, ...]:
         b *= 2
     out.append(hi)
     return tuple(sorted(set(out)))
+
+
+def _retire_loop(engine_ref, rq: "queue.Queue") -> None:
+    """The retirement thread: consume events in order until the ``None``
+    sentinel that follows its engine's collection."""
+    while True:
+        ev = rq.get()
+        engine = None if ev is None else engine_ref()
+        try:
+            if engine is None:
+                return
+            try:
+                engine._consume(ev)
+            except Exception:
+                # a poisoned event must not kill the thread: later events
+                # would strand; the counter makes the loss visible
+                engine.metrics.inc("retire_errors")
+        finally:
+            del engine  # hold no reference while blocked on the queue
+            rq.task_done()
 
 
 @dataclasses.dataclass
@@ -87,8 +118,9 @@ class ServeEngine:
     ``device="cpu"``). ``params`` may be an fp tree, a fake-quant PTQ tree
     or a QuantizedParams tree (``ptq_model(..., materialize="int8"|"int4")``),
     executed in its stored format through the ``quant_linear`` and
-    ``grouped_mlp`` seams. ``max_pending > 0`` bounds the queue (``submit``
-    then raises ``scheduler.Backpressure``); ``metrics`` exposes tokens/s,
+    ``grouped_mlp`` seams (the ssm family: an fp or fake-quant tree).
+    ``max_pending > 0`` bounds the queue (``submit`` then raises
+    ``scheduler.Backpressure``); ``metrics`` exposes tokens/s,
     request latency percentiles, queue depth, the pack counters and (MoE)
     per-expert routed-token occupancy. ``keep_logits=True`` keeps the
     logits behind every generated token on the request (device tensors,
@@ -99,12 +131,14 @@ class ServeEngine:
                  eos_id: Optional[int] = None,
                  clock: Callable[[], float] = time.monotonic,
                  device="cuda", keep_logits: bool = False) -> None:
-        if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"decoder families only, got {cfg.family!r}")
         self.cfg = cfg = serving_config(cfg)
-        if not cfg.serve.packed_prefill:
-            raise NotImplementedError(
-                "only packed-prefill admission is ported (serve.packed_prefill)")
+        self.mod = module_for(cfg)
+        if not hasattr(self.mod, "decode_step"):
+            raise ValueError(f"decoder families only, got {cfg.family!r}")
+        # packed prefill needs the transformer's prefill_packed; every other
+        # family keeps the grouped same-length admission path
+        self._packed = bool(cfg.serve.packed_prefill
+                            and hasattr(self.mod, "prefill_packed"))
         self.device = require_device(device)
         self.params = tree_to(params, self.device)
         self.B = batch_slots
@@ -112,8 +146,13 @@ class ServeEngine:
         self._clock = clock
         self._eos_id = eos_id
         self._keep_logits = keep_logits
-        self.cache = transformer.init_cache(cfg, batch_slots, max_len,
-                                            device=self.device)
+        # K/V caches keep init_cache's default dtype, as in the reference; a
+        # recurrent state keeps the f32 that prefill and decode_step build
+        # (the reference rounds a first admission wave's conv history to
+        # bf16), so merging a prefilled row into its slot rounds nothing
+        self.cache = self.mod.init_cache(
+            cfg, batch_slots, max_len, device=self.device,
+            **({"dtype": torch.float32} if cfg.ssm is not None else {}))
         self.pos = np.zeros(batch_slots, np.int32)  # cache fill per slot
         self._emitted = np.zeros(batch_slots, np.int64)  # tokens per slot
         self.active: Dict[int, Request] = {}  # slot -> request
@@ -131,13 +170,14 @@ class ServeEngine:
                 f"length (max_len={max_len})")
         # a prompt must fit one pack and leave a cache row for its first
         # decode tick
-        self._prompt_limit = min(self.max_prefill, max_len - 1)
+        self._prompt_limit = (min(self.max_prefill, max_len - 1)
+                              if self._packed else max_len - 1)
         self._buckets = _pow2_ladder(min(cfg.serve.min_bucket, self.max_prefill),
                                      self.max_prefill)
         self._nb_ladder = _pow2_ladder(1, batch_slots)
         # next-token feed: device-resident, written by admission and ticks
         self._tok = torch.zeros(batch_slots, dtype=torch.int32, device=self.device)
-        self._async = bool(cfg.serve.async_retire)
+        self._async = bool(cfg.serve.async_retire) and self._packed
         self._rq: "queue.Queue" = queue.Queue()
         self._rthread: Optional[threading.Thread] = None
         self._mlock = threading.Lock()
@@ -155,38 +195,36 @@ class ServeEngine:
                 and self._pending_retire() == 0)
 
     def warmup(self) -> None:
-        """Run one decode tick and one smallest packed prefill outside the
-        measured path (builds the kernels, warms the allocator). The tick
-        writes K/V rows at the empty slots' positions; admission overwrites
-        a slot's rows, so nothing leaks."""
+        """Run one decode tick and one smallest prefill outside the measured
+        path (builds the kernels, warms the allocator). The tick writes
+        cache rows or states of the empty slots; admission overwrites a
+        slot's, so nothing leaks."""
+        b = self._buckets[0]
+        zeros = torch.zeros(b, dtype=torch.int32, device=self.device)
         with torch.inference_mode():
-            self._tick()
-            b = self._buckets[0]
-            zeros = torch.zeros(b, dtype=torch.int32, device=self.device)
-            logits, _ = transformer.prefill_packed(
-                self.params, self.cfg, zeros[None], zeros, zeros, zeros[:1],
-                max_len=b)
+            if self._packed:
+                self._tick()
+                logits, _ = self.mod.prefill_packed(
+                    self.params, self.cfg, zeros[None], zeros, zeros, zeros[:1],
+                    max_len=b)
+            else:
+                self._decode(torch.zeros((self.B, 1), dtype=torch.int32,
+                                         device=self.device))
+                logits, _ = self.mod.prefill(self.params, self.cfg, zeros[None],
+                                             max_len=self.max_len)
             logits.cpu()
 
     # -- retirement --------------------------------------------------------------
 
     def _ensure_thread(self) -> None:
         if self._rthread is None or not self._rthread.is_alive():
+            # the thread holds the engine weakly, so a dropped engine (and
+            # its weights and cache) is freed; the sentinel then ends it
             self._rthread = threading.Thread(
-                target=self._retire_loop, daemon=True, name=f"retire-{id(self):x}")
+                target=_retire_loop, args=(weakref.ref(self), self._rq),
+                daemon=True, name=f"retire-{id(self):x}")
             self._rthread.start()
-
-    def _retire_loop(self) -> None:
-        while True:
-            ev = self._rq.get()
-            try:
-                self._consume(ev)
-            except Exception:
-                # a poisoned event must not kill the thread: later events
-                # would strand; the counter makes the loss visible
-                self.metrics.inc("retire_errors")
-            finally:
-                self._rq.task_done()
+            weakref.finalize(self, self._rq.put, None)
 
     def _emit(self, ev: dict) -> None:
         """Hand a retirement event to the thread (async) or consume it
@@ -273,7 +311,25 @@ class ServeEngine:
                 self._emit({"now": now, "retired": [
                     (req, now - req.submitted_at, bool(expired and not req.eos_seen))]})
 
+    def _drop_expired(self, items, now: float) -> List[Request]:
+        """The live requests of a poll; the expired ones retire as
+        cancelled without reaching the device."""
+        live = []
+        for req in items:
+            if self._expired(req, now):
+                self._emit({"now": now,
+                            "retired": [(req, now - req.submitted_at, True)]})
+            else:
+                live.append(req)
+        return live
+
     def _admit(self) -> None:
+        if self._packed:
+            self._admit_packed()
+        else:
+            self._admit_grouped()
+
+    def _admit_packed(self) -> None:
         """Packed admission: one segment-masked prefill over the pack plan's
         prompts, their K/V rows merged into their slots, first tokens into
         the device-side feed. Mixed lengths share one dispatch."""
@@ -286,13 +342,7 @@ class ServeEngine:
             if plan is None:
                 return
             now = plan.formed_at
-            reqs = []
-            for req in plan.items:
-                if self._expired(req, now):
-                    self._emit({"now": now,
-                                "retired": [(req, now - req.submitted_at, True)]})
-                else:
-                    reqs.append(req)
+            reqs = self._drop_expired(plan.items, now)
             if not reqs:
                 continue
             total = sum(len(r.prompt) for r in reqs)
@@ -320,7 +370,7 @@ class ServeEngine:
             self.metrics.inc("pack_pad_tokens", bucket - total)
             put = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
             with torch.inference_mode():
-                logits, part = transformer.prefill_packed(
+                logits, part = self.mod.prefill_packed(
                     self.params, self.cfg, put(tokens), put(positions), put(seg),
                     put(last_idx), max_len=bucket)
                 first = torch.argmax(logits, dim=-1).to(torch.int32)  # [nb]
@@ -342,18 +392,92 @@ class ServeEngine:
                     req.step_logits.append(logits[i])
             self._emit({"tok": first, "now": now, "append": append})
 
+    def _admit_grouped(self) -> None:
+        """Batch-parallel admission: up to ``free_slots`` polled prompts a
+        tick; prompts of one length prefill as ONE ``[n, S]`` forward, then
+        each row of the prefilled state is copied into its slot. Grouping by
+        exact length keeps the batch unpadded, so every row's last position
+        is its true last token. First tokens go to the host here."""
+        free = [s for s in range(self.B) if s not in self.active]
+        while free:
+            batch = self.scheduler.poll(limit=len(free))
+            if batch is None:
+                return
+            now = batch.formed_at
+            groups: Dict[int, List[Request]] = {}
+            for req in self._drop_expired(batch.items, now):
+                groups.setdefault(len(req.prompt), []).append(req)
+            for n, reqs in sorted(groups.items()):
+                slots = [free.pop(0) for _ in reqs]
+                for req in reqs:
+                    self.metrics.queue_wait.record(max(0.0, now - req.submitted_at))
+                tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(
+                    self.device)
+                with torch.inference_mode():
+                    logits, part = self.mod.prefill(self.params, self.cfg, tokens,
+                                                    max_len=self.max_len)
+                    logits = logits[:, -1, :]
+                    for i, slot in enumerate(slots):
+                        for name, buf in self.cache.items():
+                            buf[:, slot] = part[name][:, i]
+                self.metrics.inc("prefill_batches")
+                first = torch.argmax(logits, dim=-1).cpu().numpy()
+                for i, (slot, req) in enumerate(zip(slots, reqs)):
+                    self.pos[slot] = n
+                    req.generated.append(int(first[i]))
+                    if self._keep_logits:
+                        req.step_logits.append(logits[i])
+                    self.active[slot] = req
+
     # -- decode ------------------------------------------------------------------
 
-    def _tick(self):
-        """One decode position for every slot at its own fill level; the
-        next-token feed is replaced on the device. Returns (logits [B, V],
-        the routed-token histogram (MoE) or None)."""
+    def _decode(self, tokens: torch.Tensor):
+        """One decode position for every slot at its own fill level, from
+        tokens [B, 1] on the device. The cache becomes the step's (the
+        transformer's is updated in place, the ssm state is new). Returns
+        (logits [B, V], the routed-token histogram (MoE) or None)."""
         index = torch.from_numpy(self.pos).to(self.device)
-        out = transformer.decode_step(self.params, self.cfg, self._tok[:, None],
-                                      self.cache, index, with_stats=self._with_stats)
-        logits = out[0][:, -1, :]
+        kw = {"with_stats": True} if self._with_stats else {}
+        out = self.mod.decode_step(self.params, self.cfg, tokens, self.cache, index, **kw)
+        self.cache = out[1]
+        return out[0][:, -1, :], (out[2]["expert_tokens"] if self._with_stats else None)
+
+    def _tick(self):
+        """The packed path's decode: reads and replaces the device-side
+        next-token feed. Returns what ``_decode`` does."""
+        logits, stats = self._decode(self._tok[:, None])
         self._tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return logits, (out[2]["expert_tokens"] if self._with_stats else None)
+        return logits, stats
+
+    def _step_grouped(self) -> None:
+        """The grouped path's tick: tokens from the host, argmax to the
+        host, EOS checked and finished requests retired inline."""
+        tokens = np.zeros((self.B, 1), np.int32)
+        for slot, req in self.active.items():
+            tokens[slot, 0] = req.generated[-1]
+        with torch.inference_mode():
+            logits, stats = self._decode(torch.from_numpy(tokens).to(self.device))
+        if stats is not None:
+            self.metrics.add_expert_tokens(stats.cpu().numpy())
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        now = self._clock()
+        self.metrics.inc("decode_ticks")
+        self.metrics.work_done(len(self.active), "tokens")
+        self.metrics.observe_queue_depth(self.scheduler.depth)
+        done = []
+        for slot, req in self.active.items():
+            tok = int(nxt[slot])
+            req.generated.append(tok)
+            if self._keep_logits:
+                req.step_logits.append(logits[slot])
+            self.pos[slot] += 1
+            req.eos_seen = self._eos_id is not None and tok == self._eos_id
+            if len(req.generated) >= req.max_new_tokens or req.eos_seen or \
+                    self.pos[slot] >= self.max_len - 1:
+                done.append(slot)
+        for slot in done:
+            req = self.active.pop(slot)
+            self._emit({"now": now, "retired": [(req, now - req.submitted_at, False)]})
 
     def step(self) -> None:
         """One engine tick: cancel expired requests, admit queued prompts,
@@ -361,6 +485,9 @@ class ServeEngine:
         self._cancel_expired()
         self._admit()
         if not self.active:
+            return
+        if not self._packed:
+            self._step_grouped()
             return
         with torch.inference_mode():
             logits, stats = self._tick()

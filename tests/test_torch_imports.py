@@ -32,7 +32,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.serving.vision, "
             "repro_torch.serving.engine, repro_torch.launch.serve, "
-            "repro_torch.core.quant.ptq, repro_torch.bridge; "
+            "repro_torch.core.quant.ptq, repro_torch.bridge, "
+            "repro_torch.models.ssm_lm, repro_torch.kernels.selective_scan; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'repro' not in sys.modules, 'repro imported'")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -44,11 +45,12 @@ def test_importing_the_port_leaves_jax_unloaded():
 def _entry_points():
     from repro_torch.configs import smoke_config
     from repro_torch.launch.serve import main as serve_main
-    from repro_torch.models import ViTClassifier, init_model_params, transformer
+    from repro_torch.models import ViTClassifier, init_model_params, ssm_lm, transformer
     from repro_torch.serving import ServeEngine, VisionEngine
 
     cfg = smoke_config("m3vit-small")
     lm = smoke_config("olmoe-1b-7b")
+    ssm = smoke_config("falcon-mamba-7b")
     return {
         "init_model_params": lambda: init_model_params(cfg),
         "ViTClassifier": lambda: ViTClassifier(cfg),
@@ -58,12 +60,18 @@ def _entry_points():
         "ServeEngine": lambda: ServeEngine(lm, init_model_params(lm, device="cpu")),
         "init_cache": lambda: transformer.init_cache(lm, 2, 8),
         "launch.serve": lambda: serve_main(["--arch", "olmoe-1b-7b", "--smoke"]),
+        "init_model_params[ssm]": lambda: init_model_params(ssm),
+        "ServeEngine[ssm]": lambda: ServeEngine(ssm, init_model_params(ssm, device="cpu")),
+        "init_cache[ssm]": lambda: ssm_lm.init_cache(ssm, 2, 8),
+        "launch.serve[ssm]": lambda: serve_main(["--arch", "falcon-mamba-7b", "--smoke"]),
     }
 
 
 @pytest.mark.parametrize("name", ["init_model_params", "ViTClassifier", "VisionEngine",
                                   "init_model_params[lm]", "ServeEngine", "init_cache",
-                                  "launch.serve"])
+                                  "launch.serve", "init_model_params[ssm]",
+                                  "ServeEngine[ssm]", "init_cache[ssm]",
+                                  "launch.serve[ssm]"])
 def test_entry_points_default_to_the_card_and_refuse_without_one(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")

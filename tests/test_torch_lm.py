@@ -429,3 +429,26 @@ def test_async_retirement_loses_no_update_under_thread_switching(lm):
     c = eng.metrics.counters
     assert c["completed"] == 8 and c["submitted"] == 8
     assert c["tokens"] == sum(len(r.generated) - 1 for r in reqs)
+
+
+def test_dropped_engine_is_freed_and_its_retirement_thread_ends(lm):
+    """The retirement thread holds its engine weakly: once the caller drops
+    the engine, the engine (with its weights' references and its cache) is
+    collected and the thread exits."""
+    import gc
+    import weakref
+
+    cfg = lm["tcfg"]
+    eng = ServeEngine(cfg, bridge.params_from_numpy(lm["fp"], "cpu"), batch_slots=2,
+                      max_len=32, device="cpu")
+    req = Request(uid=0, prompt=synth_batch(cfg, 1, 5, seed=80)[0], max_new_tokens=3)
+    eng.submit(req)
+    eng.run_until_drained()
+    thread, cache, ref = eng._rthread, eng.cache["k"], weakref.ref(eng)
+    assert thread.is_alive() and req.status == "completed"
+    cache_ref = weakref.ref(cache)
+    del eng, cache
+    gc.collect()
+    assert ref() is None and cache_ref() is None
+    thread.join(timeout=10)
+    assert not thread.is_alive()
