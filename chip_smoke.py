@@ -10,7 +10,11 @@ caught:
   2. build    -- compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. kernels  -- hold each kernel against its plain PyTorch version at the
                  M3ViT-S shapes of a batch of 8 and time kernel, plain version
-                 and (int8_matmul only) ``torch._int_mm``; ``int8_matmul`` and
+                 and (int8_matmul only) ``torch._int_mm``; ``int8_matmul``
+                 (every variant that takes a shape, bit-equal, at the main
+                 path's shapes and at ``INT8_RAGGED``; timed per call as a
+                 CUDA graph of launches, beside its dp4a variant, eagerly,
+                 and with cold L2 at the decode and LM-head rows) and
                  the int8 and f32 grouped modes also at the OLMoE-1B-7B shapes
                  of a decode tick, a packed prefill and a calibration forward,
                  and ``lm_attention`` beside ``streaming_attention`` at the
@@ -26,13 +30,16 @@ caught:
                  init on the card, calibration on 2 batches of 2, PTQ to the
                  int8 tree, ``VisionEngine(buckets=(1, 4, 8))`` serving 24
                  requests; every kernel's launch count must grow by exactly
-                 its per-forward count times the dispatched batches;
+                 its per-forward count times the dispatched batches, and
+                 every int8_matmul call go through variant 1 or 2;
   5. e2e      -- one batch of 4 through ``forward`` on the card and on a CPU
                  copy of the same tree (plain versions): free-running logits
                  printed, then every block and the head teacher-forced from
                  the card's input and gated;
   6. profile  -- one int8 forward at B=8: wall and enqueue time, device time
-                 of every kernel launched (torch.profiler);
+                 of every kernel launched (torch.profiler); exactly one
+                 device kernel per int8_matmul call (here and in phase 7's
+                 profiles);
   7. lm       -- full-width OLMoE-1B-7B (``configs/olmoe_1b_7b.py``): seeded
                  fp init on the card, calibration on 2 batches of 2 x 32
                  tokens, PTQ to the int8 tree and to the W4A8 tree (the fp
@@ -40,7 +47,8 @@ caught:
                  ``ServeEngine(batch_slots=8, max_len=512)``, 16 seeded
                  requests of 16-256 prompt tokens and 32 new tokens. Gates:
                  launches grow by exactly 81 / 32 / 16 (int8_matmul / grouped
-                 / lm_attention) per packed admission and per decode tick;
+                 / lm_attention) per packed admission and per decode tick,
+                 every int8_matmul call on variant 1 (mma) or 2 (stream);
                  every request completes; teacher-forced, the engine's logits
                  of every request at 9 of its 32 steps match ``prefill`` over
                  the same prefix within the stated limits; the same requests
@@ -67,8 +75,9 @@ caught:
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before that
-holds the ``{"kernels": [...]}`` record. Times are CUDA-event times over
-repeated launches with warm caches.
+holds the ``{"kernels": [...]}`` record (the int8_matmul row names the
+variant it timed). Times are CUDA-event times over repeated launches with
+warm caches; int8_matmul's over CUDA-graph replays (``graph_ms``).
 """
 from __future__ import annotations
 
@@ -203,9 +212,42 @@ def phase_build() -> None:
                 print(f"[build] {log.stem}: {line.strip()}", flush=True)
 
 
+def graph_ms(fn, n: int = 20, iters: int = 10) -> float:
+    """Device time per call of ``fn``: ``n`` calls captured in one CUDA graph
+    and replayed, so the host's enqueue time (tens of microseconds a call of
+    a Python wrapper) is not counted. Warmed up on the capture stream first
+    (build, scratch, shared-memory attributes)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    return time_ms(graph.replay, iters=iters, warmup=2) / n
+
+
+# ragged int8_matmul shapes that reach every variant and edge: M on both
+# sides of 16 (variant 2 / 1), K % 16 != 0 and N % 8 != 0 (variant 3),
+# N = 1000 (the M3ViT-S head: 8-byte weight copies, a ragged last tile),
+# the widest weight at one row, and an empty x
+INT8_RAGGED = ([(m, k, n) for m in (1, 8, 16, 17, 33, 197) for k in (100, 384, 2048)
+                for n in (10, 16, 64, 1000, 1001)] + [(1, 2048, 50304), (0, 64, 64)])
+# cold-L2 timing: weights rotated over buffers of at least this many bytes
+# in all, three times the H100's 50 MB L2
+COLD_BYTES = 150e6
+
+
 def _check_int8_matmul(gen) -> dict:
+    """Every variant of int8_matmul that takes a shape, with and without
+    bias, bit-equal to ``int8_matmul_ref`` at the main path's shapes and at
+    ``INT8_RAGGED``; then the timed rows (``_int8_timing``)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.kernels.int8_matmul import VARIANTS, choose_variant, int8_matmul, takes
 
     def operands(M, K, N):
         x = torch.randint(-128, 128, (M, K), generator=gen, device="cuda",
@@ -216,19 +258,6 @@ def _check_int8_matmul(gen) -> dict:
         ws = torch.rand((N,), generator=gen, device="cuda") * 0.01 + 1e-4
         return x, w, xs, ws
 
-    def timing(label, M_, K, N) -> dict:
-        x, w, xs, ws = operands(M_, K, N)
-        nb, bound_by = bound_ms(M_ * K + K * N + 4 * N + 4 + 4 * M_ * N,
-                                2.0 * M_ * N * K, INT8_OPS_PER_S)
-        return {
-            "label": label, "shape": [M_, K, N],
-            "ms": time_ms(lambda: int8_matmul(x, w, xs, ws)),
-            "plain_ms": time_ms(lambda: ref.int8_matmul_ref(x, w, xs, ws), iters=10),
-            "bound_ms": nb, "bound_by": bound_by,
-            # torch._int_mm takes M > 16 only
-            "library_ms": time_ms(lambda: torch._int_mm(x, w)) if M_ > 16 else None,
-        }
-
     B = 8
     M = 197 * B
     # M3ViT-S at a batch of 8; then OLMoE-1B-7B at a decode tick (8 slots)
@@ -236,21 +265,103 @@ def _check_int8_matmul(gen) -> dict:
     shapes = [(M, 384, 384), (M, 384, 1536), (M, 1536, 384), (M, 384, 16),
               (B, 384, 1000)]
     shapes += [(m, 2048, n) for m in (LM_SLOTS, LM_MAX_LEN) for n in (2048, 64, 50304)]
-    for M_, K, N in shapes:
+    checked = {v: 0 for v in VARIANTS}
+    for M_, K, N in shapes + INT8_RAGGED:
         x, w, xs, ws = operands(M_, K, N)
         bias = torch.randn((N,), generator=gen, device="cuda")
         for b in (None, bias):
-            got, want = int8_matmul(x, w, xs, ws, b), ref.int8_matmul_ref(x, w, xs, ws, b)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"int8_matmul {M_}x{K}x{N} bias={b is not None}: "
-                                     f"not bit-equal, max err {max_err(got, want)}")
+            want = ref.int8_matmul_ref(x, w, xs, ws, b)
+            for v in VARIANTS:
+                if not takes(v, M_, K, N):
+                    continue
+                got = int8_matmul(x, w, xs, ws, b, variant=v)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"int8_matmul[{VARIANTS[v]}] {M_}x{K}x{N} bias={b is not None}: "
+                        f"not bit-equal, max err {max_err(got, want)}")
+                checked[v] += 1
+    # an operand off the 16-byte grid takes variant 3, and variant 1 refuses it
+    x, w, xs, ws = operands(64, 384, 384)
+    x_off = torch.empty(64 * 384 + 1, dtype=torch.int8, device="cuda")[1:].view(64, 384)
+    x_off.copy_(x)
+    if not torch.equal(int8_matmul(x_off, w, xs, ws), ref.int8_matmul_ref(x, w, xs, ws)):
+        raise AssertionError("int8_matmul on a misaligned x: not bit-equal")
+    try:
+        int8_matmul(x_off, w, xs, ws, variant=1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("int8_matmul variant 1 took a misaligned x")
+    picked = {v: sum(choose_variant(*shape) == v for shape in shapes + INT8_RAGGED)
+              for v in VARIANTS}
+    print(f"[kernels] int8_matmul bit-equal at {len(shapes) + len(INT8_RAGGED)} shapes "
+          f"x 2 (bias): calls by variant {({VARIANTS[v]: n for v, n in checked.items()})}; "
+          f"shapes the wrapper gives each {({VARIANTS[v]: n for v, n in picked.items()})}",
+          flush=True)
+    if min(picked.values()) == 0:
+        raise AssertionError("the checked shapes do not reach every int8_matmul variant")
+
+    def timing(label, M_, K, N, cold=False):
+        return _int8_timing(label, operands(M_, K, N), cold)
+
     # dense fc1, the largest int8 call of the M3ViT-S forward
     row = timing("m3vit_fc1", M, 384, 1536)
     row.update(name="int8_matmul", max_abs_err=0.0, tolerance="bit-equal")
-    row["olmoe"] = [timing(f"{site}_{phase}", m, 2048, n)
+    row["more"] = [timing("m3vit_qkvo", M, 384, 384), timing("m3vit_head", B, 384, 1000)]
+    row["olmoe"] = [timing(f"{site}_{phase}", m, 2048, n, cold=phase == "decode"
+                           or site == "lm_head")
                     for phase, m in (("decode", LM_SLOTS), ("prefill", LM_MAX_LEN))
-                    for site, n in (("qkvo", 2048), ("lm_head", 50304))]
+                    for site, n in (("qkvo", 2048), ("gate", 64), ("lm_head", 50304))]
+    return row
+
+
+def _int8_timing(label, operands, cold: bool) -> dict:
+    """Time one int8_matmul shape: the variant the wrapper picks and the
+    dp4a variant (the kernel this replaces) as device time per call
+    (``graph_ms``), the wrapper's eager time per call, the plain version,
+    and ``torch._int_mm`` (the int32 product alone; it takes M > 16 only, so
+    for M <= 16 it gets x zero-padded to 32 rows, the padding made outside
+    the timed calls). With ``cold``, the chosen and the dp4a variants also
+    with the weight rotated over ``COLD_BYTES`` of buffers, so that L2 holds
+    none of it when a call starts (as on the path, where each layer's
+    weights arrive after the other layers')."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.int8_matmul import VARIANTS, choose_variant, int8_matmul
+
+    x, w, xs, ws = operands
+    (M, K), N = x.shape, w.shape[1]
+    v = choose_variant(M, K, N)
+    nb, bound_by = bound_ms(M * K + K * N + 4 * N + 4 + 4 * M * N, 2.0 * M * N * K,
+                            INT8_OPS_PER_S)
+    x_lib = x
+    if M <= 16:
+        x_lib = torch.zeros((32, K), dtype=torch.int8, device="cuda")
+        x_lib[:M] = x
+    row = {
+        "label": label, "shape": [M, K, N], "variant": VARIANTS[v],
+        "ms": graph_ms(lambda: int8_matmul(x, w, xs, ws)),
+        "dp4a_ms": graph_ms(lambda: int8_matmul(x, w, xs, ws, variant=3)),
+        "eager_ms": time_ms(lambda: int8_matmul(x, w, xs, ws)),
+        "plain_ms": time_ms(lambda: ref.int8_matmul_ref(x, w, xs, ws), iters=10),
+        "bound_ms": nb, "bound_by": bound_by,
+        "library_ms": graph_ms(lambda: torch._int_mm(x_lib, w)),
+        "library_rows": x_lib.shape[0],
+    }
+    if cold:
+        bufs = [w] + [torch.randint(-127, 128, (K, N), generator=torch.Generator(
+            device="cuda").manual_seed(i), device="cuda", dtype=torch.int8)
+            for i in range(max(1, math.ceil(COLD_BYTES / (K * N))))]
+        for key, var in (("cold_ms", v), ("dp4a_cold_ms", 3)):
+            it = iter(range(1 << 30))
+            row[key] = graph_ms(lambda: int8_matmul(x, bufs[next(it) % len(bufs)], xs, ws,
+                                                    variant=var), n=len(bufs), iters=5)
+        del bufs
+    print(f"[kernels] int8_matmul {label} {[M, K, N]}: {VARIANTS[v]} {row['ms']:.4f} ms"
+          f" (cold {row.get('cold_ms', float('nan')):.4f}), dp4a {row['dp4a_ms']:.4f} ms "
+          f"(cold {row.get('dp4a_cold_ms', float('nan')):.4f}), eager {row['eager_ms']:.4f}"
+          f" ms, _int_mm ({row['library_rows']} rows) {row['library_ms']:.4f} ms, bound "
+          f"{nb:.5f} ms ({bound_by})", flush=True)
     return row
 
 
@@ -415,9 +526,12 @@ def _visible_pairs(B, Sq, Sk, causal, q_offset, valid, window, qseg, kseg) -> in
 def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) -> dict:
     """Check one LM attention mode against the plain version (inputs whose
     scores are exact in f32), time kernel, plain version and (quant_bits=0)
-    SDPA, and bound it. ``gaussian``: the same call with Gaussian q, whose
-    rows over 1e-4 are reported, not gated (a score on a .5 code boundary
-    may round the other way when the dot products run in another order)."""
+    SDPA, and bound it; where SDPA is timed, kernel and SDPA also as
+    ``graph_ms`` (device time, without the host's enqueue; the kernel's
+    includes the wrapper's two offset fills). ``gaussian``: the same call
+    with Gaussian q, whose rows over 1e-4 are reported, not gated (a score
+    on a .5 code boundary may round the other way when the dot products run
+    in another order)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.quant_attention import lm_attention
 
@@ -447,7 +561,10 @@ def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) ->
                + (8 * live_keys * KVH if "k_scale" in kw else 0)
                + (4 * B * (Sq + Sk) if qseg is not None else 0) + 8 * B)
     nb, by = bound_ms(n_bytes, 4.0 * pairs * (H // KVH) * KVH * hd, F32_OPS_PER_S)
-    return {
+    graph = {} if sdpa is None else {  # device time alone: the eager loop is host-bound
+        "graph_ms": graph_ms(lambda: lm_attention(q, k, v, **kw)),
+        "library_graph_ms": graph_ms(sdpa)}
+    return graph | {
         "name": f"lm_attention[{name}]", "mode": mode, "shape": [B, Sq, Sk, H, KVH, hd],
         "quant_bits": kw.get("quant_bits", 0), "kv_dtype": str(k.dtype).removeprefix("torch."),
         "max_abs_err": err, "tolerance": f"atol={atol}, rtol={rtol}",
@@ -678,6 +795,17 @@ def _read_counts() -> dict:
     return out
 
 
+def _check_int8_variants(tag: str, counts: dict) -> None:
+    """Every int8_matmul call of a serving run went through variant 1 (mma)
+    or 2 (stream), read from the wrapper's per-variant counters."""
+    fast = counts.get("int8_matmul:mma", 0) + counts.get("int8_matmul:stream", 0)
+    print(f"[{tag}] int8_matmul launches by variant: mma "
+          f"{counts.get('int8_matmul:mma', 0)}, stream {counts.get('int8_matmul:stream', 0)}, "
+          f"dp4a {counts.get('int8_matmul:dp4a', 0)} (gate: dp4a 0)", flush=True)
+    if fast != counts["int8_matmul"] or counts.get("int8_matmul:dp4a", 0):
+        raise AssertionError(f"[{tag}] int8_matmul calls off variants 1 and 2: {counts}")
+
+
 def phase_serving(smi: str):
     from repro_torch.configs.moe_vit import CONFIG
     from repro_torch.core.quant.ptq import calibrate_model, ptq_model, quantized_config
@@ -722,6 +850,7 @@ def phase_serving(smi: str):
         if counts[name] != per * batches:
             raise AssertionError(f"{name}: {counts[name]} launches for {batches} "
                                  f"batches, expected {per} per forward")
+    _check_int8_variants("serving", counts)
     snap = eng.metrics.snapshot()
     lat = snap["latency_ms"]
     print(f"[serving] smoke figure, not a benchmark: {snap['counters']['completed']} "
@@ -849,6 +978,7 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
             raise AssertionError(
                 f"[lm {mat}] {name}: {counts[name]} launches for {c['prefill_batches']} "
                 f"admissions + {c['decode_ticks']} ticks, expected {per} per forward")
+    _check_int8_variants(f"lm {mat}", counts)
     grouped_mode = "w4a8" if mat == "int4" else "int8"
     if counts.get(f"grouped_matmul:{grouped_mode}") != counts["grouped_matmul"]:
         raise AssertionError(f"[lm {mat}] grouped launches by mode: {counts}")
@@ -939,7 +1069,7 @@ def _profile_lm(eng, mat: str, smi: str) -> dict:
     seg = torch.arange(P, device="cuda", dtype=torch.int32) // (P // 4)
     pos = torch.arange(P, device="cuda", dtype=torch.int32) % (P // 4)
     last = torch.arange(1, 5, device="cuda", dtype=torch.int32) * (P // 4) - 1
-    return {
+    out = {
         "decode tick": _profile(
             f"profile lm {mat}", "decode tick", smi, 3,
             lambda: transformer.decode_step(p, cfg, tok, eng.cache, index, with_stats=True)),
@@ -948,6 +1078,9 @@ def _profile_lm(eng, mat: str, smi: str) -> dict:
             lambda: transformer.prefill_packed(p, cfg, tok.new_zeros((1, P)), pos, seg,
                                                last, max_len=P)),
     }
+    for label, prof in out.items():
+        _check_int8_kernels(f"profile lm {mat} {label}", prof, LM_PER_FORWARD["int8_matmul"])
+    return out
 
 
 def _profile(tag: str, label: str, smi: str, n: int, fn) -> dict:
@@ -977,13 +1110,25 @@ def _profile(tag: str, label: str, smi: str, n: int, fn) -> dict:
             by_name[ev.name] = (us + ev.device_time, calls + 1)
     device_ms = sum(us for us, _ in by_name.values()) / n / 1e3
     kernels = sum(c for _, c in by_name.values()) / n
+    int8_names = ("int8_mma_kernel", "int8_stream_kernel", "int8_matmul_kernel")
+    int8 = [(us, c) for name, (us, c) in by_name.items()
+            if any(k in name for k in int8_names)]
+    int8_ms, int8_kernels = sum(us for us, _ in int8) / n / 1e3, sum(c for _, c in int8) / n
     print(f"[{tag}] {label} ({smi}): wall {wall * 1e3:.2f} ms, host enqueue "
           f"{enqueue * 1e3:.2f} ms, device kernels {device_ms:.2f} ms (busy share "
-          f"{device_ms / (wall * 1e3):.2f}), {kernels:.0f} kernels", flush=True)
+          f"{device_ms / (wall * 1e3):.2f}), {kernels:.0f} kernels; int8_matmul "
+          f"{int8_ms:.3f} ms in {int8_kernels:.0f} kernels", flush=True)
     for kname, (us, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"[{tag}] {us / n / 1e3:8.3f} ms {calls // n:5d} x  {kname[:80]}", flush=True)
     return {"wall_ms": wall * 1e3, "enqueue_ms": enqueue * 1e3, "device_ms": device_ms,
-            "kernels": kernels}
+            "kernels": kernels, "int8_ms": int8_ms, "int8_kernels": int8_kernels}
+
+
+def _check_int8_kernels(tag: str, profile: dict, per: int) -> None:
+    """One device kernel per int8_matmul call: no memset or second pass."""
+    if profile["int8_kernels"] != per:
+        raise AssertionError(f"[{tag}] {profile['int8_kernels']} int8_matmul device "
+                             f"kernels per forward, expected {per}")
 
 
 def phase_ssm(smi: str) -> dict:
@@ -1176,8 +1321,9 @@ def phase_profile(qcfg, p_int8, smi: str) -> None:
     from repro_torch.models import classify, synth_patches
 
     x = torch.from_numpy(synth_patches(qcfg, 8, seed=4)).cuda()
-    _profile("profile", f"{qcfg.name} int8 forward, B=8", smi, 5,
-             lambda: classify(p_int8, qcfg, x))
+    prof = _profile("profile", f"{qcfg.name} int8 forward, B=8", smi, 5,
+                    lambda: classify(p_int8, qcfg, x))
+    _check_int8_kernels("profile", prof, PER_FORWARD["int8_matmul"])
 
 
 def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) -> int:
@@ -1224,6 +1370,7 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} | {"shape": row["shape"]}
+                      | ({"variant": row["variant"]} if "variant" in row else {})
                       for row in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

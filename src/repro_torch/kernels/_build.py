@@ -30,6 +30,8 @@ _P, _I, _F, _SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 # entry point -> (restype, argtypes); every pointer and the stream are c_void_p
 _SIGNATURES = {
     "int8_matmul_launch": (_I, [_P] * 6 + [_I] * 3 + [_P]),
+    "int8_matmul_mma_launch": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "int8_matmul_stream_launch": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "grouped_matmul_i8_launch": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "grouped_matmul_w4a8_launch": (_I, [_P] * 9 + [_I] * 4 + [_P]),
     "grouped_matmul_f32_launch": (_I, [_P] * 7 + [_I] * 4 + [_P]),

@@ -30,6 +30,7 @@ from repro.kernels.quant_attention import streaming_attention as jax_attention
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.expert_linear import grouped_matmul, route_metadata
+from repro_torch.kernels import int8_matmul as i8
 from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.kernels.quant_attention import lm_attention, streaming_attention
 
@@ -43,6 +44,10 @@ def _i8(rng, *shape):
     (17, 64, 16, True),  # the 16-expert gate width
     (1, 128, 64, False),  # one row (bucket of 1, head)
     (40, 96, 130, True),
+    (16, 64, 24, True),  # the last M of the streaming variant, N % 16 == 8
+    (17, 64, 24, False),  # the first M of the tensor-core variant
+    (9, 100, 40, True),  # K % 16 != 0 (the dp4a variant)
+    (33, 48, 73, False),  # N % 8 != 0 (the dp4a variant)
 ])
 def test_int8_matmul_matches_reference_bit_for_bit(M, K, N, bias):
     rng = np.random.default_rng(M + K + N)
@@ -229,7 +234,8 @@ def test_cpu_tensors_never_reach_a_kernel():
 
 @pytest.mark.parametrize("source,mode", [
     ("int8_matmul.cu", ""), ("grouped_matmul.cu", ""), ("grouped_matmul.cu", "W4A8"),
-    ("quant_attention.cu", ""), ("lm_attention.cu", ""),
+    ("quant_attention.cu", ""), ("lm_attention.cu", ""), ("int8_mma.cuh", ""),
+    ("int8_matmul.cu", "mma"), ("int8_matmul.cu", "stream"), ("int8_matmul.cu", "dp4a"),
 ])
 def test_kernel_sources_carry_their_notes(source, mode):
     """Each CUDA source names the TPU kernel it replaces, what bounds it on
@@ -240,3 +246,225 @@ def test_kernel_sources_carry_their_notes(source, mode):
     assert "Replaces: src/repro/kernels/" in text
     assert "Bound on the H100" in text and "Design:" in text
     assert text.count(mode) >= 3  # named in the summary, the bound and the design
+
+
+@pytest.mark.parametrize("variant", sorted(i8.VARIANTS))
+def test_int8_matmul_notes_cover_each_variant(variant):
+    """The head of int8_matmul.cu gives each variant its own bound and
+    design; the decode variant's bound is the weight bytes."""
+    import repro_torch.kernels as K
+
+    text = (Path(K.__file__).parent / "csrc" / "int8_matmul.cu").read_text()
+    head = text[:text.index("#include")]
+    start = head.index(f"// Variant {variant}, {i8.VARIANTS[variant]}")
+    nxt = head.find("// Variant ", start + 1)
+    note = head[start:nxt if nxt > 0 else len(head)]
+    assert "Bound on the H100" in note and "Design:" in note
+    if i8.VARIANTS[variant] == "stream":
+        assert "weight bytes" in note
+
+
+def _m3vit_int8_shapes(B):
+    """(M, K, N) of every int8_matmul call of a full-width M3ViT-S int8
+    forward at batch B: q/k/v/o, dense fc1/fc2, the router gate, the head
+    (the class token alone)."""
+    from repro_torch.configs.moe_vit import CONFIG as cfg
+
+    T, d = cfg.image_tokens * B, cfg.d_model
+    return [(T, d, d), (T, d, cfg.d_ff), (T, cfg.d_ff, d), (T, d, cfg.moe.num_experts),
+            (B, d, cfg.num_classes)]
+
+
+def _olmoe_int8_shapes(slots=8, max_len=512):
+    """(M, K, N) of every int8_matmul call of the full-width OLMoE-1B-7B
+    served as in chip_smoke.py: a packed admission at each bucket of the
+    ladder (its LM head over the last token of 1..slots prompts) and a
+    decode tick of ``slots`` rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ContinuousBatchingConfig
+    from repro_torch.serving.engine import _pow2_ladder
+
+    cfg = get_config("olmoe-1b-7b")
+    d, a = cfg.d_model, cfg.attn
+    q, kv = a.num_heads * a.head_dim, a.num_kv_heads * a.head_dim
+    layer = lambda m: [(m, d, q), (m, d, kv), (m, d, kv), (m, q, d),  # noqa: E731
+                       (m, d, cfg.moe.num_experts)]
+    shapes = []
+    for m in _pow2_ladder(ContinuousBatchingConfig().min_bucket, max_len):
+        shapes += layer(m)
+    shapes += [(n, d, cfg.vocab_size) for n in range(1, slots + 1)]
+    return shapes + layer(slots) + [(slots, d, cfg.vocab_size)]
+
+
+@pytest.mark.parametrize("shape", sorted({s for B in (1, 4, 8) for s in _m3vit_int8_shapes(B)}
+                                         | set(_olmoe_int8_shapes())))
+def test_int8_matmul_main_path_shapes_take_the_new_variants(shape):
+    """Every int8_matmul call of the served models goes to the tensor-core
+    variant (M > 16) or the weight-streaming one (M <= 16), never dp4a."""
+    M, K, N = shape
+    v = i8.choose_variant(M, K, N, aligned=True)
+    assert v == (2 if M <= 16 else 1)
+    assert i8.takes(v, M, K, N) and i8.takes(3, M, K, N)
+
+
+@pytest.mark.parametrize("M,K,N,aligned", [
+    (8, 100, 64, True), (197, 100, 384, True),  # K % 16 != 0
+    (8, 384, 10, True), (197, 384, 1001, True),  # N % 8 != 0
+    (8, 384, 384, False), (1576, 384, 1536, False),  # an operand off the 16-byte grid
+])
+def test_int8_matmul_ragged_or_misaligned_shapes_take_dp4a(M, K, N, aligned):
+    assert i8.choose_variant(M, K, N, aligned) == 3
+    assert not i8.takes(1, M, K, N, aligned) and not i8.takes(2, M, K, N, aligned)
+
+
+def test_int8_matmul_variant_eligibility():
+    assert i8.choose_variant(16, 384, 1000) == 2 and i8.choose_variant(17, 384, 1000) == 1
+    assert i8.takes(1, 8, 2048, 2048)  # the tensor-core variant takes any M
+    assert not i8.takes(2, 17, 2048, 2048)  # streaming holds <= 16 rows
+    assert not i8.takes(4, 8, 64, 64)
+
+
+@pytest.mark.parametrize("M,N,tile", [
+    (1576, 1536, (128, 128)),  # M3ViT-S fc1, B = 8: 156 blocks
+    (1576, 384, (64, 64)),  # q/k/v/o: 39 blocks at 128 x 128, 150 at 64 x 64
+    (512, 2048, (64, 64)),  # OLMoE q/k/v/o prefill
+    (512, 50304, (128, 128)),  # OLMoE LM head, 512 rows
+    (512, 64, (32, 64)),  # a gate: the smallest tile
+    (197, 16, (32, 64)),
+])
+def test_int8_matmul_mma_tile_fills_the_card(M, N, tile):
+    """The tensor-core variant takes the largest tile that still gives
+    each of the H100's 132 SMs a block."""
+    cfg = i8.mma_config(M, N)
+    assert i8.MMA_TILES[cfg] == tile
+    bm, bn = tile
+    blocks = -(-M // bm) * -(-N // bn)
+    assert blocks >= i8.H100_SMS or cfg == len(i8.MMA_TILES) - 1
+    for bigger in i8.MMA_TILES[:cfg]:
+        assert -(-M // bigger[0]) * -(-N // bigger[1]) < i8.H100_SMS
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 64), (2048, 50304), (384, 1000),
+                                 (1536, 384), (384, 16), (48, 64), (0, 64), (100 * 16, 8)])
+def test_int8_matmul_stream_split_covers_k_once(K, N):
+    """Variant 2 splits the 64-deep k tiles over gridDim.y: every tile in
+    exactly one split, no split empty, and about two blocks a SM when the
+    columns alone would not fill the card."""
+    splits, per = i8.stream_split(K, N)
+    ktiles = -(-K // i8.K_TILE)
+    strips = -(-N // i8.STREAM_N)
+    assert splits >= 1
+    if ktiles:
+        assert (splits - 1) * per < ktiles <= splits * per
+        assert splits * strips >= min(2 * i8.H100_SMS, ktiles * strips) // 2
+    else:
+        assert (splits, per) == (1, 0)
+    if strips >= 2 * i8.H100_SMS:
+        assert splits == 1  # the wide LM head streams whole columns: no atomics
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Each ``extern "C"`` function of csrc/ takes as many arguments as
+    ``_build._SIGNATURES`` hands it (ctypes would pass a wrong count
+    silently), and every entry point bound exists."""
+    import re
+
+    import repro_torch.kernels as K
+    from repro_torch.kernels import _build
+
+    found = {}
+    for cu in (Path(K.__file__).parent / "csrc").glob("*.cu"):
+        for name, params in re.findall(r'extern "C" \w+ (\w+)\(([^)]*)\)', cu.read_text()):
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    assert set(found) == set(_build._SIGNATURES)
+    for name, (_, argtypes) in _build._SIGNATURES.items():
+        assert found[name] == len(argtypes), name
+
+
+def _ldmatrix_x4(smem, addrs, trans):
+    """``ldmatrix.sync.aligned.m8n8.x4[.trans].shared.b16``: lane t names
+    row t % 8 of matrix t // 8; returns each lane's four words as bytes."""
+    out = np.zeros((32, 4, 4), np.int8)
+    for q in range(4):
+        m = np.stack([smem[a:a + 16].view(np.int16) for a in addrs[8 * q:8 * q + 8]])
+        for t in range(32):
+            pair = m[t // 4, 2 * (t % 4):2 * (t % 4) + 2] if not trans else \
+                np.array([m[2 * (t % 4), t // 4], m[2 * (t % 4) + 1, t // 4]], np.int16)
+            out[t, q] = pair.view(np.int8)
+    return out
+
+
+def _byte_perm(a, b, sel):
+    src = np.concatenate([a, b])
+    return np.array([src[(sel >> (4 * i)) & 0xF] for i in range(4)], np.int8)
+
+
+def _worst_bank_conflict(addr_groups):
+    """Most 4-byte accesses to one bank in any group of eight 16-byte
+    accesses (one shared-memory phase)."""
+    worst = 1
+    for group in addr_groups:
+        banks = [(a // 4 + i) % 32 for a in group for i in range(4)]
+        worst = max(worst, max(banks.count(b) for b in banks))
+    return worst
+
+
+@pytest.mark.parametrize("BN", [64, 128])
+def test_int8_mma_fragment_layout_is_exact_and_conflict_free(BN):
+    """An emulation of csrc/int8_mma.cuh's layout algebra: x and w tiles
+    stored with the header's swizzles (swz_a, swz_b), A fragments by
+    ldmatrix, B fragments by ldmatrix.trans over the permuted k rows and
+    byte_perm 0x6420 / 0x7531, the m16n8k32 products of the even and odd
+    column tiles, and the flush's column map (even d0, odd d0, even d1,
+    odd d1 = columns 4t .. 4t+3) give x @ w exactly; every ldmatrix phase
+    and every 8-lane cp.async phase touches distinct banks."""
+    rng = np.random.default_rng(BN)
+    BK = i8.K_TILE
+    x = rng.integers(-128, 128, (16, BK)).astype(np.int8)
+    w = rng.integers(-128, 128, (BK, BN)).astype(np.int8)
+    swz_a = lambda r, c: c ^ ((r >> 1) & 3)  # noqa: E731
+    swz_b = (lambda r, c: c ^ ((r & 1) | ((r >> 1) & 6))) if BN == 128 else \
+        (lambda r, c: c ^ ((r >> 2) & 3))
+    sa, sb = np.zeros(16 * BK, np.int8), np.zeros(BK * BN, np.int8)
+    for r in range(16):
+        for c in range(BK // 16):
+            sa[r * BK + 16 * swz_a(r, c):][:16] = x[r, 16 * c:16 * c + 16]
+    for r in range(BK):
+        for c in range(BN // 16):
+            sb[r * BN + 16 * swz_b(r, c):][:16] = w[r, 16 * c:16 * c + 16]
+    acc = np.zeros((16, BN), np.int64)
+    phases = []
+    for kk in (0, 32):
+        lanes = [(t // 8, t % 8) for t in range(32)]
+        a_addr = [(i + 8 * (q & 1)) * BK + 16 * swz_a(i + 8 * (q & 1), kk // 16 + (q >> 1))
+                  for q, i in lanes]
+        a = _ldmatrix_x4(sa, a_addr, trans=False)
+        phases += [a_addr[8 * q:8 * q + 8] for q in range(4)]
+        for c16 in range(BN // 16):
+            rows = [kk + 16 * (q >> 1) + 2 * (q & 1) + 4 * (i >> 1) + (i & 1) for q, i in lanes]
+            b_addr = [r * BN + 16 * swz_b(r, c16) for r in rows]
+            b = _ldmatrix_x4(sb, b_addr, trans=True)
+            phases += [b_addr[8 * q:8 * q + 8] for q in range(4)]
+            A = np.zeros((16, 32), np.int64)
+            even, odd = np.zeros((32, 8), np.int64), np.zeros((32, 8), np.int64)
+            for t in range(32):
+                g, k4 = t // 4, 4 * (t % 4)
+                A[g, k4:k4 + 4], A[g + 8, k4:k4 + 4] = a[t, 0], a[t, 1]
+                A[g, 16 + k4:20 + k4], A[g + 8, 16 + k4:20 + k4] = a[t, 2], a[t, 3]
+                even[k4:k4 + 4, g] = _byte_perm(b[t, 0], b[t, 1], 0x6420)
+                even[16 + k4:20 + k4, g] = _byte_perm(b[t, 2], b[t, 3], 0x6420)
+                odd[k4:k4 + 4, g] = _byte_perm(b[t, 0], b[t, 1], 0x7531)
+                odd[16 + k4:20 + k4, g] = _byte_perm(b[t, 2], b[t, 3], 0x7531)
+            de, do = A @ even, A @ odd
+            for t in range(32):
+                g, tc = t // 4, t % 4
+                for r in (g, g + 8):
+                    acc[r, 16 * c16 + 4 * tc:][:4] += [de[r, 2 * tc], do[r, 2 * tc],
+                                                       de[r, 2 * tc + 1], do[r, 2 * tc + 1]]
+    np.testing.assert_array_equal(acc, x.astype(np.int64) @ w.astype(np.int64))
+    assert _worst_bank_conflict(phases) == 1
+    stores = [[r * BN + 16 * swz_b(r, c) for r, c in
+               [divmod(e, BN // 16) for e in range(p, p + 8)]] for p in range(0, BK * BN // 16, 8)]
+    stores += [[r * BK + 16 * swz_a(r, c) for r, c in
+                [divmod(e, BK // 16) for e in range(p, p + 8)]] for p in range(0, 16 * BK // 16, 8)]
+    assert _worst_bank_conflict(stores) == 1
