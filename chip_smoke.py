@@ -8,20 +8,27 @@ caught:
 
   1. device   -- require CUDA, print the card's name and power limit;
   2. build    -- compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  3. kernels  -- hold each kernel against its plain PyTorch version at the
-                 M3ViT-S shapes of a batch of 8 and time kernel, plain version
-                 and (int8_matmul only) ``torch._int_mm``; ``int8_matmul``
-                 (every variant that takes a shape, bit-equal, at the main
-                 path's shapes and at ``INT8_RAGGED``; timed per call as a
-                 CUDA graph of launches, beside its dp4a variant, eagerly,
-                 and with cold L2 at the decode and LM-head rows) and
-                 the int8 and f32 grouped modes also at the OLMoE-1B-7B shapes
-                 of a decode tick, a packed prefill and a calibration forward,
-                 and ``lm_attention`` beside ``streaming_attention`` at the
-                 M3ViT-S shape; then every LM mode of the attention kernel and
-                 the grouped W4A8 mode at the OLMoE-1B-7B shapes
-                 (``scaled_dot_product_attention`` timed beside each
-                 ``quant_bits=0`` row); then ``selective_scan`` at the
+  3. kernels  -- hold each kernel against its plain PyTorch version and time
+                 it (device time per call: ``graph_ms``, CUDA-graph replays;
+                 eager time beside it): ``int8_matmul`` (every variant that
+                 takes a shape, bit-equal, at the main path's shapes and at
+                 ``INT8_RAGGED``; beside its dp4a variant and ``torch._int_mm``,
+                 cold L2 at the decode and LM-head rows); ``grouped_matmul``
+                 int8 and W4A8 in every variant (mma, stream, dp4a), bit-equal
+                 at the M3ViT-S and OLMoE-1B-7B decode / prefill shapes and at
+                 ``GROUPED_RAGGED``, timed in the chosen variant beside dp4a
+                 (cold L2 at decode), and the f32 mode at the M3ViT-S and
+                 OLMoE calibration shapes, each timed call alone one device
+                 kernel; ``streaming_attention`` with ``lm_attention`` on the
+                 same vision inputs; every LM mode of ``lm_attention`` at the
+                 OLMoE-1B-7B shapes, and at head dims 112 and 100
+                 (exact-score inputs within 1e-5; with Gaussian q the
+                 ``quant_bits=0`` rows within ``GAUSSIAN_QB0_TOL``, the
+                 ``quant_bits=4`` rows no more rows over 1e-4 than
+                 ``PARENT_GAUSSIAN_OVER``; at the decode shapes the tile
+                 schedule bit-equal to the decode schedule; a call alone one
+                 device kernel; ``scaled_dot_product_attention`` timed
+                 beside each ``quant_bits=0`` row); ``selective_scan`` at the
                  falcon-mamba-7b prefill shapes [B, S, di, N] = [1, 256, 8192,
                  16], [8, 256, 8192, 16] and a ragged S = 200, and state 8 at
                  [2, 100, 256, 8] (y and h_last within atol = rtol = 1e-5),
@@ -31,15 +38,16 @@ caught:
                  int8 tree, ``VisionEngine(buckets=(1, 4, 8))`` serving 24
                  requests; every kernel's launch count must grow by exactly
                  its per-forward count times the dispatched batches, and
-                 every int8_matmul call go through variant 1 or 2;
+                 every int8_matmul and integer grouped_matmul call go
+                 through variant 1 or 2;
   5. e2e      -- one batch of 4 through ``forward`` on the card and on a CPU
                  copy of the same tree (plain versions): free-running logits
                  printed, then every block and the head teacher-forced from
                  the card's input and gated;
   6. profile  -- one int8 forward at B=8: wall and enqueue time, device time
                  of every kernel launched (torch.profiler); exactly one
-                 device kernel per int8_matmul call (here and in phase 7's
-                 profiles);
+                 device kernel per int8_matmul, grouped_matmul and attention
+                 call (here and in phase 7's profiles);
   7. lm       -- full-width OLMoE-1B-7B (``configs/olmoe_1b_7b.py``): seeded
                  fp init on the card, calibration on 2 batches of 2 x 32
                  tokens, PTQ to the int8 tree and to the W4A8 tree (the fp
@@ -48,7 +56,8 @@ caught:
                  requests of 16-256 prompt tokens and 32 new tokens. Gates:
                  launches grow by exactly 81 / 32 / 16 (int8_matmul / grouped
                  / lm_attention) per packed admission and per decode tick,
-                 every int8_matmul call on variant 1 (mma) or 2 (stream);
+                 every int8_matmul and grouped_matmul call on variant 1 (mma)
+                 or 2 (stream);
                  every request completes; teacher-forced, the engine's logits
                  of every request at 9 of its 32 steps match ``prefill`` over
                  the same prefix within the stated limits; the same requests
@@ -75,9 +84,11 @@ caught:
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before that
-holds the ``{"kernels": [...]}`` record (the int8_matmul row names the
-variant it timed). Times are CUDA-event times over repeated launches with
-warm caches; int8_matmul's over CUDA-graph replays (``graph_ms``).
+holds the ``{"kernels": [...]}`` record (the int8_matmul and grouped rows
+name the variant they timed, the attention rows the schedule). A row's
+``ms`` is device time per call over CUDA-graph replays (``graph_ms``), warm
+caches unless a ``cold_ms`` stands beside it; the selective-scan rows and
+the plain versions are CUDA-event times of eager calls.
 """
 from __future__ import annotations
 
@@ -119,7 +130,17 @@ PER_FORWARD = {"int8_matmul": 67, "grouped_matmul": 12, "streaming_attention": 1
 # decode tick): 16 layers x (q, k, v, o, gate) + lm_head; 16 x (fc1, fc2);
 # 16 attention layers
 LM_PER_FORWARD = {"int8_matmul": 81, "grouped_matmul": 32, "lm_attention": 16}
+# device kernel names of each wrapper's launches (profiles count them)
+KERNEL_NAMES = {
+    "int8_matmul": ("int8_mma_kernel", "int8_stream_kernel", "int8_matmul_kernel"),
+    "grouped_matmul": ("gmm_mma_kernel", "gmm_stream_kernel", "gmm_dp4a_kernel",
+                       "gmm_f32_kernel"),
+    "streaming_attention": ("quant_attention_kernel",),
+    "lm_attention": ("lm_decode_kernel", "lm_tile_kernel"),
+    "selective_scan": ("selective_scan_kernel",),
+}
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 512, 16, 32
+PROFILE_ATTEMPTS = 5  # traces of one profile, at most, while one is incomplete
 # teacher-forced gate, per tree: every request at these steps (the first
 # token from the packed prefill, then decode ticks); limits on the median
 # and p90 of the per-step max |logit| error against prefill and on the
@@ -367,50 +388,100 @@ def _int8_timing(label, operands, cold: bool) -> dict:
 
 def _routing(gen, T: int, G: int) -> torch.Tensor:
     """Group sizes of T rows over G experts, the last expert left empty."""
-    ids = torch.randint(0, G - 1, (T,), generator=gen, device="cuda")
+    ids = torch.randint(0, max(G - 1, 1), (T,), generator=gen, device="cuda")
     return torch.bincount(ids, minlength=G).to(torch.int32)
 
 
+# ragged grouped shapes (T, G, Din, Dout, sizes or None for seeded
+# routing): Din % 16 != 0 and odd Din (W4A8's pad nibble; dp4a only),
+# Dout % 16 == 8 (8-byte weight copies), Dout % 8 != 0 (dp4a only), one
+# group holding every row, groups that span several 64-row tiles with
+# empty groups between them, more than 16 rows a group at stream's
+# threshold, a single group, and T = 0
+GROUPED_RAGGED = [
+    (40, 4, 100, 64, None), (31, 4, 65, 24, None), (33, 5, 48, 40, None),
+    (70, 3, 64, 10, None), (130, 4, 128, 64, [0, 130, 0, 0]),
+    (300, 6, 256, 136, [0, 90, 0, 140, 70, 0]), (48, 24, 64, 64, [40] + [0] * 22 + [8]),
+    (16, 1, 32, 16, [16]), (0, 8, 64, 64, [0] * 8),
+]
+
+
+def _grouped_operands(gen, T, G, Din, Dout, packed, sizes=None):
+    """int8 x, an int8 or nibble-packed stack, per-expert scales, a_scale
+    and group sizes (seeded routing unless given)."""
+    from repro_torch.core.quant.qtypes import pack_int4
+
+    sizes = (_routing(gen, T, G) if sizes is None
+             else torch.tensor(sizes, dtype=torch.int32, device="cuda"))
+    x = torch.randint(-128, 128, (T, Din), generator=gen, device="cuda", dtype=torch.int8)
+    if packed:
+        w = pack_int4(torch.randint(-8, 8, (G, Din, Dout), generator=gen, device="cuda",
+                                    dtype=torch.int8))
+    else:
+        w = torch.randint(-127, 128, (G, Din, Dout), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    ws = torch.rand((G, Dout), generator=gen, device="cuda") * 0.01 + 1e-4
+    a_s = torch.rand((), generator=gen, device="cuda") * 0.05 + 1e-3
+    return x, w, sizes, ws, a_s
+
+
+def _check_grouped_variants(x, w, sizes, ws, a_s, checked: dict) -> None:
+    """Every variant that takes the widths, bit-equal to the plain version
+    (with and without the scales); counts the calls in ``checked``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.expert_linear import VARIANTS, grouped_matmul, takes
+
+    T, Din = x.shape
+    packed = w.dtype == torch.uint8
+    plain = ref.grouped_matmul_q4_ref if packed else ref.grouped_matmul_q_ref
+    ones = torch.ones_like(ws)
+    for w_scale, a_scale in ((ws, a_s), (None, None)):
+        want = plain(x, w, sizes, ones if w_scale is None else w_scale, a_scale)
+        for v in VARIANTS:
+            if not takes(v, Din, w.shape[2]):
+                continue
+            got = grouped_matmul(x, w, sizes, w_scale=w_scale, a_scale=a_scale, variant=v)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"grouped {'W4A8' if packed else 'int8'}[{VARIANTS[v]}] T={T} "
+                    f"G={w.shape[0]} {Din}->{w.shape[2]} scales={w_scale is not None}: not "
+                    f"bit-equal, max err {max_err(got, want)}")
+            checked[VARIANTS[v]] = checked.get(VARIANTS[v], 0) + 1
+
+
 def _check_grouped_matmul(gen) -> list:
+    """The int8 mode in every variant, bit-equal, at the M3ViT-S expert
+    shapes, the OLMoE-1B-7B decode / prefill shapes and ``GROUPED_RAGGED``;
+    the f32 mode at the M3ViT-S and OLMoE calibration shapes; then the
+    timed rows (``_grouped_timing``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.expert_linear import grouped_matmul
 
     B, G = 8, 16
     T = 2 * 197 * B  # top-2 routed rows of a batch of 8
-    sizes = _routing(gen, T, G)
+    checked: dict = {}
     rows = {}
     for Din, Dout in ((384, 1536), (1536, 384)):
-        x = torch.randint(-128, 128, (T, Din), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        w = torch.randint(-127, 128, (G, Din, Dout), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        ws = torch.rand((G, Dout), generator=gen, device="cuda") * 0.01 + 1e-4
-        a_s = torch.rand((), generator=gen, device="cuda") * 0.05 + 1e-3
-        got = grouped_matmul(x, w, sizes, w_scale=ws, a_scale=a_s)
-        want = ref.grouped_matmul_q_ref(x, w, sizes, ws, a_s)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"grouped int8 {Din}->{Dout}: not bit-equal, "
-                                 f"max err {max_err(got, want)}")
+        x, w, sizes, ws, a_s = _grouped_operands(gen, T, G, Din, Dout, False)
+        _check_grouped_variants(x, w, sizes, ws, a_s, checked)
         xf = torch.randn((T, Din), generator=gen, device="cuda")
         wf = torch.randn((G, Din, Dout), generator=gen, device="cuda") / math.sqrt(Din)
         gotf, wantf = grouped_matmul(xf, wf, sizes), ref.grouped_matmul_ref(xf, wf, sizes)
         torch.cuda.synchronize()
         torch.testing.assert_close(gotf, wantf, atol=1e-5, rtol=1e-5)
-        rows[Din] = (x, w, ws, a_s, xf, wf, max_err(gotf, wantf))
-    empty = grouped_matmul(torch.zeros((0, 384), dtype=torch.int8, device="cuda"),
-                           rows[384][1], torch.zeros(G, dtype=torch.int32, device="cuda"),
-                           w_scale=rows[384][2], a_scale=rows[384][3])
-    assert empty.shape == (0, 1536)
+        rows[Din] = (x, w, sizes, ws, a_s, xf, wf, max_err(gotf, wantf))
+    for T_, G_, Din, Dout, sz in GROUPED_RAGGED:
+        _check_grouped_variants(*_grouped_operands(gen, T_, G_, Din, Dout, False, sz),
+                                checked)
 
-    Din, Dout = 384, 1536  # expert fc1
-    x, w, ws, a_s, xf, wf, f32_err = rows[Din]
+    x, w, sizes, ws, a_s, xf, wf, f32_err = rows[384]  # expert fc1
     int8_row = {"name": "grouped_matmul", "mode": "int8", "max_abs_err": 0.0,
                 "tolerance": "bit-equal", "library_ms": None,
                 **_grouped_timing("m3vit_fc1", x, w, sizes, ws, a_s), "olmoe": []}
-    f32_row = {"name": "grouped_matmul_f32", "mode": "f32", "max_abs_err": f32_err,
-               "tolerance": "atol=1e-5, rtol=1e-5", "library_ms": None,
-               **_grouped_timing("m3vit_fc1", xf, wf, sizes), "olmoe": []}
+    f32_row = {"name": "grouped_matmul_f32", "mode": "f32 (not redesigned, calibration only)",
+               "max_abs_err": f32_err, "tolerance": "atol=1e-5, rtol=1e-5",
+               "library_ms": None, **_grouped_timing("m3vit_fc1", xf, wf, sizes), "olmoe": []}
 
     # OLMoE-1B-7B, 64 experts, fc1 (2048 -> 2 x 1024) and fc2 (1024 ->
     # 2048), fc1 timed: int8 at a decode tick (8 slots x top-8 = 64 routed
@@ -419,9 +490,9 @@ def _check_grouped_matmul(gen) -> list:
     G = 64
     for T, label in ((LM_SLOTS * 8, "decode"), (LM_MAX_LEN * 8, "prefill"),
                      (2 * 32 * 8, "calibration")):
-        sizes = _routing(gen, T, G)
         for Din, Dout in ((2048, 2048), (1024, 2048)):
             if label == "calibration":
+                sizes = _routing(gen, T, G)
                 xf = torch.randn((T, Din), generator=gen, device="cuda")
                 wf = torch.randn((G, Din, Dout), generator=gen, device="cuda") / math.sqrt(Din)
                 gotf, wantf = grouped_matmul(xf, wf, sizes), ref.grouped_matmul_ref(xf, wf, sizes)
@@ -431,80 +502,97 @@ def _check_grouped_matmul(gen) -> list:
                 if Din == 2048:
                     f32_row["olmoe"].append(_grouped_timing(f"{label}_fc1", xf, wf, sizes))
                 continue
-            x = torch.randint(-128, 128, (T, Din), generator=gen, device="cuda",
-                              dtype=torch.int8)
-            w = torch.randint(-127, 128, (G, Din, Dout), generator=gen, device="cuda",
-                              dtype=torch.int8)
-            ws = torch.rand((G, Dout), generator=gen, device="cuda") * 0.01 + 1e-4
-            a_s = torch.rand((), generator=gen, device="cuda") * 0.05 + 1e-3
-            got = grouped_matmul(x, w, sizes, w_scale=ws, a_scale=a_s)
-            want = ref.grouped_matmul_q_ref(x, w, sizes, ws, a_s)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"grouped int8 T={T} G={G} {Din}->{Dout}: not "
-                                     f"bit-equal, max err {max_err(got, want)}")
+            x, w, sizes, ws, a_s = _grouped_operands(gen, T, G, Din, Dout, False)
+            _check_grouped_variants(x, w, sizes, ws, a_s, checked)
             if Din == 2048:
-                int8_row["olmoe"].append(_grouped_timing(f"{label}_fc1", x, w, sizes, ws, a_s))
+                int8_row["olmoe"].append(_grouped_timing(
+                    f"{label}_fc1", x, w, sizes, ws, a_s, cold=label == "decode"))
+            del x, w
+    empty = grouped_matmul(torch.zeros((0, 384), dtype=torch.int8, device="cuda"),
+                           rows[384][1], torch.zeros(16, dtype=torch.int32, device="cuda"),
+                           w_scale=rows[384][3], a_scale=rows[384][4])
+    assert empty.shape == (0, 1536)
+    print(f"[kernels] grouped int8 bit-equal, calls by variant {checked} (the path's "
+          f"shapes and {len(GROUPED_RAGGED)} ragged ones, with and without scales)",
+          flush=True)
+    int8_row["checked"] = checked
     return [int8_row, f32_row]
 
 
-def _grouped_timing(label, x, w, sizes, ws=None, a_s=None) -> dict:
+def _grouped_timing(label, x, w, sizes, ws=None, a_s=None, cold=False) -> dict:
     """Time one grouped matmul (int8, W4A8 or f32 by the operands) and its
     plain version, and bound it: each input read once (the weights of the
     experts that got rows only), the output written once, 2 T Din Dout
-    operations at the int8 or f32 rate."""
+    operations at the int8 or f32 rate. Device time per call by
+    ``graph_ms``; the integer modes in the variant the wrapper picks and in
+    the dp4a variant (the kernel this replaces), and with ``cold`` also
+    with the expert stack rotated over at least ``COLD_BYTES`` of buffers,
+    so that L2 holds none of it when a call starts (as on the path, where
+    each layer's experts arrive after the other layers')."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.expert_linear import grouped_matmul
+    from repro_torch.kernels.expert_linear import VARIANTS, choose_variant, grouped_matmul
 
     T, Din = x.shape
     G, w_rows, Dout = w.shape
     g_active = int((sizes > 0).sum())
+    row = {"label": label, "shape": [T, G, Din, Dout]}
     if x.dtype == torch.int8:
         plain = ref.grouped_matmul_q4_ref if w.dtype == torch.uint8 else ref.grouped_matmul_q_ref
         nb, by = bound_ms(T * Din + g_active * w_rows * Dout + 4 * G * Dout + 4
                           + 4 * T * Dout, 2.0 * T * Din * Dout, INT8_OPS_PER_S)
-        fn = lambda: grouped_matmul(x, w, sizes, w_scale=ws, a_scale=a_s)  # noqa: E731
+        v = choose_variant(T, G, Din, Dout)
+        fn = lambda wt=w, var=None: grouped_matmul(  # noqa: E731
+            x, wt, sizes, w_scale=ws, a_scale=a_s, variant=var)
+        row.update(variant=VARIANTS[v], ms=graph_ms(fn), dp4a_ms=graph_ms(lambda: fn(var=3)),
+                   eager_ms=time_ms(fn))
+        for var in (v, 3):
+            _one_device_kernel(f"grouped {label} {VARIANTS[var]}", lambda: fn(var=var))
         plain_fn = lambda: plain(x, w, sizes, ws, a_s)  # noqa: E731
+        if cold:
+            n = max(2, math.ceil(COLD_BYTES / w.numel()))
+            bufs = [w] + [w.roll(i, dims=0) for i in range(1, n)]
+            for key, var in (("cold_ms", v), ("dp4a_cold_ms", 3)):
+                it = iter(range(1 << 30))
+                row[key] = graph_ms(lambda: fn(bufs[next(it) % n], var), n=2 * n, iters=5)
+            del bufs
     else:
         nb, by = bound_ms(4 * (T * Din + g_active * Din * Dout + T * Dout),
                           2.0 * T * Din * Dout, F32_OPS_PER_S)
         fn = lambda: grouped_matmul(x, w, sizes)  # noqa: E731
         plain_fn = lambda: ref.grouped_matmul_ref(x, w, sizes)  # noqa: E731
-    return {"label": label, "shape": [T, G, Din, Dout], "ms": time_ms(fn),
-            "plain_ms": time_ms(plain_fn, iters=10), "bound_ms": nb, "bound_by": by}
+        row.update(variant="f32", ms=graph_ms(fn), eager_ms=time_ms(fn))
+        _one_device_kernel(f"grouped {label} f32", fn)
+    row.update(plain_ms=time_ms(plain_fn, iters=10), bound_ms=nb, bound_by=by)
+    print(f"[kernels] grouped {'W4A8' if w.dtype == torch.uint8 else x.dtype} {label} "
+          f"{row['shape']}: {row['variant']} {row['ms']:.4f} ms (cold "
+          f"{row.get('cold_ms', float('nan')):.4f}), dp4a {row.get('dp4a_ms', float('nan')):.4f}"
+          f" ms (cold {row.get('dp4a_cold_ms', float('nan')):.4f}), eager "
+          f"{row['eager_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound {nb:.5f} ms ({by})",
+          flush=True)
+    return row
 
 
 def _check_grouped_w4a8(gen) -> dict:
     """W4A8 at the OLMoE-1B-7B expert fc1 shapes (2048 -> 2 x 1024, 64
     experts): a decode tick (8 slots x top-8 = 64 routed rows) and a full
-    512-token packed prefill (4096 rows); fc2 (1024 -> 2048) checked too.
-    Bit-equal to ``grouped_matmul_q4_ref``."""
-    from repro_torch.core.quant.qtypes import pack_int4
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.expert_linear import grouped_matmul
-
+    512-token packed prefill (4096 rows); fc2 (1024 -> 2048) and
+    ``GROUPED_RAGGED`` checked too, every variant bit-equal to
+    ``grouped_matmul_q4_ref``."""
     G = 64
+    checked: dict = {}
     row = {"name": "grouped_matmul_w4a8", "max_abs_err": 0.0, "tolerance": "bit-equal",
            "library_ms": None}
+    for T_, G_, Din, Dout, sz in GROUPED_RAGGED:
+        _check_grouped_variants(*_grouped_operands(gen, T_, G_, Din, Dout, True, sz), checked)
     for T, label in ((8 * 8, ""), (512 * 8, "prefill_")):
-        sizes = _routing(gen, T, G)
         for Din, Dout in ((2048, 2048), (1024, 2048)):
-            x = torch.randint(-128, 128, (T, Din), generator=gen, device="cuda",
-                              dtype=torch.int8)
-            w = pack_int4(torch.randint(-8, 8, (G, Din, Dout), generator=gen,
-                                        device="cuda", dtype=torch.int8))
-            ws = torch.rand((G, Dout), generator=gen, device="cuda") * 0.01 + 1e-4
-            a_s = torch.rand((), generator=gen, device="cuda") * 0.05 + 1e-3
-            got = grouped_matmul(x, w, sizes, w_scale=ws, a_scale=a_s)
-            want = ref.grouped_matmul_q4_ref(x, w, sizes, ws, a_s)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"grouped W4A8 T={T} {Din}->{Dout}: not "
-                                     f"bit-equal, max err {max_err(got, want)}")
+            x, w, sizes, ws, a_s = _grouped_operands(gen, T, G, Din, Dout, True)
+            _check_grouped_variants(x, w, sizes, ws, a_s, checked)
             if Din == 2048:  # fc1 is timed
-                t = _grouped_timing(label or "decode", x, w, sizes, ws, a_s)
-                row.update({label + k: t[k] for k in
-                            ("shape", "ms", "plain_ms", "bound_ms", "bound_by")})
+                t = _grouped_timing(label or "decode", x, w, sizes, ws, a_s, cold=not label)
+                row.update({label + k: v for k, v in t.items() if k != "label"})
+    print(f"[kernels] grouped W4A8 bit-equal, calls by variant {checked}", flush=True)
+    row["checked"] = checked
     return row
 
 
@@ -523,31 +611,121 @@ def _visible_pairs(B, Sq, Sk, causal, q_offset, valid, window, qseg, kseg) -> in
     return int(ok.sum())
 
 
+# the generator seed of the LM attention rows (``_check_lm_attention``)
+LM_ATTENTION_SEED = 0
+# rows over 1e-4 with Gaussian q that the previous design of lm_attention.cu
+# (one 32-query-row block a head, f32 FMAs from shared memory) gave on an
+# H100 on the same inputs: the previous commit's chip_smoke.py run as
+# ``_check_lm_attention(torch.Generator(device="cuda").manual_seed(
+# LM_ATTENTION_SEED))``, which draws these two rows' inputs in the order
+# kept here (0 of 8192 and 0 of 128; PERF.md names the run). A
+# quant_bits > 0 row may have no more; the rows it did not run are absent
+PARENT_GAUSSIAN_OVER = {"packed_prefill": 0, "decode_int8": 0}
+GAUSSIAN_QB0_TOL = 1e-4  # atol = rtol for the quant_bits=0 rows with Gaussian q
+
+
+def _device_work(fn) -> int:
+    """Device kernels, memsets and copies one call of ``fn`` enqueues: the
+    nodes of a CUDA graph that captures the call (after a warm-up call),
+    counted by the CUDA driver API's ``cuGraphGetNodes``."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    nodes = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(nodes))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return nodes.value
+
+
+def _one_device_kernel(label: str, fn) -> int:
+    """Gate: one call of a wrapper is exactly one device kernel (no fill,
+    cast, memset or work-table launch beside it)."""
+    n = _device_work(fn)
+    if n != 1:
+        raise AssertionError(f"{label}: {n} device kernels, memsets or copies a call, "
+                             "expected 1")
+    return n
+
+
 def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) -> dict:
-    """Check one LM attention mode against the plain version (inputs whose
-    scores are exact in f32), time kernel, plain version and (quant_bits=0)
-    SDPA, and bound it; where SDPA is timed, kernel and SDPA also as
-    ``graph_ms`` (device time, without the host's enqueue; the kernel's
-    includes the wrapper's two offset fills). ``gaussian``: the same call
-    with Gaussian q, whose rows over 1e-4 are reported, not gated (a score
-    on a .5 code boundary may round the other way when the dot products run
-    in another order)."""
+    """Check one LM attention mode against the plain version on inputs
+    whose scores are exact in f32 (``tol``), and with Gaussian q
+    (``gaussian``): a ``quant_bits=0`` row is gated at ``GAUSSIAN_QB0_TOL``
+    (against the plain version on f32 copies of bf16 K/V, which computes
+    what the kernel does: the plain version rounds P to bf16 for bf16 V);
+    a ``quant_bits > 0`` row counts its rows over 1e-4 (a score on a .5
+    code boundary may round the other way when the dot products run in
+    another order), gated at the previous design's count where
+    ``PARENT_GAUSSIAN_OVER`` has one. Where the decode schedule takes the
+    shape, the tile schedule (``schedule=1``) is held against the plain
+    version too, and must equal the decode schedule bit for bit, on both
+    inputs: the two run one arithmetic, so a served decode step computes
+    what a prefill computes for its row. Gate: one device kernel a call. Time the kernel (device time per call,
+    ``graph_ms``, and eager), the plain version and, for ``quant_bits=0``,
+    SDPA (``sdpa``, graph and eager), and bound it."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.quant_attention import lm_attention
+    from repro_torch.kernels.quant_attention import SCHEDULES, choose_schedule, lm_attention
 
     got, want = lm_attention(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     atol, rtol = tol
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
     err = max_err(got, want)
-    if gaussian is not None:
-        diff = (lm_attention(gaussian, k, v, **kw)
-                - ref.flash_attention_ref(gaussian, k, v, **kw)).abs().amax(-1)
-        print(f"[kernels] lm_attention[{name}], Gaussian q: max err "
-              f"{float(diff.max()):.3g}, rows over 1e-4: {int((diff > 1e-4).sum())} "
-              f"of {diff.numel()}", flush=True)
+    qb = kw.get("quant_bits", 0)
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
+    schedule = choose_schedule(Sq, Sk, H, KVH, hd, all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    row = {}
+    if schedule == 0:
+        tile = lm_attention(q, k, v, schedule=1, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(tile, want, atol=atol, rtol=rtol)
+        row["tile_max_abs_err"] = max_err(tile, want)
+        if not torch.equal(tile, got):
+            raise AssertionError(f"lm_attention[{name}]: the tile schedule is not bit-equal "
+                                 f"to the decode schedule, max diff {max_err(tile, got)}")
+    if gaussian is not None:
+        kp, vp = (k.float(), v.float()) if k.dtype == torch.bfloat16 else (k, v)
+        g_got, g_want = lm_attention(gaussian, k, v, **kw), ref.flash_attention_ref(
+            gaussian, kp, vp, **kw)
+        torch.cuda.synchronize()
+        diff = (g_got - g_want).abs().amax(-1)
+        over = int((diff > 1e-4).sum())
+        parent = PARENT_GAUSSIAN_OVER.get(name)
+        row.update(gaussian_max_abs_err=float(diff.max()), gaussian_rows_over=over,
+                   gaussian_rows=diff.numel(), parent_rows_over=parent)
+        gate = (f"; gate atol = rtol = {GAUSSIAN_QB0_TOL}" if qb == 0 else
+                f", gate <= {parent}" if parent is not None else ", not gated")
+        print(f"[kernels] lm_attention[{name}], Gaussian q: max err {float(diff.max()):.3g}, "
+              f"rows over 1e-4: {over} of {diff.numel()} (previous design: "
+              f"{'not run' if parent is None else parent}){gate}", flush=True)
+        if qb == 0:
+            torch.testing.assert_close(g_got, g_want, atol=GAUSSIAN_QB0_TOL,
+                                       rtol=GAUSSIAN_QB0_TOL)
+        elif parent is not None and over > parent:
+            raise AssertionError(f"lm_attention[{name}]: {over} rows over 1e-4 with "
+                                 f"Gaussian q, the previous design {parent}")
+        if schedule == 0:
+            g_tile = lm_attention(gaussian, k, v, schedule=1, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(g_tile, g_got)
+            print(f"[kernels] lm_attention[{name}], Gaussian q: tile schedule bit-equal to "
+                  f"the decode schedule: {same} (gate; max diff {max_err(g_tile, g_got):.3g})",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"lm_attention[{name}]: with Gaussian q the tile "
+                                     "schedule is not bit-equal to the decode schedule")
     off = kw.get("q_offset", 0)
     off = off if isinstance(off, torch.Tensor) else torch.full((B,), off, device="cuda")
     valid = kw.get("kv_valid_len")
@@ -561,33 +739,52 @@ def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) ->
                + (8 * live_keys * KVH if "k_scale" in kw else 0)
                + (4 * B * (Sq + Sk) if qseg is not None else 0) + 8 * B)
     nb, by = bound_ms(n_bytes, 4.0 * pairs * (H // KVH) * KVH * hd, F32_OPS_PER_S)
-    graph = {} if sdpa is None else {  # device time alone: the eager loop is host-bound
-        "graph_ms": graph_ms(lambda: lm_attention(q, k, v, **kw)),
-        "library_graph_ms": graph_ms(sdpa)}
-    return graph | {
+    kernel = lambda: lm_attention(q, k, v, **kw)  # noqa: E731
+    row.update({
         "name": f"lm_attention[{name}]", "mode": mode, "shape": [B, Sq, Sk, H, KVH, hd],
-        "quant_bits": kw.get("quant_bits", 0), "kv_dtype": str(k.dtype).removeprefix("torch."),
+        "schedule": SCHEDULES[schedule],
+        "quant_bits": qb, "kv_dtype": str(k.dtype).removeprefix("torch."),
         "max_abs_err": err, "tolerance": f"atol={atol}, rtol={rtol}",
-        "ms": time_ms(lambda: lm_attention(q, k, v, **kw)),
+        "device_kernels": _one_device_kernel(f"lm_attention[{name}]", kernel),
+        "ms": graph_ms(kernel), "eager_ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), iters=5),
         "bound_ms": nb, "bound_by": by,
-        "library_ms": None if sdpa is None else time_ms(sdpa),
-    }
+        "library_ms": None if sdpa is None else graph_ms(sdpa),
+        "library_eager_ms": None if sdpa is None else time_ms(sdpa),
+    })
+    if schedule == 0:
+        row["tile_ms"] = graph_ms(lambda: lm_attention(q, k, v, schedule=1, **kw))
+    lib = "" if sdpa is None else (f", SDPA {row['library_ms']:.4f} ms (eager "
+                                   f"{row['library_eager_ms']:.4f})")
+    tile = "" if schedule else f", tile schedule {row['tile_ms']:.4f} ms"
+    print(f"[kernels] lm_attention[{name}] {row['shape']} {mode}: {row['schedule']} "
+          f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}){lib}{tile}, plain "
+          f"{row['plain_ms']:.3f} ms, bound {nb:.5f} ms ({by}), max err {err:.3g}",
+          flush=True)
+    return row
 
 
 def _check_lm_attention(gen) -> list:
     """Every LM mode at the OLMoE-1B-7B shapes (16 heads of 128): the
     calibration forward, a 512-token packed prefill over int8 K/V with four
     segments and a pad tail, a decode tick of 8 slots over the int8 cache,
-    a decode tick over a bf16 cache, and the window / softcap options at a
-    small shape. q (and fp k) lie on a 1/4 grid and int8 k is integral, so
-    the scores are exact in f32 and the codes equal the plain version's."""
+    a decode tick over a bf16 cache; the window / softcap options at a
+    small shape; GQA; zamba2-7b's head dim of 112; a head dim of 100 (rows
+    that are not whole 16-byte chunks, staged by plain loads, and padded
+    dims). q (and fp k) lie on a 1/4 grid and int8 k is integral, so the
+    scores are exact in f32 and the codes equal the plain version's.
+    ``gen`` draws every input in the previous design's order (so the
+    packed-prefill and decode rows meet the inputs ``PARENT_GAUSSIAN_OVER``
+    was read on); the Gaussian q of the rows that run had none come from a
+    second generator."""
     from repro_torch.models.layers import quantize_kv
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     grid = lambda *shape: torch.randint(-3, 4, shape, generator=gen,  # noqa: E731
                                         device="cuda").float() * 0.25
     randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    extra = torch.Generator(device="cuda").manual_seed(LM_ATTENTION_SEED + 1)
+    gauss = lambda *shape: torch.randn(shape, generator=extra, device="cuda")  # noqa: E731
     H, hd, rows = 16, 128, []
     f32_tol, bf16_tol = (1e-5, 1e-5), (5e-3, 0.0)
 
@@ -596,7 +793,8 @@ def _check_lm_attention(gen) -> list:
     t = lambda a: a.transpose(1, 2)  # noqa: E731
     rows.append(_lm_attention_row(
         "calibration", "causal/float32/qb0", q, k, v, dict(causal=True, quant_bits=0),
-        f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v), is_causal=True)))
+        f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v), is_causal=True),
+        gaussian=gauss(2, 32, H, hd)))
 
     # packed prefill: 4 prompts + pad tail in one 512 row, int8 K/V, 4-bit
     P = 512
@@ -634,7 +832,8 @@ def _check_lm_attention(gen) -> list:
     kw = dict(causal=True, q_offset=off, quant_bits=0, kv_valid_len=off + 1)
     rows.append(_lm_attention_row(
         "decode_bf16", "causal/bfloat16/qb0/decode", q, kb, vb, kw, bf16_tol,
-        sdpa=lambda: sdpa(t(q.bfloat16()), t(kb), t(vb), attn_mask=mask[:, None, None, :])))
+        sdpa=lambda: sdpa(t(q.bfloat16()), t(kb), t(vb), attn_mask=mask[:, None, None, :]),
+        gaussian=gauss(8, 1, H, hd)))
 
     # local window and logit softcap (not on the OLMoE path), hd = 64
     S, Hs, W = 64, 4, 16
@@ -644,13 +843,62 @@ def _check_lm_attention(gen) -> list:
     rows.append(_lm_attention_row(
         "window", "causal/float32/qb0", q, k, v,
         dict(causal=True, quant_bits=0, local_window=W), f32_tol,
-        sdpa=lambda: sdpa(t(q), t(k), t(v), attn_mask=wmask)))
+        sdpa=lambda: sdpa(t(q), t(k), t(v), attn_mask=wmask), gaussian=gauss(2, S, Hs, 64)))
     rows.append(_lm_attention_row(
         "window_qb4", "causal/float32/qb4", q, k, v,
-        dict(causal=True, quant_bits=4, local_window=W), f32_tol))
+        dict(causal=True, quant_bits=4, local_window=W), f32_tol,
+        gaussian=gauss(2, S, Hs, 64)))
     rows.append(_lm_attention_row(  # no PyTorch call applies a tanh softcap
         "softcap", "causal/float32/qb0", q, k, v,
-        dict(causal=True, quant_bits=0, local_window=W, logit_softcap=30.0), f32_tol))
+        dict(causal=True, quant_bits=0, local_window=W, logit_softcap=30.0), f32_tol,
+        gaussian=gauss(2, S, Hs, 64)))
+
+    # GQA (not on the OLMoE path): a decode tick of 4 slots with 4 heads a
+    # KV head (the decode schedule's most rows a block), and a causal f32
+    # prefill with 4 heads a KV head
+    off4 = off[:4]
+    k8, ks = quantize_kv(randn(4, LM_MAX_LEN, 8, hd))
+    v8, vs = quantize_kv(randn(4, LM_MAX_LEN, 8, hd))
+    rows.append(_lm_attention_row(
+        "decode_gqa", "causal/int8/qb4/decode/gqa", grid(4, 1, 32, hd), k8, v8,
+        dict(causal=True, q_offset=off4, quant_bits=4, k_scale=ks, v_scale=vs,
+             kv_valid_len=off4 + 1), f32_tol, gaussian=gauss(4, 1, 32, hd)))
+    q, k, v = grid(1, 100, 8, hd), grid(1, 100, 2, hd), randn(1, 100, 2, hd)
+    kg, vg = k.repeat_interleave(4, dim=2), v.repeat_interleave(4, dim=2)
+    rows.append(_lm_attention_row(
+        "prefill_gqa", "causal/float32/qb0/gqa", q, k, v, dict(causal=True, quant_bits=0),
+        f32_tol, sdpa=lambda: sdpa(t(q), t(kg), t(vg), is_causal=True),
+        gaussian=gauss(1, 100, 8, hd)))
+
+    # zamba2-7b's attention (32 heads of 112, not a configuration the port
+    # serves yet): a decode tick over an int8 cache and a 256-token prefill,
+    # both on the tile schedule (the decode schedule holds hd = 128)
+    Hz, hz = 32, 112
+    k8, ks = quantize_kv(randn(8, LM_MAX_LEN, Hz, hz))
+    v8, vs = quantize_kv(randn(8, LM_MAX_LEN, Hz, hz))
+    rows.append(_lm_attention_row(
+        "decode_hd112", "causal/int8/qb4/decode/hd112", grid(8, 1, Hz, hz), k8, v8,
+        dict(causal=True, q_offset=off, quant_bits=4, k_scale=ks, v_scale=vs,
+             kv_valid_len=off + 1), f32_tol, gaussian=gauss(8, 1, Hz, hz)))
+    q, k, v = grid(1, 256, Hz, hz), grid(1, 256, Hz, hz), randn(1, 256, Hz, hz)
+    rows.append(_lm_attention_row(
+        "prefill_hd112", "causal/float32/qb0/hd112", q, k, v, dict(causal=True, quant_bits=0),
+        f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v), is_causal=True),
+        gaussian=gauss(1, 256, Hz, hz)))
+
+    # hd = 100: int8 rows of 100 bytes (plain loads, 12 padded dims) and f32
+    # rows of 400 bytes (cp.async, the last three chunks zero-filled)
+    k8, ks = quantize_kv(randn(2, 80, 4, 100))
+    v8, vs = quantize_kv(randn(2, 80, 4, 100))
+    rows.append(_lm_attention_row(
+        "prefill_hd100", "causal/int8/qb4/hd100", grid(2, 80, 4, 100), k8, v8,
+        dict(causal=True, quant_bits=4, k_scale=ks, v_scale=vs), f32_tol,
+        gaussian=gauss(2, 80, 4, 100)))
+    q, k, v = grid(2, 80, 4, 100), grid(2, 80, 4, 100), randn(2, 80, 4, 100)
+    rows.append(_lm_attention_row(
+        "prefill_hd100_f32", "causal/float32/qb0/hd100", q, k, v, dict(causal=True, quant_bits=0),
+        f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v), is_causal=True),
+        gaussian=gauss(2, 80, 4, 100)))
     return rows
 
 
@@ -685,17 +933,23 @@ def _check_attention(gen) -> dict:
     torch.testing.assert_close(lm, want, atol=1e-5, rtol=1e-5)
     n = B * S * H * hd
     nb, by = bound_ms(4 * 4 * n, 2.0 * 2 * B * H * S * S * hd, F32_OPS_PER_S)
-    return {
+    vision = lambda: streaming_attention(q, k, v, quant_bits=4)  # noqa: E731
+    lm_fn = lambda: lm_attention(q, k, v, causal=False, quant_bits=4)  # noqa: E731
+    row = {
         "name": "streaming_attention", "shape": [B, S, H, hd], "quant_bits": 4,
         "max_abs_err": err, "tolerance": "atol=1e-5, rtol=1e-5 (exact-score inputs)",
-        "ms": time_ms(lambda: streaming_attention(q, k, v, quant_bits=4)),
+        "ms": graph_ms(vision), "eager_ms": time_ms(vision),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=False,
                                                             quant_bits=4)),
         "bound_ms": nb, "bound_by": by, "library_ms": None,
-        "lm_attention_ms": time_ms(lambda: lm_attention(q, k, v, causal=False,
-                                                        quant_bits=4)),
+        "lm_attention_ms": graph_ms(lm_fn), "lm_attention_eager_ms": time_ms(lm_fn),
         "lm_attention_max_abs_err": max_err(lm, want),
     }
+    print(f"[kernels] vision attention {[B, S, H, hd]} qb4: streaming_attention "
+          f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}), lm_attention on the same "
+          f"inputs {row['lm_attention_ms']:.4f} ms (eager {row['lm_attention_eager_ms']:.4f}),"
+          f" bound {nb:.5f} ms ({by})", flush=True)
+    return row
 
 
 def _check_selective_scan(gen) -> dict:
@@ -756,7 +1010,8 @@ def _check_selective_scan(gen) -> dict:
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [_check_int8_matmul(gen), *_check_grouped_matmul(gen), _check_attention(gen),
-            _check_grouped_w4a8(gen), *_check_lm_attention(gen),
+            _check_grouped_w4a8(gen),
+            *_check_lm_attention(torch.Generator(device="cuda").manual_seed(LM_ATTENTION_SEED)),
             _check_selective_scan(gen)]
     for row in rows:
         row["route"] = "cuda"
@@ -806,6 +1061,18 @@ def _check_int8_variants(tag: str, counts: dict) -> None:
         raise AssertionError(f"[{tag}] int8_matmul calls off variants 1 and 2: {counts}")
 
 
+def _check_grouped_variants_used(tag: str, counts: dict) -> None:
+    """Every integer grouped_matmul call of a serving run went through
+    variant 1 (mma) or 2 (stream), read from the wrapper's counters."""
+    by = {v: sum(n for k, n in counts.items() if k.startswith("grouped_matmul:")
+                 and k.endswith("/" + v)) for v in ("mma", "stream", "dp4a")}
+    integer = counts.get("grouped_matmul:int8", 0) + counts.get("grouped_matmul:w4a8", 0)
+    print(f"[{tag}] grouped_matmul integer launches by variant: {by} (gate: dp4a 0)",
+          flush=True)
+    if by["dp4a"] or by["mma"] + by["stream"] != integer:
+        raise AssertionError(f"[{tag}] grouped calls off variants 1 and 2: {counts}")
+
+
 def phase_serving(smi: str):
     from repro_torch.configs.moe_vit import CONFIG
     from repro_torch.core.quant.ptq import calibrate_model, ptq_model, quantized_config
@@ -851,6 +1118,7 @@ def phase_serving(smi: str):
             raise AssertionError(f"{name}: {counts[name]} launches for {batches} "
                                  f"batches, expected {per} per forward")
     _check_int8_variants("serving", counts)
+    _check_grouped_variants_used("serving", counts)
     snap = eng.metrics.snapshot()
     lat = snap["latency_ms"]
     print(f"[serving] smoke figure, not a benchmark: {snap['counters']['completed']} "
@@ -979,6 +1247,7 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
                 f"[lm {mat}] {name}: {counts[name]} launches for {c['prefill_batches']} "
                 f"admissions + {c['decode_ticks']} ticks, expected {per} per forward")
     _check_int8_variants(f"lm {mat}", counts)
+    _check_grouped_variants_used(f"lm {mat}", counts)
     grouped_mode = "w4a8" if mat == "int4" else "int8"
     if counts.get(f"grouped_matmul:{grouped_mode}") != counts["grouped_matmul"]:
         raise AssertionError(f"[lm {mat}] grouped launches by mode: {counts}")
@@ -1072,22 +1341,30 @@ def _profile_lm(eng, mat: str, smi: str) -> dict:
     out = {
         "decode tick": _profile(
             f"profile lm {mat}", "decode tick", smi, 3,
-            lambda: transformer.decode_step(p, cfg, tok, eng.cache, index, with_stats=True)),
+            lambda: transformer.decode_step(p, cfg, tok, eng.cache, index, with_stats=True),
+            expect=LM_PER_FORWARD),
         "packed prefill 512": _profile(
             f"profile lm {mat}", "packed prefill 512", smi, 3,
             lambda: transformer.prefill_packed(p, cfg, tok.new_zeros((1, P)), pos, seg,
-                                               last, max_len=P)),
+                                               last, max_len=P), expect=LM_PER_FORWARD),
     }
     for label, prof in out.items():
-        _check_int8_kernels(f"profile lm {mat} {label}", prof, LM_PER_FORWARD["int8_matmul"])
+        _check_kernels_per_call(f"profile lm {mat} {label}", prof, LM_PER_FORWARD)
     return out
 
 
-def _profile(tag: str, label: str, smi: str, n: int, fn) -> dict:
+def _profile(tag: str, label: str, smi: str, n: int, fn, expect=None) -> dict:
     """Host wall time per call of ``fn`` with a synchronize, host time to
     enqueue alone, and the device time of every kernel it launched
     (torch.profiler, summed by kernel name; the top 8 printed), over ``n``
-    calls after one warm-up call."""
+    calls after one warm-up call. ``expect`` (family -> launches a call):
+    a trace that holds fewer kernels of a family than its wrapper launched
+    is incomplete (a launch that returned success ran its kernel, so the
+    profiler lost events, as it did for ~1% of a 512-token prefill's
+    kernels in some runs on an H100) and is taken again,
+    ``PROFILE_ATTEMPTS`` times at most; ``_check_kernels_per_call`` holds
+    the last trace to exactly the launches, so a second kernel a call
+    still fails."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -1099,36 +1376,49 @@ def _profile(tag: str, label: str, smi: str, n: int, fn) -> dict:
         enqueue = (time.perf_counter() - t0) / n
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-    by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us, calls = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (us + ev.device_time, calls + 1)
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            by_name: dict = {}
+            for ev in prof.events():
+                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                    us, calls = by_name.get(ev.name, (0.0, 0))
+                    by_name[ev.name] = (us + ev.device_time, calls + 1)
+            fam = {}
+            for family, names in KERNEL_NAMES.items():
+                hits = [(us, c) for name, (us, c) in by_name.items()
+                        if any(k in name for k in names)]
+                fam[family] = (sum(us for us, _ in hits) / n / 1e3, sum(c for _, c in hits) / n)
+            short = {f: fam[f][1] for f, want in (expect or {}).items() if fam[f][1] < want}
+            if not short:
+                break
+            print(f"[{tag}] {label}: trace {attempt} is incomplete ({short} kernels a call "
+                  f"against {expect} launched); tracing again", flush=True)
     device_ms = sum(us for us, _ in by_name.values()) / n / 1e3
     kernels = sum(c for _, c in by_name.values()) / n
-    int8_names = ("int8_mma_kernel", "int8_stream_kernel", "int8_matmul_kernel")
-    int8 = [(us, c) for name, (us, c) in by_name.items()
-            if any(k in name for k in int8_names)]
-    int8_ms, int8_kernels = sum(us for us, _ in int8) / n / 1e3, sum(c for _, c in int8) / n
     print(f"[{tag}] {label} ({smi}): wall {wall * 1e3:.2f} ms, host enqueue "
           f"{enqueue * 1e3:.2f} ms, device kernels {device_ms:.2f} ms (busy share "
-          f"{device_ms / (wall * 1e3):.2f}), {kernels:.0f} kernels; int8_matmul "
-          f"{int8_ms:.3f} ms in {int8_kernels:.0f} kernels", flush=True)
+          f"{device_ms / (wall * 1e3):.2f}), {kernels:.0f} kernels; "
+          + ", ".join(f"{f} {ms:.3f} ms in {k:.0f} kernels" for f, (ms, k) in fam.items()),
+          flush=True)
     for kname, (us, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"[{tag}] {us / n / 1e3:8.3f} ms {calls // n:5d} x  {kname[:80]}", flush=True)
     return {"wall_ms": wall * 1e3, "enqueue_ms": enqueue * 1e3, "device_ms": device_ms,
-            "kernels": kernels, "int8_ms": int8_ms, "int8_kernels": int8_kernels}
+            "kernels": kernels, "traces": attempt,
+            **{f"{f}_ms": ms for f, (ms, _) in fam.items()},
+            **{f"{f}_kernels": k for f, (_, k) in fam.items()}}
 
 
-def _check_int8_kernels(tag: str, profile: dict, per: int) -> None:
-    """One device kernel per int8_matmul call: no memset or second pass."""
-    if profile["int8_kernels"] != per:
-        raise AssertionError(f"[{tag}] {profile['int8_kernels']} int8_matmul device "
-                             f"kernels per forward, expected {per}")
+def _check_kernels_per_call(tag: str, profile: dict, per: dict) -> None:
+    """One device kernel per call of each wrapper in ``per`` (launches per
+    forward): no memset, no work-table or offset fill, no second pass."""
+    for family, want in per.items():
+        if profile[f"{family}_kernels"] != want:
+            raise AssertionError(f"[{tag}] {profile[f'{family}_kernels']} {family} device "
+                                 f"kernels per forward, expected {want}")
+    print(f"[{tag}] one device kernel per call: {per} (gate)", flush=True)
 
 
 def phase_ssm(smi: str) -> dict:
@@ -1322,8 +1612,8 @@ def phase_profile(qcfg, p_int8, smi: str) -> None:
 
     x = torch.from_numpy(synth_patches(qcfg, 8, seed=4)).cuda()
     prof = _profile("profile", f"{qcfg.name} int8 forward, B=8", smi, 5,
-                    lambda: classify(p_int8, qcfg, x))
-    _check_int8_kernels("profile", prof, PER_FORWARD["int8_matmul"])
+                    lambda: classify(p_int8, qcfg, x), expect=PER_FORWARD)
+    _check_kernels_per_call("profile", prof, PER_FORWARD)
 
 
 def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) -> int:
@@ -1370,7 +1660,7 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} | {"shape": row["shape"]}
-                      | ({"variant": row["variant"]} if "variant" in row else {})
+                      | {k: row[k] for k in ("variant", "schedule") if k in row}
                       for row in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

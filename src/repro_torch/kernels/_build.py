@@ -32,12 +32,13 @@ _SIGNATURES = {
     "int8_matmul_launch": (_I, [_P] * 6 + [_I] * 3 + [_P]),
     "int8_matmul_mma_launch": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "int8_matmul_stream_launch": (_I, [_P] * 8 + [_I] * 5 + [_P]),
-    "grouped_matmul_i8_launch": (_I, [_P] * 9 + [_I] * 4 + [_P]),
-    "grouped_matmul_w4a8_launch": (_I, [_P] * 9 + [_I] * 4 + [_P]),
-    "grouped_matmul_f32_launch": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    "grouped_matmul_i8_launch": (_I, [_P, _P, _I] + [_P] * 4 + [_I] * 5 + [_P]),
+    "grouped_matmul_f32_launch": (_I, [_P] * 4 + [_I] * 4 + [_P]),
     "quant_attention_launch": (_I, [_P] * 4 + [_I] * 7 + [_F, _P]),
     "quant_attention_smem_bytes": (_SZ, [_I, _I]),
-    "lm_attention_launch": (_I, [_P] * 3 + [_I] + [_P] * 7 + [_I] * 9 + [_F] * 2 + [_P]),
+    "lm_attention_launch": (_I, [_P] * 3 + [_I] + [_P] * 7 + [_I] * 11 + [_F] * 2
+                            + [_I, _P]),
+    "lm_attention_smem_bytes": (_SZ, [_I] * 6),
     "selective_scan_launch": (_I, [_P] * 8 + [_I] * 4 + [_P]),
 }
 

@@ -2,86 +2,487 @@
 // rows t of each group g given by group_sizes (MoE expert fc1/fc2).
 //   int8 mode: int8 x, int8 w -> (float(acc) * w_scale[g, n]) * a_scale
 //   W4A8 mode: int8 x, nibble-packed int4 w (uint8 [G, ceil(Din/2), Dout],
-//              low nibble = even input row) -> the int8 mode's epilogue
+//              low nibble = even input row, value v - 16 (v >> 3)) -> the
+//              int8 mode's epilogue
 //   f32 mode:  f32 x, f32 w   -> f32 FMA sum
 //
 // Replaces: src/repro/kernels/expert_linear.py, grouped_matmul / _gmm_kernel
-// (fp32, int8 and the int4_packed W4A8 modes).
+// with _route_metadata (fp32, int8 and the int4_packed W4A8 modes).
 //
-// Bound on the H100: at M3ViT-S (T = 2 * 197 B routed rows, G = 16 experts,
-// 384 -> 1536 and 1536 -> 384) the int8 work, 2 T Din Dout operations, is
-// ~3.7 GOP at B = 8, ~2 us at the int8 tensor-core rate, against ~9.4 MB of
-// expert weights plus ~19 MB of f32 output, ~8.5 us at 3.35 TB/s: bound by
-// bytes. The f32 mode (calibration) is bound by f32 operations. W4A8 halves
-// the weight bytes: at OLMoE-1B-7B decode (T = 8 slots x top-8 = 64 rows
-// over 64 experts, 2048 -> 2048 for fc1) the packed stack is 134 MB a
-// layer against 0.54 GOP of int8 work: bound by bytes, ~40 us.
+// Every call is one kernel launch. Each block derives its own work item
+// from group_sizes (a block-wide prefix sum in shared memory; G is at most
+// a few hundred), so no work table is built before the launch. Three
+// variants compute the integer modes bit for bit alike, chosen per call by
+// the wrapper (kernels/expert_linear.py:choose_variant): each accumulates
+// exactly in int32 (127^2 * Din < 2^31) and flushes in the plain version's
+// order, __int2float_rn(acc), then x w_scale[g, n], then x a_scale, each
+// rounded (no FMA contraction).
 //
-// Design: the work table (one item per (group, 64-row tile) pair that holds
-// rows of the group, padded to the static length ceil(T/64) + G) is built
-// on the device by the wrapper, so the launch needs no host sync. One block
-// owns one (work item, 64-column tile): it reads the expert's weight tile
-// once for all of the group's rows in its row tile, masks the rows of other
-// groups to zero on the way into shared memory and writes only its group's
-// rows. Every output row belongs to exactly one group, so each output
-// element is written by exactly one block, with no accumulator carried
-// between blocks (the TPU kernel's cross-step VMEM accumulator is not
-// needed). Padding items and T = 0 launch nothing that writes. The W4A8
-// mode unpacks each nibble to s8 as the weight tile is staged into shared
-// memory (int8_tile.cuh), so its main loop and flush are the int8 mode's
-// and its result is bit-equal to the unpacked int8 product.
+// Variant 1, mma (groups of many rows: prefill, vision; int8 and W4A8):
+//   Bound on the H100: 2 T Din Dout int8 operations at 1,979 TOP/s against
+//   the active experts' weights plus T Din + 4 T Dout bytes at 3.35 TB/s. At
+//   an OLMoE-1B-7B prefill of 512 tokens (T = 4096 routed rows, 64 experts,
+//   fc1 2048 -> 2048) the 268 MB int8 stack (134 MB W4A8) outweighs the 34
+//   GOP: bound by bytes, 0.09 ms (W4A8 0.05); M3ViT-S fc1 at B = 8 ([3152,
+//   16, 384, 1536]) is bound by its bytes too (9 us).
+//   Design: the work table of the reference (one item per (group, 64-row
+//   tile) pair that holds rows of the group; ceil(T/64) + G items, the
+//   surplus empty) is derived in the block: a scan of the group sizes gives
+//   each group's first row, a scan of its tile counts each group's first
+//   item, and the thread whose group holds item blockIdx.x publishes it. A
+//   block owns one item and one 64-column tile: a 64 x 64 tile of s8
+//   m16n8k32 tensor-core MMAs (4 warps of 32 x 32) fed by a 4-stage
+//   cp.async ring (int8_mma.cuh: the N-major weight transposed in registers
+//   by ldmatrix.trans + byte_perm). Rows of other groups are masked in the
+//   cp.async predicate, so they are zero-filled and never read, and the
+//   flush writes only the item's rows: each output element is written once.
+//   Blocks walk the items fastest, so the two or so items that share an
+//   expert's weight tile run together and the weight comes from device
+//   memory about once a layer.
+//
+// Variant 2, stream (decode: groups of at most a few rows):
+//   Bound on the H100: the active experts' weight bytes. An OLMoE decode
+//   tick (8 slots x top 8 = 64 rows over 64 experts) reads the fc1 weights
+//   of ~40 experts, ~170 MB int8 or ~85 MB W4A8 a layer, against 0.5 GOP:
+//   bound by bytes, ~0.05 ms int8 and ~0.026 ms W4A8 with every expert cold.
+//   Design: one block per (expert, 64-column strip), ~40 x 32 = 1280 blocks
+//   at OLMoE decode, so k is not split. An expert with no rows returns at
+//   once and reads nothing; the others find their first row by a block-wide
+//   sum of the sizes before them. The block streams its strip of the
+//   expert's weight once through an 8-stage cp.async ring, with the
+//   group's rows padded to one m16 tile staged beside each stage; each warp
+//   multiplies one 16-column slice over one half of each 64-deep stage and
+//   the halves meet in shared memory. A group of more than 16 rows is taken
+//   16 rows at a time, the strip read again (from L2) for each.
+//
+// Variant 3, dp4a (what neither takes: Din % 16 != 0, Dout % 8 != 0, or an
+// operand off the 16-byte grid; never on the serving paths):
+//   Bound on the H100: as variant 1; the __dp4a tiles on CUDA cores stay
+//   many times above it (PERF.md), which is why the serving paths avoid it.
+//   Design: the first port's tiles (int8_tile.cuh), one 64 x 64 output tile
+//   a block over the derived work item, operands staged a byte at a time
+//   (W4A8 nibbles unpacked as they are staged) and multiplied with __dp4a.
+//
+// W4A8 in variants 1 and 2: the packed stack is copied as it lies, half the
+// bytes of int8. A stage holds two 64-deep sub-tiles (64 packed rows x 64
+// columns, the bytes of one int8 stage), so a block walks half the stages of
+// int8 and waits, synchronizes and unpacks once a stage; the rings hold 3
+// and 6 such stages. Once a stage has landed, the block unpacks each of its
+// sub-tiles into an s8 tile laid out and swizzled as int8_mma.cuh's B tiles
+// are: each thread turns 16 packed bytes into the 16
+// bytes of the even row and the 16 of the odd one (low nibbles, high
+// nibbles; a byte with bit 3 set gets 0xF0 ORed in, which is v - 16). A
+// thread whose packed row is even writes its even row first, an odd one its
+// odd row first, so every 8-thread phase of the 16-byte stores covers all
+// 32 banks. The MMA, the fragments and the flush are the int8 mode's, so
+// W4A8 reads half the bytes for the same arithmetic.
+//
+// f32 mode (calibration only, not redesigned):
+//   Bound on the H100: f32 operations at 67 TFLOP/s (M3ViT-S), or the bytes
+//   of the f32 expert stack at OLMoE-1B-7B calibration.
+//   Design: the first port's tiles (64 x 64 outputs a block, 16-deep k
+//   steps, f32 FMA), over the work item derived in the block as above.
 #include <cuda_runtime.h>
 
+#include "int8_mma.cuh"
 #include "int8_tile.cuh"
 
 namespace {
 
-constexpr int F_BM = repro::I8_BM;  // the work table's row tile is shared
+using namespace repro::mma8;
+
+constexpr int BM = 64;  // row tile of the work items, every variant
 constexpr int F_BN = 64;
 constexpr int F_BK = 16;
 constexpr int F_THREADS = 256;
+constexpr int TILE_N = 64;  // columns of a variant 1 tile and a variant 2 strip
+constexpr int MMA_THREADS = 128;
+constexpr int MMA_STAGES = 4;
+constexpr int MMA_STAGES_W4 = 3;  // W4A8: stages of two 64-deep sub-tiles
+constexpr int STREAM_THREADS = 256;
+constexpr int STREAM_STAGES = 8;
+constexpr int STREAM_STAGES_W4 = 6;  // W4A8: stages of two 64-deep sub-tiles
 
-struct WorkItem {
-  int g, row_lo, row_hi, m0;
+// ---------------------------------------------------------------------------
+// work items, derived in the block
+// ---------------------------------------------------------------------------
+
+// Exclusive prefix of v over the block's threads in order; total gets the
+// sum over all of them. Every thread of the block must call it.
+template <int THREADS>
+__device__ __forceinline__ int block_scan(int v, int* warp_sums, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += n;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int i = 0; i < THREADS / 32; ++i) {
+    const int s = warp_sums[i];
+    before += i < warp ? s : 0;
+    all += s;
+  }
+  __syncthreads();  // warp_sums is free again
+  total = all;
+  return before + incl - v;
+}
+
+struct Item {
+  int g, m0, lo, hi;  // rows [lo, hi) of group g inside the tile at m0
 };
 
-// The rows [row_lo, row_hi) of one work item: its group's rows inside its
-// 64-row tile. Empty for the padding items.
-__device__ inline WorkItem work_item(const int* g_ids, const int* m_ids,
-                                     const int* row_start, const int* row_end,
-                                     int block_m) {
-  const int wk = blockIdx.x;
-  WorkItem it;
-  it.g = g_ids[wk];
-  it.m0 = m_ids[wk] * block_m;
-  it.row_lo = max(row_start[wk], it.m0);
-  it.row_hi = min(row_end[wk], it.m0 + block_m);
-  return it;
+// Work item w of the reference's table (_route_metadata): items walk the
+// groups in order, and group g holds one item per 64-row tile that its rows
+// [start, start + size) touch. Past the last item, an empty range.
+template <int THREADS>
+__device__ Item find_item(const int* __restrict__ sizes, int G, int T, int w) {
+  __shared__ int warp_sums[THREADS / 32];
+  __shared__ Item found;
+  if (threadIdx.x == 0) found = Item{0, 0, 0, 0};
+  int rows_before = 0, items_before = 0;
+  for (int c0 = 0; c0 < G; c0 += THREADS) {
+    const int g = c0 + threadIdx.x;
+    const int size = g < G ? max(sizes[g], 0) : 0;
+    int rows_total, items_total;
+    const int start = rows_before + block_scan<THREADS>(size, warp_sums, rows_total);
+    const int first = start / BM;
+    const int items = size > 0 ? (start + size - 1) / BM - first + 1 : 0;
+    const int i0 = items_before + block_scan<THREADS>(items, warp_sums, items_total);
+    if (w >= i0 && w < i0 + items) {  // one thread of the block at most
+      const int m0 = (first + w - i0) * BM;
+      found = Item{g, m0, max(start, m0), min(min(start + size, m0 + BM), T)};
+    }
+    rows_before += rows_total;
+    items_before += items_total;
+  }
+  __syncthreads();
+  return found;
 }
+
+// First row of group g: the sum of the sizes before it.
+template <int THREADS>
+__device__ int rows_before(const int* __restrict__ sizes, int g) {
+  __shared__ int warp_sums[THREADS / 32];
+  int part = 0;
+  for (int i = threadIdx.x; i < g; i += THREADS) part += max(sizes[i], 0);
+  int total;
+  block_scan<THREADS>(part, warp_sums, total);
+  return total;
+}
+
+// ---------------------------------------------------------------------------
+// staging and flush of variants 1 and 2
+// ---------------------------------------------------------------------------
+
+// Rows [m0, m0 + ROWS) x k [k0, k0 + BK) of x[T, K] (K % 16 == 0) into an
+// A tile (int8_mma.cuh layout); rows outside [lo, hi) are zero-filled.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(uint32_t s, const int8_t* __restrict__ x,
+                                          int K, int m0, int lo, int hi, int k0) {
+  constexpr int COPIES = ROWS * 4;
+#pragma unroll
+  for (int i = 0; i < (COPIES + THREADS - 1) / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    if (COPIES % THREADS != 0 && e >= COPIES) break;
+    const int r = e >> 2, c = e & 3;
+    const int row = m0 + r, k = k0 + 16 * c;
+    const bool ok = row >= lo && row < hi && k < K;
+    cp_async<16>(s + r * BK + 16 * swz_a(r, c), ok ? x + (size_t)row * K + k : x, ok);
+  }
+}
+
+// The weight of a stage: int8 rows k [k0, k0 + 64) into a B tile (N-major,
+// swizzled), or packed rows [k0 / 2, k0 / 2 + 32) as they lie (64-byte rows).
+template <bool PACKED, int CW, int THREADS>
+__device__ __forceinline__ void load_weight(uint32_t s, const int8_t* __restrict__ w,
+                                            int N, int K, int n0, int k0) {
+  if constexpr (!PACKED) {
+    load_w<TILE_N, CW, THREADS>(s, w, N, K, n0, k0);
+  } else {
+    constexpr int PER_ROW = TILE_N / CW, COPIES = (BK / 2) * PER_ROW;
+    const int kp_rows = K / 2;
+#pragma unroll
+    for (int i = 0; i < (COPIES + THREADS - 1) / THREADS; ++i) {
+      const int e = threadIdx.x + i * THREADS;
+      if (COPIES % THREADS != 0 && e >= COPIES) break;
+      const int r = e / PER_ROW, b = (e % PER_ROW) * CW;
+      const int kp = k0 / 2 + r, col = n0 + b;
+      const bool ok = kp < kp_rows && col < N;
+      cp_async<CW>(s + r * TILE_N + b, ok ? w + (size_t)kp * N + col : w, ok);
+    }
+  }
+}
+
+// Low and high nibbles of four packed bytes as four s8 each.
+__device__ __forceinline__ void unpack_word(uint32_t b, uint32_t& lo, uint32_t& hi) {
+  const uint32_t l = b & 0x0F0F0F0Fu, h = (b >> 4) & 0x0F0F0F0Fu;
+  lo = l | (((l & 0x08080808u) >> 3) * 0xF0u);
+  hi = h | (((h & 0x08080808u) >> 3) * 0xF0u);
+}
+
+// A landed packed stage (32 rows x 64 bytes at `packed`) into the s8 B tile
+// at `dst` (64 rows x 64 bytes, swz_b<64>): packed row p -> rows 2p, 2p + 1.
+template <int THREADS>
+__device__ __forceinline__ void unpack_stage(const int8_t* packed, int8_t* dst) {
+  constexpr int CHUNKS = (BK / 2) * (TILE_N / 16);
+  for (int e = threadIdx.x; e < CHUNKS; e += THREADS) {
+    const int p = e >> 2, c = e & 3;
+    const uint4 v = *reinterpret_cast<const uint4*>(packed + p * TILE_N + 16 * c);
+    uint4 lo, hi;
+    unpack_word(v.x, lo.x, hi.x);
+    unpack_word(v.y, lo.y, hi.y);
+    unpack_word(v.z, lo.z, hi.z);
+    unpack_word(v.w, lo.w, hi.w);
+    const int r0 = 2 * p + (p & 1), r1 = 2 * p + 1 - (p & 1);
+    *reinterpret_cast<uint4*>(dst + r0 * TILE_N + 16 * swz_b<TILE_N>(r0, c)) =
+        (p & 1) ? hi : lo;
+    *reinterpret_cast<uint4*>(dst + r1 * TILE_N + 16 * swz_b<TILE_N>(r1, c)) =
+        (p & 1) ? lo : hi;
+  }
+}
+
+// Four accumulators of one row to columns col .. col + 3 in the plain
+// version's order: f32(acc), x w_scale[g, n], x a_scale, one 16-byte store.
+__device__ __forceinline__ void flush_row(float* __restrict__ out, int row, int col,
+                                          int N, int v0, int v1, int v2, int v3,
+                                          float4 ws, float as) {
+  float4 y;
+  y.x = __fmul_rn(__fmul_rn(__int2float_rn(v0), ws.x), as);
+  y.y = __fmul_rn(__fmul_rn(__int2float_rn(v1), ws.y), as);
+  y.z = __fmul_rn(__fmul_rn(__int2float_rn(v2), ws.z), as);
+  y.w = __fmul_rn(__fmul_rn(__int2float_rn(v3), ws.w), as);
+  *reinterpret_cast<float4*>(out + (size_t)row * N + col) = y;
+}
+
+// w_scale[g, col .. col + 3] and a_scale; a missing scale is 1, and a
+// product with 1 is exact, so the result is the plain version's.
+__device__ __forceinline__ float4 col_scales(const float* __restrict__ w_scale,
+                                             int g, int N, int col) {
+  return w_scale != nullptr
+             ? *reinterpret_cast<const float4*>(w_scale + (size_t)g * N + col)
+             : make_float4(1.f, 1.f, 1.f, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// variant 1
+// ---------------------------------------------------------------------------
+
+template <bool PACKED, int CW>
+__global__ void __launch_bounds__(MMA_THREADS)
+    gmm_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                   const int* __restrict__ sizes, const float* __restrict__ w_scale,
+                   const float* __restrict__ a_scale, float* __restrict__ out, int T,
+                   int G, int Din, int Dout) {
+  constexpr int WN = 2, TM = 32, TN = 32, MT = TM / 16, NS = TN / 16;
+  constexpr int SUB = PACKED ? 2 : 1;  // 64-deep sub-tiles a stage
+  constexpr int A_BYTES = BM * BK, W_SUB = PACKED ? (BK / 2) * TILE_N : BK * TILE_N;
+  constexpr int STAGE = SUB * (A_BYTES + W_SUB);
+  constexpr int STAGES = PACKED ? MMA_STAGES_W4 : MMA_STAGES;
+  extern __shared__ __align__(128) int8_t smem[];
+  const Item it = find_item<MMA_THREADS>(sizes, G, T, blockIdx.x);
+  if (it.lo >= it.hi) return;  // block-uniform
+  const uint32_t s0 = smem_u32(smem);
+  int8_t* unpacked = smem + STAGES * STAGE;  // PACKED: the stage's s8 B tiles
+  const int warp = threadIdx.x >> 5, wm = warp / WN, wn = warp % WN;
+  const int n0 = blockIdx.y * TILE_N;
+  const size_t w_rows = PACKED ? (size_t)Din / 2 : (size_t)Din;
+  const int8_t* wg = w + (size_t)it.g * w_rows * Dout;
+  const int ktiles = (Din + SUB * BK - 1) / (SUB * BK);
+  int acc[MT][NS][8] = {};
+  auto issue = [&](int kt) {
+    const uint32_t st = s0 + (kt % STAGES) * STAGE;
+#pragma unroll
+    for (int sub = 0; sub < SUB; ++sub) {
+      const int k0 = (SUB * kt + sub) * BK;
+      load_rows<BM, MMA_THREADS>(st + sub * A_BYTES, x, Din, it.m0, it.lo, it.hi, k0);
+      load_weight<PACKED, CW, MMA_THREADS>(st + SUB * A_BYTES + sub * W_SUB, wg, Dout, Din,
+                                           n0, k0);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) issue(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 and the s8 tiles are free
+    if (kt + STAGES - 1 < ktiles) issue(kt + STAGES - 1);
+    cp_async_commit();
+    const uint32_t sa = s0 + (kt % STAGES) * STAGE;
+    uint32_t sb = sa + SUB * A_BYTES;
+    if constexpr (PACKED) {
+#pragma unroll
+      for (int sub = 0; sub < SUB; ++sub)
+        unpack_stage<MMA_THREADS>(smem + (kt % STAGES) * STAGE + SUB * A_BYTES + sub * W_SUB,
+                                  unpacked + sub * BK * TILE_N);
+      __syncthreads();
+      sb = smem_u32(unpacked);
+    }
+#pragma unroll
+    for (int sub = 0; sub < SUB; ++sub) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 32) {
+        uint32_t a[MT][4], b[NS][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) frag_a(sa + sub * A_BYTES, wm * TM + 16 * i, kk, a[i]);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) frag_b<TILE_N>(sb + sub * BK * TILE_N, wn * NS + j, kk, b[j]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NS; ++j) mma_slice(acc[i][j], a[i], b[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const float as = a_scale != nullptr ? *a_scale : 1.f;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int col = n0 + wn * TN + 16 * j + 4 * t;
+    if (col >= Dout) continue;
+    const float4 ws = col_scales(w_scale, it.g, Dout, col);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int row = it.m0 + wm * TM + 16 * i + g;
+      const int* c = acc[i][j];
+      if (row >= it.lo && row < it.hi)
+        flush_row(out, row, col, Dout, c[0], c[4], c[1], c[5], ws, as);
+      if (row + 8 >= it.lo && row + 8 < it.hi)
+        flush_row(out, row + 8, col, Dout, c[2], c[6], c[3], c[7], ws, as);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// variant 2
+// ---------------------------------------------------------------------------
+
+template <bool PACKED, int CW>
+__global__ void __launch_bounds__(STREAM_THREADS)
+    gmm_stream_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                      const int* __restrict__ sizes, const float* __restrict__ w_scale,
+                      const float* __restrict__ a_scale, float* __restrict__ out,
+                      int T, int Din, int Dout) {
+  constexpr int SUB = PACKED ? 2 : 1;  // 64-deep sub-tiles a stage
+  constexpr int A_BYTES = 16 * BK, W_SUB = PACKED ? (BK / 2) * TILE_N : BK * TILE_N;
+  constexpr int STAGE = SUB * (A_BYTES + W_SUB);
+  constexpr int STAGES = PACKED ? STREAM_STAGES_W4 : STREAM_STAGES;
+  extern __shared__ __align__(128) int8_t smem[];
+  const int g = blockIdx.y;
+  const int size = sizes[g];
+  if (size <= 0) return;  // an expert with no rows reads nothing
+  const int start = rows_before<STREAM_THREADS>(sizes, g);
+  const int end = min(start + size, T);
+  const uint32_t s0 = smem_u32(smem);
+  int8_t* unpacked = smem + STAGES * STAGE;
+  const int warp = threadIdx.x >> 5, slice = warp & 3, half = warp >> 2;
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * TILE_N;
+  const size_t w_rows = PACKED ? (size_t)Din / 2 : (size_t)Din;
+  const int8_t* wg = w + (size_t)g * w_rows * Dout;
+  const int ktiles = (Din + SUB * BK - 1) / (SUB * BK);
+  const int col = n0 + 16 * slice + 4 * t;
+  const float as = a_scale != nullptr ? *a_scale : 1.f;
+
+  for (int lo = start; lo < end; lo += 16) {  // 16 rows of the group at a time
+    const int hi = min(end, lo + 16);
+    int acc[8] = {};
+    auto issue = [&](int kt) {
+      const uint32_t st = s0 + (kt % STAGES) * STAGE;
+#pragma unroll
+      for (int sub = 0; sub < SUB; ++sub) {
+        const int k0 = (SUB * kt + sub) * BK;
+        load_rows<16, STREAM_THREADS>(st + sub * A_BYTES, x, Din, lo, lo, hi, k0);
+        load_weight<PACKED, CW, STREAM_THREADS>(st + SUB * A_BYTES + sub * W_SUB, wg, Dout,
+                                                Din, n0, k0);
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < ktiles) issue(s);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < ktiles; ++kt) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (kt + STAGES - 1 < ktiles) issue(kt + STAGES - 1);
+      cp_async_commit();
+      const uint32_t sa = s0 + (kt % STAGES) * STAGE;
+      uint32_t sb = sa + SUB * A_BYTES;
+      if constexpr (PACKED) {
+#pragma unroll
+        for (int sub = 0; sub < SUB; ++sub)
+          unpack_stage<STREAM_THREADS>(
+              smem + (kt % STAGES) * STAGE + SUB * A_BYTES + sub * W_SUB,
+              unpacked + sub * BK * TILE_N);
+        __syncthreads();
+        sb = smem_u32(unpacked);
+      }
+#pragma unroll
+      for (int sub = 0; sub < SUB; ++sub) {
+        uint32_t a[4], b[4];
+        frag_a(sa + sub * A_BYTES, 0, 32 * half, a);
+        frag_b<TILE_N>(sb + sub * BK * TILE_N, slice, 32 * half, b);
+        mma_slice(acc, a, b);
+      }
+    }
+
+    // the two k halves of each slice meet in shared memory
+    cp_async_wait<0>();
+    __syncthreads();
+    int* red = reinterpret_cast<int*>(smem);
+    if (half == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) red[i * 128 + slice * 32 + lane] = acc[i];
+    }
+    __syncthreads();
+    if (half == 0 && col < Dout) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] += red[i * 128 + slice * 32 + lane];
+      const float4 ws = col_scales(w_scale, g, Dout, col);
+      // accumulator i lies at row lo + gr + 8 ((i >> 1) & 1) and column
+      // col + ((i >> 2) & 1) + 2 (i & 1)
+      if (lo + gr < hi)
+        flush_row(out, lo + gr, col, Dout, acc[0], acc[4], acc[1], acc[5], ws, as);
+      if (lo + gr + 8 < hi)
+        flush_row(out, lo + gr + 8, col, Dout, acc[2], acc[6], acc[3], acc[7], ws, as);
+    }
+    __syncthreads();  // red and the ring are reused by the next 16 rows
+  }
+}
+
+// ---------------------------------------------------------------------------
+// variant 3 and the f32 mode
+// ---------------------------------------------------------------------------
 
 template <bool PACKED>
 __global__ void __launch_bounds__(repro::I8_THREADS)
-    gmm_i8_kernel(const int8_t* __restrict__ x, const void* __restrict__ w,
-                  const int* __restrict__ g_ids, const int* __restrict__ m_ids,
-                  const int* __restrict__ row_start,
-                  const int* __restrict__ row_end,
-                  const float* __restrict__ w_scale,
-                  const float* __restrict__ a_scale, float* __restrict__ out,
-                  int Din, int Dout) {
+    gmm_dp4a_kernel(const int8_t* __restrict__ x, const void* __restrict__ w,
+                    const int* __restrict__ sizes, const float* __restrict__ w_scale,
+                    const float* __restrict__ a_scale, float* __restrict__ out, int T,
+                    int G, int Din, int Dout) {
   __shared__ repro::I8Smem sm;
-  const WorkItem it = work_item(g_ids, m_ids, row_start, row_end, repro::I8_BM);
-  if (it.row_lo >= it.row_hi) return;  // block-uniform
+  const Item it = find_item<repro::I8_THREADS>(sizes, G, T, blockIdx.x);
+  if (it.lo >= it.hi) return;  // block-uniform
   const int n0 = blockIdx.y * repro::I8_BN;
   int acc[4][4] = {};
   const size_t w_rows = PACKED ? (size_t)(Din + 1) / 2 : (size_t)Din;
   const void* wg = static_cast<const int8_t*>(w) + (size_t)it.g * w_rows * Dout;
-  repro::i8_tile_mainloop<PACKED>(x, wg, Din, Dout, it.m0, it.row_lo,
-                                  it.row_hi, n0, sm, acc);
+  repro::i8_tile_mainloop<PACKED>(x, wg, Din, Dout, it.m0, it.lo, it.hi, n0, sm, acc);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = it.m0 + ty + 16 * i;
-    if (row < it.row_lo || row >= it.row_hi) continue;
+    if (row < it.lo || row >= it.hi) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx + 16 * j;
@@ -96,25 +497,22 @@ __global__ void __launch_bounds__(repro::I8_THREADS)
 
 __global__ void __launch_bounds__(F_THREADS)
     gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const int* __restrict__ g_ids, const int* __restrict__ m_ids,
-                   const int* __restrict__ row_start,
-                   const int* __restrict__ row_end, float* __restrict__ out,
-                   int Din, int Dout) {
-  __shared__ float xs[F_BK][F_BM + 1];  // X tile transposed: k-major
+                   const int* __restrict__ sizes, float* __restrict__ out, int T,
+                   int G, int Din, int Dout) {
+  __shared__ float xs[F_BK][BM + 1];  // X tile transposed: k-major
   __shared__ float ws[F_BK][F_BN];
-  const WorkItem it = work_item(g_ids, m_ids, row_start, row_end, F_BM);
-  if (it.row_lo >= it.row_hi) return;  // block-uniform
+  const Item it = find_item<F_THREADS>(sizes, G, T, blockIdx.x);
+  if (it.lo >= it.hi) return;  // block-uniform
   const int n0 = blockIdx.y * F_BN;
   const float* wg = w + (size_t)it.g * Din * Dout;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < Din; k0 += F_BK) {
-    for (int e = tid; e < F_BM * F_BK; e += F_THREADS) {
+    for (int e = tid; e < BM * F_BK; e += F_THREADS) {
       const int r = e / F_BK, kk = e % F_BK;
       const int row = it.m0 + r, k = k0 + kk;
-      xs[kk][r] = (row >= it.row_lo && row < it.row_hi && k < Din)
-                      ? x[(size_t)row * Din + k]
-                      : 0.f;
+      xs[kk][r] = (row >= it.lo && row < it.hi && k < Din) ? x[(size_t)row * Din + k]
+                                                           : 0.f;
     }
     for (int e = tid; e < F_BK * F_BN; e += F_THREADS) {
       const int kk = e / F_BN, c = e % F_BN;
@@ -139,7 +537,7 @@ __global__ void __launch_bounds__(F_THREADS)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = it.m0 + ty + 16 * i;
-    if (row < it.row_lo || row >= it.row_hi) continue;
+    if (row < it.lo || row >= it.hi) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx + 16 * j;
@@ -148,56 +546,81 @@ __global__ void __launch_bounds__(F_THREADS)
   }
 }
 
-template <bool PACKED>
-int launch_i8(const int8_t* x, const void* w, const int* g_ids,
-              const int* m_ids, const int* row_start, const int* row_end,
-              const float* w_scale, const float* a_scale, float* out, int Din,
-              int Dout, int n_work, int block_m, cudaStream_t stream) {
-  if (block_m != repro::I8_BM) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_work > 0 && Dout > 0) {
-    dim3 grid(n_work, (Dout + repro::I8_BN - 1) / repro::I8_BN);
-    gmm_i8_kernel<PACKED><<<grid, repro::I8_THREADS, 0, stream>>>(
-        x, w, g_ids, m_ids, row_start, row_end, w_scale, a_scale, out, Din,
-        Dout);
+int work_items(int T, int G) { return (T + BM - 1) / BM + G; }
+
+template <bool PACKED, int CW>
+cudaError_t launch_tc(int variant, const int8_t* x, const int8_t* w, const int* sizes,
+                      const float* ws, const float* as, float* out, int T, int G,
+                      int Din, int Dout, cudaStream_t stream) {
+  const int strips = (Dout + TILE_N - 1) / TILE_N;
+  if (variant == 1) {
+    constexpr int sub = PACKED ? 2 : 1;
+    constexpr int stage = sub * (BM * BK + (PACKED ? BK / 2 : BK) * TILE_N);
+    const int smem = (PACKED ? MMA_STAGES_W4 : MMA_STAGES) * stage
+                     + (PACKED ? sub * BK * TILE_N : 0);  // < 48 KB
+    gmm_mma_kernel<PACKED, CW><<<dim3(work_items(T, G), strips), MMA_THREADS, smem,
+                                 stream>>>(x, w, sizes, ws, as, out, T, G, Din, Dout);
+  } else {
+    constexpr int sub = PACKED ? 2 : 1;
+    constexpr int stage = sub * (16 * BK + (PACKED ? BK / 2 : BK) * TILE_N);
+    const int smem = (PACKED ? STREAM_STAGES_W4 : STREAM_STAGES) * stage
+                     + (PACKED ? sub * BK * TILE_N : 0);  // < 48 KB
+    gmm_stream_kernel<PACKED, CW><<<dim3(strips, G), STREAM_THREADS, smem, stream>>>(
+        x, w, sizes, ws, as, out, T, Din, Dout);
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// block_m must be the row tile the work table was built with; any other
-// value is refused (cudaErrorInvalidValue) rather than computed wrongly.
-extern "C" int grouped_matmul_i8_launch(
-    const int8_t* x, const int8_t* w, const int* g_ids, const int* m_ids,
-    const int* row_start, const int* row_end, const float* w_scale,
-    const float* a_scale, float* out, int Din, int Dout, int n_work,
-    int block_m, cudaStream_t stream) {
-  return launch_i8<false>(x, w, g_ids, m_ids, row_start, row_end, w_scale,
-                          a_scale, out, Din, Dout, n_work, block_m, stream);
+// Integer modes. packed: 0 = int8 w [G, Din, Dout], 1 = W4A8 (uint8
+// [G, ceil(Din/2), Dout], Din the logical input width of x). variant: 1 mma,
+// 2 stream (both need Din % 16 == 0, Dout % 8 == 0 and 16-byte aligned x, w,
+// w_scale, out; refused with cudaErrorInvalidValue otherwise), 3 dp4a (any
+// shape). sizes: int32 [G], summing to T. w_scale and a_scale may be null.
+extern "C" int grouped_matmul_i8_launch(const int8_t* x, const void* w, int packed,
+                                        const int* sizes, const float* w_scale,
+                                        const float* a_scale, float* out, int T, int G,
+                                        int Din, int Dout, int variant,
+                                        cudaStream_t stream) {
+  if (variant < 1 || variant > 3 || G < 1 || G > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant != 3 && (Din % 16 != 0 || Dout % 8 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 0 || Dout <= 0) return static_cast<int>(cudaSuccess);
+  const int8_t* w8 = static_cast<const int8_t*>(w);
+  cudaError_t err;
+  if (variant == 3) {
+    const dim3 grid(work_items(T, G), (Dout + repro::I8_BN - 1) / repro::I8_BN);
+    if (packed)
+      gmm_dp4a_kernel<true><<<grid, repro::I8_THREADS, 0, stream>>>(
+          x, w, sizes, w_scale, a_scale, out, T, G, Din, Dout);
+    else
+      gmm_dp4a_kernel<false><<<grid, repro::I8_THREADS, 0, stream>>>(
+          x, w, sizes, w_scale, a_scale, out, T, G, Din, Dout);
+    err = cudaGetLastError();
+  } else if (Dout % 16 == 0) {
+    err = packed ? launch_tc<true, 16>(variant, x, w8, sizes, w_scale, a_scale, out, T,
+                                       G, Din, Dout, stream)
+                 : launch_tc<false, 16>(variant, x, w8, sizes, w_scale, a_scale, out, T,
+                                        G, Din, Dout, stream);
+  } else {
+    err = packed ? launch_tc<true, 8>(variant, x, w8, sizes, w_scale, a_scale, out, T,
+                                      G, Din, Dout, stream)
+                 : launch_tc<false, 8>(variant, x, w8, sizes, w_scale, a_scale, out, T,
+                                       G, Din, Dout, stream);
+  }
+  return static_cast<int>(err);
 }
 
-// W4A8: w is the nibble-packed uint8 [G, ceil(Din/2), Dout] stack; Din is
-// the logical (unpacked) input width of x.
-extern "C" int grouped_matmul_w4a8_launch(
-    const int8_t* x, const uint8_t* w, const int* g_ids, const int* m_ids,
-    const int* row_start, const int* row_end, const float* w_scale,
-    const float* a_scale, float* out, int Din, int Dout, int n_work,
-    int block_m, cudaStream_t stream) {
-  return launch_i8<true>(x, w, g_ids, m_ids, row_start, row_end, w_scale,
-                         a_scale, out, Din, Dout, n_work, block_m, stream);
-}
-
+// f32 mode: x [T, Din], w [G, Din, Dout], sizes int32 [G] summing to T.
 extern "C" int grouped_matmul_f32_launch(const float* x, const float* w,
-                                         const int* g_ids, const int* m_ids,
-                                         const int* row_start,
-                                         const int* row_end, float* out,
-                                         int Din, int Dout, int n_work,
-                                         int block_m, cudaStream_t stream) {
-  if (block_m != F_BM) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_work > 0 && Dout > 0) {
-    dim3 grid(n_work, (Dout + F_BN - 1) / F_BN);
-    gmm_f32_kernel<<<grid, F_THREADS, 0, stream>>>(
-        x, w, g_ids, m_ids, row_start, row_end, out, Din, Dout);
+                                         const int* sizes, float* out, int T, int G,
+                                         int Din, int Dout, cudaStream_t stream) {
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (T > 0 && Dout > 0) {
+    const dim3 grid(work_items(T, G), (Dout + F_BN - 1) / F_BN);
+    gmm_f32_kernel<<<grid, F_THREADS, 0, stream>>>(x, w, sizes, out, T, G, Din, Dout);
   }
   return static_cast<int>(cudaGetLastError());
 }

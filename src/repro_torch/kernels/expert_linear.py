@@ -7,8 +7,24 @@ The CUDA kernel is ``csrc/grouped_matmul.cu`` (it replaces the Pallas
 kernel ``repro/kernels/expert_linear.py:grouped_matmul``); its plain
 versions are ``ref.grouped_matmul_ref`` / ``ref.grouped_matmul_q_ref`` /
 ``ref.grouped_matmul_q4_ref``, which ``kernels/ops.py`` takes for CPU
-tensors. The work table is the port
-of the reference's ``_route_metadata``, built with torch ops on the device.
+tensors.
+
+Every call is one kernel launch: each block derives its work item from
+``group_sizes`` itself. ``route_metadata`` is the port of the reference's
+``_route_metadata``, the table those blocks derive item by item; the CUDA
+path does not call it. Three variants compute the integer modes bit for
+bit alike, and ``choose_variant`` picks one from the shape and the
+operands' alignment:
+
+  * 1, ``mma``: s8 tensor-core tiles over (group, 64-row tile) items, for
+    groups of many rows (prefill, vision);
+  * 2, ``stream``: each active expert's weight streamed once per 64-column
+    strip, for a few rows a group (decode);
+  * 3, ``dp4a``: the first port's ``__dp4a`` tiles, for what neither takes
+    (Din % 16 != 0, Dout % 8 != 0, or an operand off the 16-byte grid).
+
+``grouped_matmul.launches_by_mode`` counts launches per mode (``int8``,
+``w4a8``, ``f32``) and per integer mode and variant (``int8/stream``).
 """
 from __future__ import annotations
 
@@ -18,7 +34,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-BLOCK_M = 64  # row tile of the work table; the kernel refuses any other
+BLOCK_M = 64  # row tile of the work items, every variant
+VARIANTS = {1: "mma", 2: "stream", 3: "dp4a"}
+STREAM_ROWS_PER_GROUP = 2  # variant 2 when T <= 2 G
+MAX_GROUPS = 65535  # variant 2's grid has one row of blocks a group
 
 
 def route_metadata(group_sizes: torch.Tensor, block_m: int, n_work: int):
@@ -45,14 +64,38 @@ def route_metadata(group_sizes: torch.Tensor, block_m: int, n_work: int):
     return g.to(torch.int32), m.to(torch.int32), row_start, row_end
 
 
+def choose_variant(T: int, G: int, Din: int, Dout: int, aligned: bool = True) -> int:
+    """1, 2 or 3 (see the module docstring) for T sorted rows over G groups,
+    [T, Din] @ [G, Din, Dout]: the weight-streaming variant when the rows
+    are at most two a group on average (a decode tick: nearly every group
+    fits one m16 tile), the MMA tiles otherwise."""
+    if not aligned or Din % 16 or Dout % 8:
+        return 3
+    return 2 if T <= STREAM_ROWS_PER_GROUP * G else 1
+
+
+def takes(variant: int, Din: int, Dout: int, aligned: bool = True) -> bool:
+    """Whether ``variant`` computes the integer modes at these widths
+    (variant 3 takes every shape; 1 and 2 any row count)."""
+    if variant == 3:
+        return True
+    return variant in VARIANTS and aligned and Din % 16 == 0 and Dout % 8 == 0
+
+
+def _aligned(*tensors) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                    *, w_scale: Optional[torch.Tensor] = None,
-                   a_scale=None) -> torch.Tensor:
+                   a_scale=None, variant: Optional[int] = None) -> torch.Tensor:
     """x [T, Din] rows sorted by group, w [G, Din, Dout] (W4A8: uint8
     [G, ceil(Din/2), Dout]), group_sizes [G] (sum == T) -> f32 [T, Dout].
     int8 x with int8 or packed w: integer modes with optional ``w_scale``
     [G, Dout] and ``a_scale``; f32 x and w: fp32 mode, no scales. CUDA
-    tensors only."""
+    tensors only. ``variant`` forces one of ``VARIANTS`` for the integer
+    modes (it must take the shape); by default ``choose_variant`` picks it.
+    One kernel launch a call (none when T == 0)."""
     _build.require_cuda("grouped_matmul", x, w, group_sizes, w_scale, a_scale)
     T, Din = x.shape
     G, w_rows, Dout = w.shape
@@ -65,35 +108,43 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     if not int8 and not (x.dtype == torch.float32 and w.dtype == torch.float32):
         raise TypeError(f"int8/int8, int8/packed-int4 or f32/f32 operands required, "
                         f"got {x.dtype}, {w.dtype}")
-    if not int8 and (w_scale is not None or a_scale is not None):
-        raise ValueError("scales apply to integer operands only")
+    if not int8 and (w_scale is not None or a_scale is not None or variant is not None):
+        raise ValueError("scales and variants apply to integer operands only")
+    if not 0 < G <= MAX_GROUPS:
+        raise ValueError(f"{G} groups: 1..{MAX_GROUPS} supported")
     out = torch.empty((T, Dout), dtype=torch.float32, device=x.device)
     if T == 0:  # nothing routed
         return out
-    n_work = -(-T // BLOCK_M) + G
-    g_ids, m_ids, row_start, row_end = route_metadata(group_sizes, BLOCK_M, n_work)
+    sizes = group_sizes.to(torch.int32).contiguous()
     x, w = x.contiguous(), w.contiguous()
-    lib = _build.library()
+    lib, stream = _build.library(), _build.stream(x)
     with torch.cuda.device(x.device):
         if int8:
             ws = None if w_scale is None else w_scale.to(torch.float32).contiguous()
             as_ = None if a_scale is None else _build.scalar(a_scale, x)
-            launch = lib.grouped_matmul_w4a8_launch if packed else lib.grouped_matmul_i8_launch
-            err = launch(
-                x.data_ptr(), w.data_ptr(), g_ids.data_ptr(), m_ids.data_ptr(),
-                row_start.data_ptr(), row_end.data_ptr(),
+            aligned = _aligned(x, w, ws, out)
+            if variant is None:
+                variant = choose_variant(T, G, Din, Dout, aligned)
+            elif not takes(variant, Din, Dout, aligned):
+                raise ValueError(f"grouped_matmul variant {variant} cannot take "
+                                 f"Din={Din}, Dout={Dout} (16-byte aligned: {aligned})")
+            err = lib.grouped_matmul_i8_launch(
+                x.data_ptr(), w.data_ptr(), int(packed), sizes.data_ptr(),
                 None if ws is None else ws.data_ptr(),
                 None if as_ is None else as_.data_ptr(), out.data_ptr(),
-                Din, Dout, n_work, BLOCK_M, _build.stream(x))
+                T, G, Din, Dout, variant, stream)
         else:
             err = lib.grouped_matmul_f32_launch(
-                x.data_ptr(), w.data_ptr(), g_ids.data_ptr(), m_ids.data_ptr(),
-                row_start.data_ptr(), row_end.data_ptr(), out.data_ptr(),
-                Din, Dout, n_work, BLOCK_M, _build.stream(x))
-    _build.check(err, "grouped_matmul")
+                x.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(),
+                T, G, Din, Dout, stream)
     mode = "w4a8" if packed else ("int8" if int8 else "f32")
+    _build.check(err, f"grouped_matmul ({mode}" + (f", {VARIANTS[variant]})" if int8 else ")"))
     grouped_matmul.launches += 1
-    grouped_matmul.launches_by_mode[mode] = grouped_matmul.launches_by_mode.get(mode, 0) + 1
+    by_mode = grouped_matmul.launches_by_mode
+    by_mode[mode] = by_mode.get(mode, 0) + 1
+    if int8:
+        key = f"{mode}/{VARIANTS[variant]}"
+        by_mode[key] = by_mode.get(key, 0) + 1
     return out
 
 

@@ -201,3 +201,248 @@ def test_grouped_w4a8_quantizes_fp_rows_like_reference():
     with pytest.raises(ValueError, match="activation scale"):
         ops.grouped_matmul(torch.from_numpy(x), torch.from_numpy(packed),
                            torch.from_numpy(gs), w_scale=torch.from_numpy(ws))
+
+
+# ---------------------------------------------------------------------------
+# lm_attention.cu's schedules, emulated: which keys a block walks
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import quant_attention as qa  # noqa: E402
+
+TILE_KEYS, TILE_ROWS = 64, 16  # keys a tile, query rows a block (lm_attention.cu TL_BK, TL_BQ)
+DECODE_KEYS, DECODE_WARPS = 64, 8  # the decode schedule's ring tile and warps
+
+
+def _tile_block_keys(b, q0, bq, Sq, Sk, causal, q_off, valid, window, qseg, kseg):
+    """lm_tile_kernel's walk for the block of rows [q0, q0 + bq) of batch b:
+    the key range [klo, khi) and its 64-key tiles, a tile skipped when none
+    of its kv segment ids equals a q id of the block's rows. Returns the
+    keys of the tiles walked."""
+    n_rows = min(bq, Sq - q0)
+    vb = min(valid[b], Sk)
+    pos_first, pos_last = q_off[b] + q0, q_off[b] + q0 + n_rows - 1
+    khi = min(vb, pos_last + 1) if causal else vb
+    klo = max(0, pos_first - window + 1) if window > 0 else 0
+    ntiles = -(-(khi - klo) // TILE_KEYS) if khi > klo else 0
+    keys = set()
+    for t in range(ntiles):
+        k0, k1 = klo + t * TILE_KEYS, min(khi, klo + (t + 1) * TILE_KEYS)
+        if qseg is not None and not set(kseg[b, k0:k1]) & set(qseg[b, q0:q0 + n_rows]):
+            continue
+        keys.update(range(k0, k1))
+    return keys
+
+
+def _visible(B, Sq, Sk, causal, q_off, valid, window, qseg, kseg):
+    """The plain version's mask [B, Sq, Sk]."""
+    qpos = q_off[:, None] + np.arange(Sq)[None, :]
+    kpos = np.arange(Sk)
+    ok = np.broadcast_to(kpos[None, None, :] < valid[:, None, None], (B, Sq, Sk)).copy()
+    if causal:
+        ok &= kpos[None, None, :] <= qpos[:, :, None]
+    if window:
+        ok &= qpos[:, :, None] - kpos[None, None, :] < window
+    if qseg is not None:
+        ok &= qseg[:, :, None] == kseg[:, None, :]
+    return ok
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_tile_schedule_never_skips_a_visible_pair(seed):
+    """Random masks (causal or not, offsets, fill levels, windows, packed
+    segment ids with q pad -1 and kv pad -2): every visible (row, key) pair
+    lies in a tile the block walks; with segments, tiles whose ids only
+    bracket the block's (a pad row's -1 below, a prompt's id above) are
+    skipped too."""
+    rng = np.random.default_rng(seed)
+    B, Sq = 2, int(rng.integers(1, 160))
+    Sk = Sq + int(rng.integers(0, 200))
+    causal = bool(rng.integers(0, 2)) or seed % 3 == 0
+    q_off = rng.integers(0, Sk - Sq + 1, B)
+    valid = np.minimum(q_off + Sq + rng.integers(0, 40, B), Sk)
+    window = int(rng.integers(1, 90)) if seed % 4 == 1 else 0
+    qseg = kseg = None
+    if seed % 2 == 0:  # packed prompts: contiguous runs, a pad tail
+        kseg = np.full((B, Sk), -2, np.int32)
+        for b in range(B):
+            cuts = np.sort(rng.choice(np.arange(1, Sq), min(4, Sq - 1), replace=False)) \
+                if Sq > 1 else np.array([], int)
+            ids = np.searchsorted(cuts, np.arange(Sq), side="right").astype(np.int32)
+            ids[Sq - int(rng.integers(0, max(Sq // 8, 1))):] = -1
+            kseg[b, :Sq] = ids
+        q_off[:] = 0
+        qseg = kseg[:, :Sq].copy()
+    vis = _visible(B, Sq, Sk, causal, q_off, valid, window, qseg, kseg)
+    skipped = bracketed = 0
+    bq = TILE_ROWS
+    for b in range(B):
+        for q0 in range(0, Sq, bq):
+            walked = _tile_block_keys(b, q0, bq, Sq, Sk, causal, q_off, valid,
+                                      window, qseg, kseg)
+            need = set(np.flatnonzero(vis[b, q0:q0 + bq].any(0)))
+            assert need <= walked
+            skipped += len(set(range(Sk)) - walked)
+            if qseg is not None:  # tiles a [min, max] id range would keep
+                lo, hi = qseg[b, q0:q0 + bq].min(), qseg[b, q0:q0 + bq].max()
+                bracketed += sum(1 for k in range(Sk) if k not in walked
+                                 and lo <= kseg[b, k] <= hi)
+    assert skipped > 0  # the rule does skip work
+    if qseg is not None and Sq > 64:
+        assert bracketed > 0
+
+
+@pytest.mark.parametrize("klo,khi", [(0, 0), (0, 1), (0, 63), (0, 64), (0, 65), (17, 300),
+                                     (0, 512), (100, 612), (5, 2048)])
+def test_decode_split_scores_every_live_key_once(klo, khi):
+    """lm_decode_kernel's key split: ring tile s covers keys klo + 64 s ..;
+    pass 1 gives warp w keys 8 w .. 8 w + 7 of it as one MMA tile, lane
+    (g, t) scoring keys 2 t and 2 t + 1 for row g; pass 2 gives an
+    iteration of a warp 4 keys (8 lanes a key), key klo + 64 s + 32 it +
+    4 warp + lane / 8. Keys past khi are zero-filled and masked. In each
+    pass every live key is taken exactly once (for each row), and its score
+    lands at index key - klo < Sk."""
+    n = max(0, khi - klo)
+    ntiles = -(-n // DECODE_KEYS)
+    scored, weighted = [], []
+    for s in range(ntiles):
+        k0 = klo + DECODE_KEYS * s
+        for warp in range(DECODE_WARPS):
+            for t in range(4):  # the lanes of one row g
+                for e in range(2):
+                    key = k0 + 8 * warp + 2 * t + e
+                    if key < khi:
+                        scored.append(key)
+            for it in range(DECODE_KEYS // (4 * DECODE_WARPS)):
+                for kq in range(4):
+                    key = k0 + 4 * DECODE_WARPS * it + 4 * warp + kq
+                    if key < khi:
+                        weighted.append(key)
+    assert sorted(scored) == sorted(weighted) == list(range(klo, max(klo, khi)))
+    assert all(0 <= k - klo < max(khi, 1) for k in scored)
+
+
+@pytest.mark.parametrize("shape,aligned,want", [
+    ((1, 512, 16, 16, 128), True, 0),  # OLMoE decode tick over the 512-slot cache
+    ((1, 512, 32, 8, 128), True, 0),  # GQA decode, 4 heads a KV head
+    ((1, 512, 32, 4, 128), True, 1),  # 8 heads a KV head: more rows than a decode block
+    ((1, 512, 16, 16, 64), True, 1),  # decode blocks hold hd = 128
+    ((1, 512, 32, 32, 112), True, 1),  # zamba2-7b decode: hd = 112
+    ((1, 512, 16, 16, 128), False, 1),  # an operand off the 16-byte grid
+    ((1, 32768, 16, 16, 128), True, 1),  # the scores of the cache would not fit
+    ((512, 512, 16, 16, 128), True, 1),  # packed prefill
+    ((32, 32, 16, 16, 128), True, 1),  # calibration
+    ((256, 256, 32, 32, 112), True, 1),  # zamba2-7b prefill
+])
+def test_attention_schedule_choice(shape, aligned, want):
+    Sq, Sk, H, KVH, hd = shape
+    assert qa.choose_schedule(Sq, Sk, H, KVH, hd, aligned) == want
+    assert want in qa.SCHEDULES
+
+
+# ---------------------------------------------------------------------------
+# lm_attention.cu's arithmetic and shared-memory layout, emulated
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32: f32 rounded to 10 mantissa bits, ties away from
+    zero (the low 13 bits cleared)."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    r = ((u + 0x1000) & 0xFFFFE000).astype(np.uint32)
+    return r.view(np.float32)
+
+
+def _split3(x):
+    hi = _tf32_rna(x)
+    r = (x - hi).astype(np.float32)
+    mid = _tf32_rna(r)
+    lo = _tf32_rna((r - mid).astype(np.float32))
+    return hi, mid, lo
+
+
+def _bf16_rn(x):
+    """cvt.rn.bf16.f32 as f32: round to 7 mantissa bits, ties to even."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    r = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+    return r.view(np.float32)
+
+
+def _split3_bf16(x):
+    hi = _bf16_rn(x)
+    r = (x - hi).astype(np.float32)
+    mid = _bf16_rn(r)
+    lo = _bf16_rn((r - mid).astype(np.float32))
+    return hi, mid, lo
+
+
+@pytest.mark.parametrize("pieces,mask", [(_split3, 0x1FFF), (_split3_bf16, 0xFFFF)],
+                         ids=["tf32", "bf16"])
+@pytest.mark.parametrize("scale", [1e-20, 1e-3, 1.0, 3e4, 1e30])
+def test_q_pieces_are_exact(pieces, mask, scale):
+    """lm_attention.cu's q pieces (split3 for f32 K: tf32; put_q_pieces for
+    int8 and bf16 K: bf16): each piece has its dropped mantissa bits clear
+    and the three sum to the f32 q exactly, so against an int8 k (exact in
+    both) each of the three MMA products is exact (in f64 here) and the
+    piece products sum to q.k exactly. The claim holds while the pieces are
+    normal numbers (|q| above ~2^-100): a subnormal piece keeps fewer
+    bits."""
+    rng = np.random.default_rng(0)
+    q = (rng.standard_normal(4096) * scale).astype(np.float32)
+    hi, mid, lo = pieces(q)
+    for piece in (hi, mid, lo):
+        assert not (piece.view(np.uint32) & mask).any()
+    np.testing.assert_array_equal(hi.astype(np.float64) + mid + lo, q.astype(np.float64))
+    k = rng.integers(-127, 128, 4096).astype(np.float32)
+    exact = q.astype(np.float64) * k
+    parts = hi.astype(np.float64) * k + mid.astype(np.float64) * k + lo.astype(np.float64) * k
+    np.testing.assert_array_equal(parts, exact)
+
+
+def _tile_layout(hd, es):
+    """lm_attention.cu tile_layout and q_piece_row: padded head dim and row
+    strides (q's pieces in their elements: tf32 for f32 K, bf16 for int8
+    and bf16 K; K and V in bytes)."""
+    up = lambda x, m: -(-x // m) * m  # noqa: E731
+    hdp = up(hd, 16)
+    q_row = hdp + 4 if es == 4 else hdp + 8
+    return hdp, q_row, up(hdp * es, 32) + 16, up(hdp * es, 128) + (32 if es == 4 else 16)
+
+
+def _conflicts(words):
+    """The most distinct 4-byte words one bank serves for a warp's access
+    (1: conflict-free; the same word twice is a broadcast)."""
+    by_bank = {}
+    for w in words:
+        by_bank.setdefault(w % 32, set()).add(w)
+    return max(len(v) for v in by_bank.values())
+
+
+@pytest.mark.parametrize("es", [1, 2, 4])
+@pytest.mark.parametrize("hd", [32, 64, 100, 112, 128])
+def test_tile_fragment_reads_hit_32_banks(hd, es):
+    """The tile schedule's fragment reads from shared memory, lane (g, t) =
+    (lane // 4, lane % 4), are conflict-free for every chunk and n8 tile at
+    every head dim and K/V width: the score MMAs' q A fragment and K B
+    fragment (f32 K, m16n8k8 tf32: rows g and g + 8, dims kk + t and
+    kk + t + 4 of q, of key g; int8 and bf16 K, m16n8k16 bf16: the pairs of
+    dims kk + 2 t and kk + 2 t + 8), and P.V's V B fragment (keys t and
+    t + 4, dim 8 n + g)."""
+    hdp, q_row, k_row, v_row = _tile_layout(hd, es)
+    lanes = [(lane // 4, lane % 4) for lane in range(32)]
+    if es == 4:
+        for kk in range(0, hdp, 8):
+            for dr, dd in ((0, 0), (8, 0), (0, 4), (8, 4)):
+                assert _conflicts([(g + dr) * q_row + kk + t + dd for g, t in lanes]) == 1
+            for dd in (0, 4):
+                assert _conflicts([(g * k_row + (kk + t + dd) * 4) // 4 for g, t in lanes]) == 1
+    else:
+        for kk in range(0, hdp, 16):
+            for dr, dd in ((0, 0), (8, 0), (0, 8), (8, 8)):  # 2-element words
+                assert _conflicts([((g + dr) * q_row + kk + 2 * t + dd) // 2
+                                   for g, t in lanes]) == 1
+            for dd in (0, 8):
+                assert _conflicts([(g * k_row + (kk + 2 * t + dd) * es) // 4
+                                   for g, t in lanes]) == 1
+    worst_v = max(_conflicts([((t + dk) * v_row + (8 * n + g) * es) // 4 for g, t in lanes])
+                  for n in range(hdp // 8) for dk in (0, 4))
+    assert worst_v == 1
+    assert k_row % 16 == 0 and v_row % 16 == 0  # 16-byte cp.async destinations

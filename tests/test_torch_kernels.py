@@ -28,6 +28,7 @@ from repro.kernels.expert_linear import grouped_matmul as jax_grouped_matmul
 from repro.kernels.int8_matmul import int8_matmul as jax_int8_matmul
 from repro.kernels.quant_attention import streaming_attention as jax_attention
 
+from repro_torch.kernels import expert_linear as gm
 from repro_torch.kernels import ops
 from repro_torch.kernels.expert_linear import grouped_matmul, route_metadata
 from repro_torch.kernels import int8_matmul as i8
@@ -236,6 +237,9 @@ def test_cpu_tensors_never_reach_a_kernel():
     ("int8_matmul.cu", ""), ("grouped_matmul.cu", ""), ("grouped_matmul.cu", "W4A8"),
     ("quant_attention.cu", ""), ("lm_attention.cu", ""), ("int8_mma.cuh", ""),
     ("int8_matmul.cu", "mma"), ("int8_matmul.cu", "stream"), ("int8_matmul.cu", "dp4a"),
+    ("grouped_matmul.cu", "mma"), ("grouped_matmul.cu", "stream"),
+    ("grouped_matmul.cu", "dp4a"), ("lm_attention.cu", "decode"),
+    ("lm_attention.cu", "tile"),
 ])
 def test_kernel_sources_carry_their_notes(source, mode):
     """Each CUDA source names the TPU kernel it replaces, what bounds it on
@@ -261,6 +265,23 @@ def test_int8_matmul_notes_cover_each_variant(variant):
     note = head[start:nxt if nxt > 0 else len(head)]
     assert "Bound on the H100" in note and "Design:" in note
     if i8.VARIANTS[variant] == "stream":
+        assert "weight bytes" in note
+
+
+@pytest.mark.parametrize("variant", sorted(gm.VARIANTS))
+def test_grouped_matmul_notes_cover_each_variant(variant):
+    """The head of grouped_matmul.cu gives each variant its own bound and
+    design; the decode variant's bound is the active experts' weight
+    bytes."""
+    import repro_torch.kernels as K
+
+    text = (Path(K.__file__).parent / "csrc" / "grouped_matmul.cu").read_text()
+    head = text[:text.index("#include")]
+    start = head.index(f"// Variant {variant}, {gm.VARIANTS[variant]}")
+    nxt = head.find("// Variant ", start + 1)
+    note = head[start:nxt if nxt > 0 else head.index("// W4A8 in variants")]
+    assert "Bound on the H100" in note and "Design:" in note
+    if gm.VARIANTS[variant] == "stream":
         assert "weight bytes" in note
 
 
@@ -468,3 +489,208 @@ def test_int8_mma_fragment_layout_is_exact_and_conflict_free(BN):
     stores += [[r * BK + 16 * swz_a(r, c) for r, c in
                 [divmod(e, BK // 16) for e in range(p, p + 8)]] for p in range(0, 16 * BK // 16, 8)]
     assert _worst_bank_conflict(stores) == 1
+
+
+# (T, G, Din, Dout) of the grouped calls on the served paths: OLMoE-1B-7B
+# expert fc1 (2048 -> 2 x 1024) and fc2 (1024 -> 2048) at decode ticks of
+# 1..8 slots (top 8) and at a 512-token packed prefill; M3ViT-S expert fc1 /
+# fc2 (top 2 of 16) at batches 1, 4 and 8
+GROUPED_PATH = ([(8 * s, 64, din, dout) for s in range(1, 9)
+                 for din, dout in ((2048, 2048), (1024, 2048))]
+                + [(4096, 64, 2048, 2048), (4096, 64, 1024, 2048)]
+                + [(2 * 197 * b, 16, din, dout) for b in (1, 4, 8)
+                   for din, dout in ((384, 1536), (1536, 384))])
+
+
+@pytest.mark.parametrize("T,G,Din,Dout", GROUPED_PATH)
+def test_grouped_variant_on_the_path(T, G, Din, Dout):
+    """Decode ticks stream each active expert's weight (a few rows a
+    group); prefill and vision take the MMA tiles; never dp4a."""
+    v = gm.choose_variant(T, G, Din, Dout, aligned=True)
+    assert v == (2 if T <= 64 else 1)
+    assert gm.takes(v, Din, Dout) and gm.takes(3, Din, Dout)
+
+
+@pytest.mark.parametrize("T,G,Din,Dout,aligned", [
+    (64, 64, 100, 2048, True), (4096, 64, 65, 2048, True),  # Din % 16 != 0 (odd: W4A8 pad)
+    (64, 64, 2048, 10, True), (394, 16, 384, 1001, True),  # Dout % 8 != 0
+    (64, 64, 2048, 2048, False), (3152, 16, 384, 1536, False),  # off the 16-byte grid
+])
+def test_grouped_ragged_or_misaligned_shapes_take_dp4a(T, G, Din, Dout, aligned):
+    assert gm.choose_variant(T, G, Din, Dout, aligned) == 3
+    assert not gm.takes(1, Din, Dout, aligned) and not gm.takes(2, Din, Dout, aligned)
+
+
+def _block_scan(values, threads):
+    """block_scan over the block's threads in order: exclusive prefix and
+    the total, a warp's inclusive scan then the warps' sums."""
+    assert len(values) == threads
+    incl = np.cumsum(values)
+    return list(incl - np.asarray(values)), int(incl[-1]) if threads else 0
+
+
+def _find_item(sizes, T, w, threads, block_m=64):
+    """grouped_matmul.cu's find_item for block w, step by step: chunks of
+    ``threads`` groups, a scan of the sizes (first rows), a scan of the
+    items each group holds (first items); the thread whose range holds w
+    publishes (g, m0, lo, hi)."""
+    G = len(sizes)
+    found = (0, 0, 0, 0)
+    rows_before = items_before = 0
+    for c0 in range(0, G, threads):
+        size = [max(sizes[c0 + i], 0) if c0 + i < G else 0 for i in range(threads)]
+        starts, rows_total = _block_scan(size, threads)
+        items = []
+        for i in range(threads):
+            start = rows_before + starts[i]
+            first = start // block_m
+            items.append((start + size[i] - 1) // block_m - first + 1 if size[i] > 0 else 0)
+        i0s, items_total = _block_scan(items, threads)
+        for i in range(threads):
+            start, i0 = rows_before + starts[i], items_before + i0s[i]
+            if i0 <= w < i0 + items[i]:
+                first = start // block_m
+                m0 = (first + w - i0) * block_m
+                found = (c0 + i, m0, max(start, m0), min(start + size[i], m0 + block_m, T))
+        rows_before += rows_total
+        items_before += items_total
+    return found
+
+
+WORK_CASES = [
+    [40, 0, 17, 71], [0, 0, 5, 0, 123, 1, 0, 16], [0, 0, 0], [130], [0, 130, 0, 0],
+    [3, 60, 1, 64, 0, 2], [1] * 64, [0] * 20 + [64, 65] + [0] * 20,
+    [7] * 300,  # more groups than a block has threads: two chunks
+]
+
+
+@pytest.mark.parametrize("sizes", WORK_CASES)
+@pytest.mark.parametrize("threads", [128, 256])
+def test_grouped_work_derived_in_the_block_is_the_reference_table(sizes, threads):
+    """The work item each block of variants 1 and 3 (and the f32 mode)
+    derives from group_sizes is the reference's _route_metadata table,
+    item by item, with empty ranges past the last item; every output row is
+    written by exactly one item."""
+    gs = np.asarray(sizes, np.int32)
+    T, G = int(gs.sum()), len(sizes)
+    n_work = -(-T // 64) + G  # the launch's grid
+    g_ids, m_ids, row_start, row_end = (np.asarray(a) for a in jax_route_metadata(
+        jnp.asarray(gs), 64, n_work))
+    port = [a.numpy() for a in route_metadata(torch.from_numpy(gs), 64, n_work)]
+    for a, b in zip(port, (g_ids, m_ids, row_start, row_end)):
+        np.testing.assert_array_equal(a, b)
+    written = np.zeros(T, np.int64)
+    for w in range(n_work):
+        g, m0, lo, hi = _find_item(sizes, T, w, threads)
+        ref_lo = max(row_start[w], m_ids[w] * 64)
+        ref_hi = min(row_end[w], m_ids[w] * 64 + 64)
+        if ref_lo >= ref_hi:  # a padding item: the block writes nothing
+            assert lo >= hi
+            continue
+        assert (g, m0, lo, hi) == (g_ids[w], m_ids[w] * 64, ref_lo, ref_hi)
+        written[lo:hi] += 1
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("sizes", WORK_CASES + [[3, 0, 40, 1, 0, 16, 17, 0]])
+def test_grouped_stream_blocks_read_each_active_strip_once(sizes):
+    """Variant 2's grid is (strips, G): a block of an empty expert returns
+    before reading; the others find their first row as the sum of the sizes
+    before them and take the group's rows 16 at a time, so every row is
+    written once and an expert of <= 16 rows reads its strip once."""
+    T, Dout = sum(sizes), 128
+    strips = -(-Dout // 64)
+    written = np.zeros((T, strips), np.int64)
+    reads = np.zeros((len(sizes), strips), np.int64)
+    for g, size in enumerate(sizes):
+        for n in range(strips):
+            if size <= 0:
+                continue
+            # rows_before: thread t sums sizes t, t + 256, ... below g
+            parts = [sum(sizes[i] for i in range(t, g, 256)) for t in range(256)]
+            start = _block_scan(parts, 256)[1]
+            assert start == sum(sizes[:g])
+            for lo in range(start, min(start + size, T), 16):
+                reads[g, n] += 1
+                written[lo:min(start + size, T, lo + 16), n] += 1
+    assert (written == 1).all()
+    active = np.asarray(sizes) > 0
+    np.testing.assert_array_equal(reads[active], -(-np.asarray(sizes)[active, None] // 16)
+                                  * np.ones((1, strips), np.int64))
+    assert (reads[~active] == 0).all()
+    assert (reads[np.asarray(sizes) <= 16] <= 1).all()
+
+
+def _unpack_word(b):
+    """grouped_matmul.cu's unpack_word on a uint32: low and high nibbles,
+    0xF0 ORed into each byte whose bit 3 is set."""
+    lo, hi = b & 0x0F0F0F0F, (b >> 4) & 0x0F0F0F0F
+    return (lo | (((lo & 0x08080808) >> 3) * 0xF0),
+            hi | (((hi & 0x08080808) >> 3) * 0xF0))
+
+
+@pytest.mark.parametrize("threads", [128, 256])
+def test_w4a8_stage_unpack_feeds_the_int8_fragments_exactly(threads):
+    """An emulation of unpack_stage: a landed packed stage (32 rows x 64
+    columns of nibble pairs) unpacked by each thread into the even and odd
+    rows of the swizzled s8 B tile, then read by the int8_mma.cuh fragment
+    emulation (ldmatrix.trans + byte_perm, m16n8k32 products): exactly x @
+    unpack_int4(w); every 8-thread phase of the 16-byte stores hits 32
+    banks."""
+    from repro_torch.core.quant.qtypes import pack_int4, unpack_int4
+
+    rng = np.random.default_rng(threads)
+    BK, BN = i8.K_TILE, 64
+    w4 = rng.integers(-8, 8, (BK, BN)).astype(np.int8)
+    packed = pack_int4(torch.from_numpy(w4)).numpy()  # [32, 64] uint8
+    x = rng.integers(-128, 128, (16, BK)).astype(np.int8)
+    swz_b = lambda r, c: c ^ ((r >> 2) & 3)  # noqa: E731
+    sb = np.zeros(BK * BN, np.uint8)
+    stores = []
+    for tid in range(threads):
+        phase = []
+        for e in range(tid, (BK // 2) * (BN // 16), threads):
+            p, c = e >> 2, e & 3
+            words = packed[p, 16 * c:16 * c + 16].view(np.uint32)
+            lo, hi = zip(*(_unpack_word(int(v)) for v in words))
+            lo = np.asarray(lo, np.uint32).view(np.uint8)
+            hi = np.asarray(hi, np.uint32).view(np.uint8)
+            r0, r1 = 2 * p + (p & 1), 2 * p + 1 - (p & 1)
+            for r, data in ((r0, hi if p & 1 else lo), (r1, lo if p & 1 else hi)):
+                sb[r * BN + 16 * swz_b(r, c):][:16] = data
+                phase.append(r * BN + 16 * swz_b(r, c))
+        stores.append(phase)
+    # the unpacked tile is the s8 weight, swizzled as int8_mma.cuh lays it
+    want = unpack_int4(torch.from_numpy(packed), BK).numpy()
+    np.testing.assert_array_equal(want, w4)
+    for r in range(BK):
+        for c in range(BN // 16):
+            np.testing.assert_array_equal(
+                sb[r * BN + 16 * swz_b(r, c):][:16].view(np.int8), w4[r, 16 * c:16 * c + 16])
+    # each store instruction (first, then second) of 8 consecutive threads
+    for k in range(2):
+        groups = [[stores[t][k] for t in range(p0, p0 + 8) if len(stores[t]) > k]
+                  for p0 in range(0, threads, 8)]
+        assert _worst_bank_conflict([g for g in groups if g]) == 1
+    # the fragments of the unpacked tile give the exact product
+    acc = np.zeros((16, BN), np.int64)
+    sbi = sb.view(np.int8)
+    for kk in (0, 32):
+        lanes = [(t // 8, t % 8) for t in range(32)]
+        for c16 in range(BN // 16):
+            rows = [kk + 16 * (q >> 1) + 2 * (q & 1) + 4 * (i >> 1) + (i & 1) for q, i in lanes]
+            b = _ldmatrix_x4(sbi, [r * BN + 16 * swz_b(r, c16) for r in rows], trans=True)
+            for t in range(32):
+                g, tc = t // 4, t % 4
+                k4 = 4 * tc
+                for half, (b0, b1) in enumerate(((b[t, 0], b[t, 1]), (b[t, 2], b[t, 3]))):
+                    ev = _byte_perm(b0, b1, 0x6420).astype(np.int64)
+                    od = _byte_perm(b0, b1, 0x7531).astype(np.int64)
+                    col_e, col_o = 16 * c16 + 2 * g, 16 * c16 + 2 * g + 1
+                    ks = slice(kk + 16 * half + k4, kk + 16 * half + k4 + 4)
+                    np.testing.assert_array_equal(ev, w4[ks, col_e])
+                    np.testing.assert_array_equal(od, w4[ks, col_o])
+                    acc[:, col_e] += x[:, ks].astype(np.int64) @ ev
+                    acc[:, col_o] += x[:, ks].astype(np.int64) @ od
+    # each (k, column) pair is fed by exactly one lane and k half
+    np.testing.assert_array_equal(acc, x.astype(np.int64) @ w4.astype(np.int64))
