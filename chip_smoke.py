@@ -28,11 +28,21 @@ caught:
                  ``PARENT_GAUSSIAN_OVER``; at the decode shapes the tile
                  schedule bit-equal to the decode schedule; a call alone one
                  device kernel; ``scaled_dot_product_attention`` timed
-                 beside each ``quant_bits=0`` row); ``selective_scan`` at the
-                 falcon-mamba-7b prefill shapes [B, S, di, N] = [1, 256, 8192,
-                 16], [8, 256, 8192, 16] and a ragged S = 200, and state 8 at
-                 [2, 100, 256, 8] (y and h_last within atol = rtol = 1e-5),
-                 timed beside its plain version;
+                 beside each ``quant_bits=0`` row); the vision case of
+                 ``streaming_attention`` (its Gaussian rows over 1e-4 no more
+                 than ``PARENT_VISION_GAUSSIAN_OVER``) at M3ViT-S and at
+                 ``VISION_EDGES``; ``selective_scan`` at the
+                 falcon-mamba-7b prefill shapes ``SCAN_PATH`` (groups of 1,
+                 4 and 8 prompts of 256 tokens, each taking one of
+                 ``scan_layout``'s layouts; bf16 too), at ``SCAN_SHAPES``
+                 (N 4..64, bf16 operands), in every layout of the states
+                 variant forced and at ``SCAN_WIDE`` (h_last bit-equal, f32
+                 y within atol = rtol = 1e-5), timed at B 1, 4 and 8 beside
+                 the first port's lane variant and its plain version, and
+                 each layout timed for B 1..8 beside ``scan_layout``'s
+                 pick; ``rmsnorm`` at the OLMoE and
+                 falcon-mamba widths (rows alone bit-equal to the same rows
+                 among more), timed beside ``F.rms_norm``;
   4. serving  -- full-width M3ViT-S (``configs/moe_vit.py:CONFIG``): seeded fp
                  init on the card, calibration on 2 batches of 2, PTQ to the
                  int8 tree, ``VisionEngine(buckets=(1, 4, 8))`` serving 24
@@ -62,10 +72,12 @@ caught:
                  of every request at 9 of its 32 steps match ``prefill`` over
                  the same prefix within the stated limits; the same requests
                  served again give bit-equal tokens and logits; the expert
-                 combine of 8 tokens equals theirs among 512. Printed, not
-                 gated: the worst request served alone, and one RMSNorm of 8
-                 rows alone against the same rows among 512. Then one decode
-                 tick and one 512-token packed prefill are profiled;
+                 combine of 8 tokens equals theirs among 512, and so does
+                 the RMSNorm of 8 rows. Printed, not gated: the worst request
+                 served alone and, where its step-0 logits differ from the
+                 packed run's, the first op whose rows differ between a pack
+                 and a solo prefill. Then one decode tick and one 512-token
+                 packed prefill are profiled;
   8. ssm      -- the OLMoE trees and engines freed (at most 1 GB of the
                  earlier phases may stay allocated), full-width falcon-mamba-7b
                  (``configs/falcon_mamba_7b.py``, seeded f32 init on the card,
@@ -74,7 +86,8 @@ caught:
                  same-length admission path: 16 seeded requests with prompts
                  of 64, 128 or 256 tokens and 32 new tokens. Gates: the scan
                  launches exactly 64 times per grouped prefill dispatch and
-                 never in a decode tick, no other kernel is launched, every
+                 never in a decode tick, RMSNorm 65 times a forward, no other
+                 kernel is launched, every
                  request completes, and the engine's logits at every step of
                  every request match ``forward`` over the same prefix within
                  ``SSM_TF_LIMIT``, and the first wave served again with TF32
@@ -87,8 +100,8 @@ line before it is the card's name and power limit, and the line before that
 holds the ``{"kernels": [...]}`` record (the int8_matmul and grouped rows
 name the variant they timed, the attention rows the schedule). A row's
 ``ms`` is device time per call over CUDA-graph replays (``graph_ms``), warm
-caches unless a ``cold_ms`` stands beside it; the selective-scan rows and
-the plain versions are CUDA-event times of eager calls.
+caches unless a ``cold_ms`` stands beside it; the plain versions are
+CUDA-event times of eager calls (``rmsnorm``'s: graph replays).
 """
 from __future__ import annotations
 
@@ -114,6 +127,7 @@ REPLACES = {
     "streaming_attention": "src/repro/kernels/quant_attention.py:207",
     "lm_attention": "src/repro/kernels/quant_attention.py:207",
     "selective_scan": "src/repro/kernels/selective_scan.py:70",
+    "rmsnorm": "src/repro/models/layers.py:21",  # plain XLA, not a Pallas kernel
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu",
@@ -121,15 +135,18 @@ SOURCES = {
     "streaming_attention": "src/repro_torch/kernels/csrc/quant_attention.cu",
     "lm_attention": "src/repro_torch/kernels/csrc/lm_attention.cu",
     "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
+    "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
 }
 # kernel launches per int8 forward of M3ViT-S: 6 dense layers x (q, k, v, o,
 # fc1, fc2) + 6 MoE layers x (q, k, v, o, gate) + head; 6 MoE layers x (fc1,
-# fc2); 12 attention layers
-PER_FORWARD = {"int8_matmul": 67, "grouped_matmul": 12, "streaming_attention": 12}
+# fc2); 12 attention layers; no RMSNorm (M3ViT normalises with LayerNorm)
+PER_FORWARD = {"int8_matmul": 67, "grouped_matmul": 12, "streaming_attention": 12,
+               "rmsnorm": 0}
 # per OLMoE-1B-7B forward of the int8 / W4A8 trees (a packed admission or a
 # decode tick): 16 layers x (q, k, v, o, gate) + lm_head; 16 x (fc1, fc2);
-# 16 attention layers
-LM_PER_FORWARD = {"int8_matmul": 81, "grouped_matmul": 32, "lm_attention": 16}
+# 16 attention layers; 16 x (ln1, ln2, q_norm, k_norm) + final_norm
+LM_PER_FORWARD = {"int8_matmul": 81, "grouped_matmul": 32, "lm_attention": 16,
+                  "rmsnorm": 65}
 # device kernel names of each wrapper's launches (profiles count them)
 KERNEL_NAMES = {
     "int8_matmul": ("int8_mma_kernel", "int8_stream_kernel", "int8_matmul_kernel"),
@@ -138,6 +155,7 @@ KERNEL_NAMES = {
     "streaming_attention": ("quant_attention_kernel",),
     "lm_attention": ("lm_decode_kernel", "lm_tile_kernel"),
     "selective_scan": ("selective_scan_kernel",),
+    "rmsnorm": ("rmsnorm_kernel",),
 }
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 512, 16, 32
 PROFILE_ATTEMPTS = 5  # traces of one profile, at most, while one is incomplete
@@ -621,6 +639,10 @@ LM_ATTENTION_SEED = 0
 # kept here (0 of 8192 and 0 of 128; PERF.md names the run). A
 # quant_bits > 0 row may have no more; the rows it did not run are absent
 PARENT_GAUSSIAN_OVER = {"packed_prefill": 0, "decode_int8": 0}
+# the vision case's rows over 1e-4 with Gaussian q/k ([8, 197, 6, 64], 4-bit
+# codes, of 9456): the count the parent commit's kernel gave on the same
+# inputs (its own chip_smoke.py:_check_attention, same seed and draws)
+PARENT_VISION_GAUSSIAN_OVER = 0
 GAUSSIAN_QB0_TOL = 1e-4  # atol = rtol for the quant_bits=0 rows with Gaussian q
 
 
@@ -902,32 +924,55 @@ def _check_lm_attention(gen) -> list:
     return rows
 
 
+# the vision kernel's edges, on exact-score inputs (B, Sq, Sk, H, KVH, hd,
+# quant_bits): hd 16 (the smoke configs') in one key chunk, GQA with Sq !=
+# Sk and ragged chunks, hd 100 (padded to 128), hd 30 (plain loads: rows
+# not whole 16-byte chunks), 8-bit codes, 16 key chunks, and the longest
+# Sk ``fits_in_shared_memory`` admits at hd 64
+VISION_EDGES = [(2, 50, 50, 4, 4, 16, 4), (2, 33, 77, 4, 2, 32, 4), (1, 197, 197, 2, 2, 100, 4),
+                (1, 40, 65, 2, 2, 30, 4), (2, 70, 130, 2, 2, 64, 8), (1, 64, 1024, 2, 2, 64, 4),
+                (1, 20, 1456, 1, 1, 64, 4)]
+
+
 def _check_attention(gen) -> dict:
+    """The vision case of streaming_attention at M3ViT-S ([8, 197, 6, 64],
+    4-bit codes): on inputs whose scores are exact in f32 (q, k on a 1/4
+    grid: the kernel's and the plain version's codes agree exactly and only
+    exp and the P.V sums differ) within atol = rtol = 1e-5, then with
+    Gaussian q/k (a score on a .5 code boundary may round the other way
+    when the dot products run in another order) no more rows over 1e-4 than
+    ``PARENT_VISION_GAUSSIAN_OVER``. Timed: the kernel, lm_attention on the
+    same inputs (held to the same gate), the plain version; one device
+    kernel a call. Then the kernel at ``VISION_EDGES``."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.quant_attention import lm_attention, streaming_attention
+    from repro_torch.kernels.quant_attention import (
+        fits_in_shared_memory,
+        lm_attention,
+        streaming_attention,
+    )
 
     B, S, H, hd = 8, 197, 6, 64
-    # Gate on inputs whose scores are exact in f32 whatever the summation
-    # order (q, k on a 1/4 grid): the kernel's and the plain version's codes
-    # then agree exactly and only exp and the P.V sums differ. With Gaussian
-    # q, k the two score sums differ in the last bit, which can move a code
-    # across a .5 rounding boundary; those are counted, not gated.
-    grid = lambda: torch.randint(-3, 4, (B, S, H, hd), generator=gen,
-                                 device="cuda").float() * 0.25
-    q, k = grid(), grid()
+    grid = lambda *shape: torch.randint(-3, 4, shape, generator=gen,  # noqa: E731
+                                        device="cuda").float() * 0.25
+    q, k = grid(B, S, H, hd), grid(B, S, H, hd)
     v = torch.randn((B, S, H, hd), generator=gen, device="cuda")
-    got = streaming_attention(q, k, v, quant_bits=4)
     want = ref.flash_attention_ref(q, k, v, causal=False, quant_bits=4)
+    got = streaming_attention(q, k, v, quant_bits=4)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     err = max_err(got, want)
     qn, kn = (torch.randn((B, S, H, hd), generator=gen, device="cuda") for _ in "qk")
     diff = (streaming_attention(qn, kn, v, quant_bits=4)
             - ref.flash_attention_ref(qn, kn, v, causal=False, quant_bits=4)).abs().amax(-1)
-    print(f"[kernels] attention, Gaussian q/k: max err {float(diff.max()):.3g}, "
-          f"rows over 1e-4: {int((diff > 1e-4).sum())} of {diff.numel()}", flush=True)
+    over, g_err = int((diff > 1e-4).sum()), float(diff.max())
+    print(f"[kernels] attention, Gaussian q/k: rows over 1e-4: {over} of {diff.numel()} (max "
+          f"err {g_err:.3g}); gate: <= {PARENT_VISION_GAUSSIAN_OVER}, the parent kernel's "
+          "count on the same inputs", flush=True)
+    if over > PARENT_VISION_GAUSSIAN_OVER:
+        raise AssertionError(f"streaming_attention: {over} Gaussian rows over 1e-4, the parent "
+                             f"kernel {PARENT_VISION_GAUSSIAN_OVER}")
     # the LM kernel computes the same case: held to the same gate and timed
-    # on the same inputs, to show whether the vision kernel earns its place
+    # on the same inputs
     lm = lm_attention(q, k, v, causal=False, quant_bits=4)
     torch.cuda.synchronize()
     torch.testing.assert_close(lm, want, atol=1e-5, rtol=1e-5)
@@ -938,73 +983,265 @@ def _check_attention(gen) -> dict:
     row = {
         "name": "streaming_attention", "shape": [B, S, H, hd], "quant_bits": 4,
         "max_abs_err": err, "tolerance": "atol=1e-5, rtol=1e-5 (exact-score inputs)",
+        "device_kernels": _one_device_kernel("streaming_attention", vision),
         "ms": graph_ms(vision), "eager_ms": time_ms(vision),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=False,
                                                             quant_bits=4)),
         "bound_ms": nb, "bound_by": by, "library_ms": None,
         "lm_attention_ms": graph_ms(lm_fn), "lm_attention_eager_ms": time_ms(lm_fn),
         "lm_attention_max_abs_err": max_err(lm, want),
+        "gaussian_rows_over": over, "gaussian_max_abs_err": g_err,
     }
     print(f"[kernels] vision attention {[B, S, H, hd]} qb4: streaming_attention "
-          f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}), lm_attention on the same "
-          f"inputs {row['lm_attention_ms']:.4f} ms (eager {row['lm_attention_eager_ms']:.4f}),"
-          f" bound {nb:.5f} ms ({by})", flush=True)
+          f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}), lm_attention on the same inputs "
+          f"{row['lm_attention_ms']:.4f} ms (eager {row['lm_attention_eager_ms']:.4f}), plain "
+          f"{row['plain_ms']:.3f} ms, bound {nb:.5f} ms ({by}), max err {err:.3g}", flush=True)
+    edge_err = 0.0
+    for B_, Sq, Sk, H_, KVH, hd_, qb in VISION_EDGES:
+        if not fits_in_shared_memory(Sk, hd_):
+            raise AssertionError(f"VISION_EDGES: Sk={Sk}, hd={hd_} does not fit")
+        q_, k_ = grid(B_, Sq, H_, hd_), grid(B_, Sk, KVH, hd_)
+        v_ = torch.randn((B_, Sk, KVH, hd_), generator=gen, device="cuda")
+        out = streaming_attention(q_, k_, v_, quant_bits=qb)
+        ok = ref.flash_attention_ref(q_, k_, v_, causal=False, quant_bits=qb)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ok, atol=1e-5, rtol=1e-5)
+        edge_err = max(edge_err, max_err(out, ok))
+    row["edge_max_abs_err"] = edge_err
+    print(f"[kernels] streaming_attention at {len(VISION_EDGES)} edge shapes "
+          f"(B, Sq, Sk, H, KVH, hd, bits) {VISION_EDGES}: within 1e-5, max err "
+          f"{edge_err:.3g}", flush=True)
     return row
 
 
-def _check_selective_scan(gen) -> dict:
-    """The scan at the falcon-mamba-7b prefill shapes (d_inner 8192, state
-    16): one prompt and a group of 8 of 256 tokens, and a ragged S = 200;
-    then state 8 (the smoke config's) at [2, 100, 256, 8].
-    dt as the model makes it (softplus), A as Mamba initializes it
-    (-(n + 1)). Only the order of the 16-term sum in y differs from the
-    plain version; h_last is reported bit-equal or not."""
+# the scan's shapes beyond the falcon-mamba-7b prefill ([B, S, di, N],
+# dtype of x, dt, B, C): state 8 (the smoke config's), the other state
+# sizes at a small d_inner, bf16 operands at the path's shape and at a
+# padded state, and a ragged d_inner with odd S (plain loads)
+SCAN_SHAPES = ([(2, 100, 256, 8, torch.float32)]
+               + [(2, 100, 256, n, torch.float32) for n in (4, 12, 32, 64)]
+               + [(8, 256, 8192, 16, torch.bfloat16), (2, 100, 256, 12, torch.bfloat16),
+                  (3, 37, 250, 5, torch.float32), (3, 37, 250, 5, torch.bfloat16)])
+# the falcon-mamba-7b prefill shapes (B, S, dtype) at d_inner 8192, state
+# 16: a grouped admission holds 1-8 prompts, so each of scan_layout's three
+# layouts there ((4, 4) for B 1, (8, 2) for B 2-5 and 7, (16, 1) for B 6
+# and 8) runs on the path; B 4 in bf16 too, and a ragged S = 200
+SCAN_PATH = [(1, 256, torch.float32), (4, 256, torch.float32), (4, 256, torch.bfloat16),
+             (8, 200, torch.float32), (8, 256, torch.float32)]
+SCAN_TIMED = {1: "selective_scan[prefill_1x256]", 4: "selective_scan[prefill_4x256]",
+              8: "selective_scan"}
+# every (states a thread, lanes a channel) instantiation of the states
+# variant, forced, at [2, 37, 256, N] for each padded state size: f32 at N
+# = Np, bf16 at N = Np - 3 (padded states); and 16 states a thread with 2
+# lanes as scan_layout picks it, at [8, 64, 8192, 32]
+SCAN_LAYOUT_NP = (4, 8, 16, 32, 64, 128, 256, 512)
+SCAN_WIDE = (8, 64, 8192, 32)
+
+
+def _scan_operands(gen, B, S, di, N, dtype):
+    """dt as the model makes it (softplus), A as Mamba initializes it
+    (-(n + 1))."""
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    x, dt = randn(B, S, di), torch.nn.functional.softplus(randn(B, S, di))
+    b, c = randn(B, S, N), randn(B, S, N)
+    a = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32).expand(di, N).contiguous()
+    return (*(t.to(dtype) for t in (x, dt, b, c)), a, randn(di))
+
+
+def _check_scan_once(args, variant=1, layout=None) -> float:
+    """Gate one scan against its plain version: h_last bit-equal, y within
+    atol = rtol = 1e-5 (f32; bf16 y is each side's f32 y rounded once to
+    bf16, so it may differ by one bf16 step: rtol 2^-7). Returns y's max
+    error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.selective_scan import selective_scan
 
+    (y, h) = selective_scan(*args, variant=variant, layout=layout)
+    yr, hr = ref.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    shape = list(args[0].shape) + [args[2].shape[-1]]
+    if not torch.equal(h, hr):
+        raise AssertionError(f"selective_scan {shape} {args[0].dtype} layout {layout}: h_last "
+                             f"not bit-equal, max err {max_err(h, hr)}")
+    rtol = 1e-5 if y.dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(y.float(), yr.float(), atol=1e-5, rtol=rtol)
+    return max_err(y.float(), yr.float())
+
+
+def _check_selective_scan(gen) -> list:
+    """The scan at the falcon-mamba-7b prefill shapes ``SCAN_PATH``, then
+    ``SCAN_SHAPES``, every layout of the states variant forced at
+    ``SCAN_LAYOUT_NP`` and the wide layout at ``SCAN_WIDE``. Every call
+    gated by ``_check_scan_once``, the lane variant (the first port's
+    kernel) too where it takes the shape. Timed at B 1, 4 and 8 (device
+    time, CUDA-graph replays): the states variant, the lane variant on the
+    same inputs, the plain version; one device kernel a call. Then each
+    layout at d_inner 8192, N 16 for B 1..8, beside ``scan_layout``'s pick.
+    A row's ``max_abs_err`` is the f32 y error at its own shape; the bf16
+    maximum over every bf16 call stands apart."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import (
+        LANE_STATE_DIMS,
+        scan_layout,
+        scan_layouts,
+        selective_scan,
+    )
+
     di, N = 8192, 16
-    tol = dict(atol=1e-5, rtol=1e-5)
-    a = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32).expand(di, N).contiguous()
-    d = torch.randn((di,), generator=gen, device="cuda")
-    row = {"name": "selective_scan", "max_abs_err": 0.0, "h_bit_equal": [],
-           "tolerance": "atol=1e-5, rtol=1e-5", "library_ms": None, "timings": []}
-    for B, S in ((1, 256), (8, 200), (8, 256)):
-        x = torch.randn((B, S, di), generator=gen, device="cuda")
-        dt = torch.nn.functional.softplus(torch.randn((B, S, di), generator=gen, device="cuda"))
-        b, c = (torch.randn((B, S, N), generator=gen, device="cuda") for _ in "bc")
-        (y, h), (yr, hr) = selective_scan(x, dt, b, c, a, d), ref.selective_scan_ref(
-            x, dt, b, c, a, d)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(y, yr, **tol)
-        torch.testing.assert_close(h, hr, **tol)
-        row["max_abs_err"] = max(row["max_abs_err"], max_err(y, yr), max_err(h, hr))
-        row["h_bit_equal"].append(torch.equal(h, hr))
-        if S == 200:
+    rows, err, checked = [], {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
+
+    def check(args, variant=1, layout=None) -> float:
+        nonlocal checked
+        e = _check_scan_once(args, variant, layout)
+        err[args[0].dtype] = max(err[args[0].dtype], e)
+        checked += 1
+        return e
+
+    for B, S, dtype in SCAN_PATH:
+        args = _scan_operands(gen, B, S, di, N, dtype)
+        y_err = check(args)
+        if dtype == torch.float32:
+            check(args, variant=2)
+        if S != 256 or dtype != torch.float32:
             continue
         nb, by = bound_ms(4 * (3 * B * S * di + 2 * B * S * N + di * N + di + B * di * N),
                           7.0 * B * S * di * N, F32_OPS_PER_S)
-        t = {"label": f"prefill_{B}x{S}", "shape": [B, S, di, N],
-             "ms": time_ms(lambda: selective_scan(x, dt, b, c, a, d)),
-             "plain_ms": time_ms(lambda: ref.selective_scan_ref(x, dt, b, c, a, d), iters=3),
-             "bound_ms": nb, "bound_by": by}
-        row["timings"].append(t)
-    # the other state size the kernel is built for, at the smoke config's
-    # d_inner and a ragged S
-    B, S, di8, N8 = 2, 100, 256, 8
-    x, dt = (torch.randn((B, S, di8), generator=gen, device="cuda") for _ in "xt")
-    dt = torch.nn.functional.softplus(dt)
-    b, c = (torch.randn((B, S, N8), generator=gen, device="cuda") for _ in "bc")
-    a8 = -torch.arange(1, N8 + 1, device="cuda", dtype=torch.float32).expand(di8, N8).contiguous()
-    d8 = torch.randn((di8,), generator=gen, device="cuda")
-    (y, h), (yr, hr) = (selective_scan(x, dt, b, c, a8, d8),
-                        ref.selective_scan_ref(x, dt, b, c, a8, d8))
-    torch.testing.assert_close(y, yr, **tol)
-    torch.testing.assert_close(h, hr, **tol)
-    row["max_abs_err"] = max(row["max_abs_err"], max_err(y, yr), max_err(h, hr))
-    row["h_bit_equal"].append(torch.equal(h, hr))
-    row.update({k: row["timings"][-1][k] for k in
-                ("shape", "ms", "plain_ms", "bound_ms", "bound_by")})
-    return row
+        states = lambda: selective_scan(*args)  # noqa: E731
+        rows.append({
+            "name": SCAN_TIMED[B], "shape": [B, S, di, N], "variant": "states",
+            "layout": scan_layout(B, di, N), "max_abs_err": y_err,
+            "tolerance": "h_last bit-equal; y atol=1e-5, rtol=1e-5",
+            "device_kernels": _one_device_kernel("selective_scan", states),
+            "ms": graph_ms(states, n=10), "eager_ms": time_ms(states),
+            "lane_ms": graph_ms(lambda: selective_scan(*args, variant=2), n=10),
+            "plain_ms": time_ms(lambda: ref.selective_scan_ref(*args), iters=3, warmup=1),
+            "bound_ms": nb, "bound_by": by, "library_ms": None})
+    for B, S, di_, N_, dtype in SCAN_SHAPES:
+        args = _scan_operands(gen, B, S, di_, N_, dtype)
+        check(args)
+        if dtype == torch.float32 and N_ in LANE_STATE_DIMS:
+            check(args, variant=2)
+    forced = 0
+    for Np in SCAN_LAYOUT_NP:
+        for dtype, N_ in ((torch.float32, Np), (torch.bfloat16, max(1, Np - 3))):
+            args = _scan_operands(gen, 2, 37, 256, N_, dtype)
+            for layout in scan_layouts(N_):
+                check(args, layout=layout)
+                forced += 1
+    B, S, di_, N_ = SCAN_WIDE
+    if scan_layout(B, di_, N_) != (16, 2):
+        raise AssertionError(f"SCAN_WIDE {SCAN_WIDE} no longer takes 16 states with 2 lanes")
+    check(_scan_operands(gen, B, S, di_, N_, torch.float32))
+    # each layout at the path's width for every group size an admission makes
+    sweep = {}
+    for B in range(1, 9):
+        args = _scan_operands(gen, B, 256, di, N, torch.float32)
+        times = {lay: graph_ms(lambda: selective_scan(*args, layout=lay), n=10)
+                 for lay in scan_layouts(N)}
+        pick = scan_layout(B, di, N)
+        best = min(times, key=times.get)
+        sweep[B] = {"ms": {f"{s}x{l}": t for (s, l), t in times.items()},
+                    "picked": f"{pick[0]}x{pick[1]}", "fastest": f"{best[0]}x{best[1]}",
+                    "picked_over_fastest": times[pick] / times[best]}
+        print(f"[kernels] selective_scan layouts at [{B}, 256, {di}, {N}] (states a thread x "
+              f"lanes): " + ", ".join(f"{k} {v:.4f} ms" for k, v in sweep[B]["ms"].items())
+              + f"; scan_layout picks {sweep[B]['picked']}, fastest {sweep[B]['fastest']} "
+              f"(picked / fastest {sweep[B]['picked_over_fastest']:.3f})", flush=True)
+    for row in rows:
+        row["bf16_max_abs_err"] = err[torch.bfloat16]
+        row["bf16_tolerance"] = "h_last bit-equal; y atol=1e-5, rtol=2^-7 (one bf16 step)"
+        row["layout_sweep"] = sweep
+        print(f"[kernels] selective_scan {row['shape']} (states a thread, lanes a channel "
+              f"{row['layout']}): states {row['ms']:.4f} ms (eager {row['eager_ms']:.4f}), "
+              f"lane (the first port's kernel, same inputs) {row['lane_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.2f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+              f"f32 y max err {row['max_abs_err']:.3g}", flush=True)
+    print(f"[kernels] selective_scan: {checked} calls ({forced} with a forced layout, every "
+          f"layout of N {SCAN_LAYOUT_NP} in f32 and bf16), h_last bit-equal (gate), y max err "
+          f"f32 {err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}", flush=True)
+    return rows
+
+
+# RMSNorm at the path's widths (label, rows, D): OLMoE-1B-7B ln1/ln2/final
+# at a 512-token prefill and an 8-slot tick, its q/k norms over head dim
+# 128 (prefill: 512 tokens x 16 heads), falcon-mamba-7b's ln at an 8 x 256
+# grouped prefill and a tick; then edges: D % 4 != 0 (single loads), D = 1,
+# D past a multiple of 128
+RMS_SHAPES = [("olmoe_ln_prefill", 512, 2048), ("olmoe_ln_decode", 8, 2048),
+              ("olmoe_qk_prefill", 8192, 128), ("olmoe_qk_decode", 128, 128),
+              ("mamba_ln_prefill", 2048, 4096), ("mamba_ln_decode", 8, 4096)]
+RMS_EDGES = [(7, 100), (5, 1), (3, 4100), (9, 6)]
+
+
+def _check_rmsnorm(gen) -> dict:
+    """RMSNorm against its plain version at ``RMS_SHAPES`` and
+    ``RMS_EDGES``: f32 x within atol = rtol = 1e-5, bf16 x within one bf16
+    step (rtol 2^-7: each side rounds its f32 y once), a bf16 gamma, a
+    misaligned x (single loads) and a strided view read in place (one
+    device kernel); the first 8 rows alone bit-equal to the
+    same rows inside the whole tensor at every path shape (gate). Timed at
+    each path shape (device time, CUDA-graph replays) beside the plain
+    version and ``torch.nn.functional.rms_norm`` with weight 1 + gamma (the
+    one PyTorch call that computes the same function). One device kernel a
+    call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.norm import rmsnorm
+
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    err, timings = {torch.float32: 0.0, torch.bfloat16: 0.0}, []
+    for label, R, D in RMS_SHAPES + [(None, r, d) for r, d in RMS_EDGES]:
+        x, gamma = randn(R, D), 0.1 * randn(D)
+        for xt, gt in ((x, gamma), (x.bfloat16(), gamma), (x, gamma.bfloat16())):
+            got, want = rmsnorm(xt, gt), ref.rmsnorm_ref(xt, gt)
+            torch.cuda.synchronize()
+            rtol = 1e-5 if xt.dtype == torch.float32 else 2.0**-7
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=rtol)
+            e = max_err(got.float(), want.float())
+            err[xt.dtype] = max(err[xt.dtype], e)
+            if xt is x and gt is gamma:
+                f32_err = e
+        if label is None:
+            continue
+        if R > LM_SLOTS and not torch.equal(rmsnorm(x[:LM_SLOTS], gamma),
+                                            rmsnorm(x, gamma)[:LM_SLOTS]):
+            raise AssertionError(f"rmsnorm {[R, D]}: {LM_SLOTS} rows alone differ from the "
+                                 "same rows in the whole tensor")
+        w1 = 1.0 + gamma
+        fn = lambda: rmsnorm(x, gamma)  # noqa: E731
+        nb, by = bound_ms(4 * (2 * R * D + D), 4.0 * R * D, F32_OPS_PER_S)
+        timings.append({
+            "label": label, "shape": [R, D], "device_kernels": _one_device_kernel("rmsnorm", fn),
+            "max_abs_err": f32_err, "ms": graph_ms(fn), "eager_ms": time_ms(fn),
+            "plain_ms": graph_ms(lambda: ref.rmsnorm_ref(x, gamma)),
+            "library_ms": graph_ms(lambda: torch.nn.functional.rms_norm(x, (D,), w1, 1e-6)),
+            "bound_ms": nb, "bound_by": by})
+        t = timings[-1]
+        print(f"[kernels] rmsnorm {label} {[R, D]}: {t['ms']:.4f} ms (eager {t['eager_ms']:.4f}), "
+              f"plain {t['plain_ms']:.4f} ms, F.rms_norm {t['library_ms']:.4f} ms, bound "
+              f"{nb:.5f} ms ({by})", flush=True)
+    # a misaligned x: rows of 2048 starting one element past a 16-byte boundary
+    x = torch.empty(LM_MAX_LEN * 2048 + 1, device="cuda")[1:].view(LM_MAX_LEN, 2048)
+    x.copy_(randn(LM_MAX_LEN, 2048))
+    gamma = 0.1 * randn(2048)
+    torch.testing.assert_close(rmsnorm(x, gamma), ref.rmsnorm_ref(x, gamma), atol=1e-5,
+                               rtol=1e-5)
+    # the falcon-mamba prefill's final norm: the last position of 8 x 256
+    # rows, a strided view read in place (one device kernel, no copy)
+    last = randn(8, 256, 4096)[:, -1:, :]
+    gamma = 0.1 * randn(4096)
+    torch.testing.assert_close(rmsnorm(last, gamma), ref.rmsnorm_ref(last, gamma), atol=1e-5,
+                               rtol=1e-5)
+    _one_device_kernel("rmsnorm (strided rows)", lambda: rmsnorm(last, gamma))
+    print(f"[kernels] rmsnorm: f32 / bf16 x / bf16 gamma at {len(RMS_SHAPES) + len(RMS_EDGES)} "
+          f"shapes, a misaligned x and strided rows within tolerance (max err: f32 x "
+          f"{err[torch.float32]:.3g}, bf16 x {err[torch.bfloat16]:.3g}); {LM_SLOTS} rows alone "
+          "bit-equal to the same rows in the whole tensor at every path shape (gate)", flush=True)
+    main = timings[0]
+    return {"name": "rmsnorm", "tolerance": "f32 atol=1e-5, rtol=1e-5",
+            "bf16_max_abs_err": err[torch.bfloat16],
+            "bf16_tolerance": "bf16 x atol=1e-5, rtol=2^-7 (one bf16 step)", "more": timings[1:],
+            **{k: main[k] for k in ("shape", "max_abs_err", "device_kernels", "ms", "eager_ms",
+                                    "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
 def phase_kernels() -> list:
@@ -1012,7 +1249,7 @@ def phase_kernels() -> list:
     rows = [_check_int8_matmul(gen), *_check_grouped_matmul(gen), _check_attention(gen),
             _check_grouped_w4a8(gen),
             *_check_lm_attention(torch.Generator(device="cuda").manual_seed(LM_ATTENTION_SEED)),
-            _check_selective_scan(gen)]
+            *_check_selective_scan(gen), _check_rmsnorm(gen)]
     for row in rows:
         row["route"] = "cuda"
         base = row["name"].split("[")[0].removesuffix("_f32").removesuffix("_w4a8")
@@ -1024,12 +1261,13 @@ def phase_kernels() -> list:
 def _counters():
     from repro_torch.kernels.expert_linear import grouped_matmul
     from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.kernels.norm import rmsnorm
     from repro_torch.kernels.quant_attention import lm_attention, streaming_attention
     from repro_torch.kernels.selective_scan import selective_scan
 
     return {"int8_matmul": int8_matmul, "grouped_matmul": grouped_matmul,
             "streaming_attention": streaming_attention, "lm_attention": lm_attention,
-            "selective_scan": selective_scan}
+            "selective_scan": selective_scan, "rmsnorm": rmsnorm}
 
 
 def _reset_counts() -> None:
@@ -1234,6 +1472,65 @@ def _teacher_forced(params, qcfg, r, steps):
     return np.asarray(errs), agree
 
 
+def _first_pack_dependence(params, qcfg, prompt, other) -> str:
+    """The first op whose output for ``prompt``'s rows differs between a
+    packed prefill of [other, prompt] and a packed prefill of ``prompt``
+    alone: every RMSNorm, linear, RoPE, K/V quantizer, attention, router
+    and expert-combine call of the two runs is recorded in order, and the
+    prompt's rows are compared call by call (a diagnostic, not a gate)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, transformer
+
+    targets = [(layers, "rmsnorm"), (layers, "quant_linear"), (transformer, "quant_linear"),
+               (layers, "rope"), (layers, "quantize_kv"), (ops, "attention"),
+               (transformer, "route_topk"), (transformer, "grouped_combine")]
+
+    def run(prompts):
+        P, n = sum(map(len, prompts)), len(prompts[-1])
+        put = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()  # noqa: E731
+        calls = []
+
+        def rows(t):
+            if not isinstance(t, torch.Tensor) or t.dim() == 0:
+                return None
+            if t.dim() >= 2 and t.shape[:2] == (1, P):
+                return t[0, P - n:].clone()
+            return t[P - n:].clone() if t.shape[0] == P else None
+
+        def wrap(name, fn):
+            def inner(*a, **kw):
+                out = fn(*a, **kw)
+                calls.append((name, [rows(o) for o in (out if isinstance(out, tuple)
+                                                       else (out,))]))
+                return out
+            return inner
+
+        saved = [(m, name, getattr(m, name)) for m, name in targets]
+        try:
+            for m, name, fn in saved:
+                setattr(m, name, wrap(name, fn))
+            with torch.inference_mode():
+                transformer.prefill_packed(
+                    params, qcfg, put(np.concatenate(prompts))[None],
+                    put(np.concatenate([np.arange(len(p)) for p in prompts])),
+                    put(np.concatenate([np.full(len(p), i) for i, p in enumerate(prompts)])),
+                    put(np.cumsum([len(p) for p in prompts]) - 1), max_len=P)
+        finally:
+            for m, name, fn in saved:
+                setattr(m, name, fn)
+        return calls
+
+    packed, alone = run([other, prompt]), run([prompt])
+    for i, ((name, a), (_, b)) in enumerate(zip(packed, alone)):
+        for x, y in zip(a, b):
+            if x is not None and y is not None and not torch.equal(x, y):
+                diff = (x.float() - y.float()).abs()
+                return (f"{name} (call {i} of {len(packed)}, output {list(x.shape)} of "
+                        f"{x.dtype}): {int((diff > 0).sum())} of {x.numel()} values differ, "
+                        f"max {float(diff.max()):.3g}")
+    return "none: every recorded op gives the prompt's rows the same bits"
+
+
 def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
     from repro_torch.models.layers import rmsnorm
 
@@ -1287,27 +1584,35 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
     if not (np.median(errs) <= median and np.quantile(errs, 0.9) <= p90
             and errs.size - agree <= far):
         raise AssertionError(f"[lm {mat}] teacher-forced logits disagree")
-    # witnesses of the cause, printed, not gated: the request that strayed
-    # most served alone (offset 0 of its admission, no other slot busy),
-    # and one RMSNorm of the same rows in a tensor of 8 rows (a decode
-    # tick) and of 512 rows (a prefill): torch's row reduction may sum a
-    # row in another order when the tensor has more rows
+    # RMSNorm of the same rows in a tensor of 8 rows (a decode tick) and of
+    # 512 rows (a prefill): bit-equal (gate). Then the witness, printed:
+    # the request that strayed most served alone (offset 0 of its
+    # admission, no other slot busy); where its step-0 logits differ from
+    # the packed run's, the first op whose rows differ between a pack and
+    # a solo prefill of it (``_first_pack_dependence``)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((LM_MAX_LEN, qcfg.d_model), generator=g, device="cuda")
+    gamma = 0.1 * torch.randn(qcfg.d_model, generator=g, device="cuda")
+    few, many = rmsnorm(x[:LM_SLOTS], gamma), rmsnorm(x, gamma)[:LM_SLOTS]
+    print(f"[lm {mat}] RMSNorm of {LM_SLOTS} rows alone vs in {LM_MAX_LEN}: "
+          f"{int((few != many).sum())} of {few.numel()} values differ (gate: 0)", flush=True)
+    if not torch.equal(few, many):
+        raise AssertionError(f"[lm {mat}] RMSNorm depends on the number of rows")
     worst = max(reqs, key=lambda r: tf[r.uid][0].max())
     solo = _run_engine(qcfg, params, [worst.prompt])[1][0]
     solo_errs, _ = _teacher_forced(params, qcfg, solo, range(LM_NEW_TOKENS))
     off = np.flatnonzero(solo_errs)
-    g = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.randn((LM_MAX_LEN, qcfg.d_model), generator=g, device="cuda")
-    gamma = torch.zeros(qcfg.d_model, device="cuda")
-    few, many = rmsnorm(x[:LM_SLOTS], gamma), rmsnorm(x, gamma)[:LM_SLOTS]
+    step0 = max_err(solo.step_logits[0], worst.step_logits[0])
     print(f"[lm {mat}] per request (prompt tokens, max err): "
           f"{ {r.uid: (len(r.prompt), round(float(tf[r.uid][0].max()), 4)) for r in reqs} }; "
-          f"request {worst.uid} served alone: step-0 logits vs packed "
-          f"{max_err(solo.step_logits[0], worst.step_logits[0]):.3g}, teacher-forced "
-          f"max err over all {LM_NEW_TOKENS} steps {solo_errs.max():.3g}, first "
-          f"nonzero at step {int(off[0]) if off.size else None}; RMSNorm of "
-          f"{LM_SLOTS} rows alone vs in {LM_MAX_LEN}: {int((few != many).sum())} of "
-          f"{few.numel()} values differ, max {max_err(few, many):.3g}", flush=True)
+          f"request {worst.uid} served alone: step-0 logits vs packed {step0:.3g}, "
+          f"teacher-forced max err over all {LM_NEW_TOKENS} steps {solo_errs.max():.3g}, first "
+          f"nonzero at step {int(off[0]) if off.size else None}", flush=True)
+    if step0:
+        other = max((r for r in reqs if r.uid != worst.uid), key=lambda r: len(r.prompt))
+        print(f"[lm {mat}] pack [request {other.uid}, request {worst.uid}] vs request "
+              f"{worst.uid} alone, first op whose rows differ: "
+              f"{_first_pack_dependence(params, qcfg, worst.prompt, other.prompt)}", flush=True)
     # the same requests again on a fresh engine: serving is deterministic
     reqs2 = _run_engine(qcfg, params)[1]
     same = all(a.generated == b.generated and all(
@@ -1322,7 +1627,7 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"counts": counts, "counters": c, "tok_s": tokens / wall, "latency_ms": lat,
             "tf_median": float(np.median(errs)), "tf_max": float(errs.max()),
-            "tf_hit": hit,
+            "tf_hit": hit, "step0_pack_vs_solo": step0,
             "profile": profile}
 
 
@@ -1468,9 +1773,14 @@ def phase_ssm(smi: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read_counts()
-    others = {k: n for k, n in counts.items() if n and not k.startswith("selective_scan")}
-    if counts["selective_scan"] != SSM_LAYERS * c["prefill_batches"] or others:
-        raise AssertionError(f"[ssm] launches {counts} for {c['prefill_batches']} dispatches")
+    forwards = c["prefill_batches"] + c["decode_ticks"]
+    others = {k: n for k, n in counts.items()
+              if n and not k.startswith(("selective_scan", "rmsnorm"))}
+    if (counts["selective_scan"] != SSM_LAYERS * c["prefill_batches"]
+            or counts.get("selective_scan:states", 0) != counts["selective_scan"]
+            or counts["rmsnorm"] != (SSM_LAYERS + 1) * forwards or others):
+        raise AssertionError(f"[ssm] launches {counts} for {c['prefill_batches']} dispatches "
+                             f"and {c['decode_ticks']} ticks")
     for r in reqs:
         if r.status != "completed" or len(r.generated) != SSM_NEW_TOKENS:
             raise AssertionError(f"[ssm] request {r.uid}: {r.status}, "
@@ -1482,7 +1792,8 @@ def phase_ssm(smi: str) -> dict:
           f"tokens in {wall:.2f} s = {tokens / wall:.1f} tok/s; latency p50 "
           f"{lat['p50']:.1f} ms, p99 {lat['p99']:.1f} ms; {c['prefill_batches']} grouped "
           f"prefill dispatches, {c['decode_ticks']} ticks; launches {counts} (gate: "
-          f"{SSM_LAYERS} per dispatch, 0 per tick, checked at every step)", flush=True)
+          f"{SSM_LAYERS} scans per dispatch, 0 per tick, checked at every step; "
+          f"{SSM_LAYERS + 1} RMSNorms per forward)", flush=True)
 
     rel, agree = _ssm_teacher_forced(params, cfg, reqs)
     print(f"[ssm] teacher-forced logits vs forward, {len(reqs)} requests x "
@@ -1623,8 +1934,11 @@ def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) 
     falcon-mamba serving run."""
     runs = [r["counts"] for r in lm["runs"].values()]
     name = row["name"]
-    if name == "selective_scan":
+    if name.startswith("selective_scan"):
         return ssm["counts"]["selective_scan"]
+    if name == "rmsnorm":
+        return (vision["rmsnorm"] + sum(c["rmsnorm"] for c in runs)
+                + ssm["counts"]["rmsnorm"])
     if name == "grouped_matmul_f32":
         return vision_calib["grouped_matmul"] + lm["calib_counts"]["grouped_matmul:f32"]
     if name == "grouped_matmul":
@@ -1653,14 +1967,15 @@ def main() -> None:
         row["launches"] = _launches(row, counts, calib_counts, lm, ssm)
     for name in ("int8_matmul", "grouped_matmul", "grouped_matmul_w4a8",
                  "lm_attention[packed_prefill]", "lm_attention[decode_int8]",
-                 "selective_scan"):
+                 "selective_scan", "rmsnorm"):
         row = next(r for r in rows if r["name"] == name)
         if row["launches"] == 0:
             raise AssertionError(f"{name} was not launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} | {"shape": row["shape"]}
-                      | {k: row[k] for k in ("variant", "schedule") if k in row}
+                      | {k: row[k] for k in ("variant", "schedule", "bf16_max_abs_err")
+                         if k in row}
                       for row in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -27,6 +27,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I, _F, _SZ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
+_LL = ctypes.c_longlong
 # entry point -> (restype, argtypes); every pointer and the stream are c_void_p
 _SIGNATURES = {
     "int8_matmul_launch": (_I, [_P] * 6 + [_I] * 3 + [_P]),
@@ -34,12 +35,13 @@ _SIGNATURES = {
     "int8_matmul_stream_launch": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "grouped_matmul_i8_launch": (_I, [_P, _P, _I] + [_P] * 4 + [_I] * 5 + [_P]),
     "grouped_matmul_f32_launch": (_I, [_P] * 4 + [_I] * 4 + [_P]),
-    "quant_attention_launch": (_I, [_P] * 4 + [_I] * 7 + [_F, _P]),
-    "quant_attention_smem_bytes": (_SZ, [_I, _I]),
+    "quant_attention_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),
     "lm_attention_launch": (_I, [_P] * 3 + [_I] + [_P] * 7 + [_I] * 11 + [_F] * 2
                             + [_I, _P]),
     "lm_attention_smem_bytes": (_SZ, [_I] * 6),
-    "selective_scan_launch": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "selective_scan_launch": (_I, [_P] * 8 + [_I] * 7 + [_P]),
+    "selective_scan_lane_launch": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "rmsnorm_launch": (_I, [_P] * 3 + [_I] * 2 + [_LL] + [_I] * 2 + [_F, _P]),
 }
 
 

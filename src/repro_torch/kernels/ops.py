@@ -16,6 +16,7 @@ from repro_torch.core.quant.qtypes import quantize_sym
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.expert_linear import grouped_matmul as _gmm_kernel
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_kernel
+from repro_torch.kernels.norm import rmsnorm as _rmsnorm_kernel
 from repro_torch.kernels.quant_attention import (
     fits_in_shared_memory,
     lm_attention,
@@ -130,6 +131,14 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale: torch.Te
     if x_q.is_cuda:
         return _int8_kernel(x_q, w_q, x_scale, w_scale, bias)
     return _ref.int8_matmul_ref(x_q, w_q, x_scale, w_scale, bias)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim, (1 + gamma) scale; on the card one launch
+    whose row sums do not depend on the number of rows."""
+    if x.is_cuda:
+        return _rmsnorm_kernel(x, gamma, eps)
+    return _ref.rmsnorm_ref(x, gamma, eps)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,

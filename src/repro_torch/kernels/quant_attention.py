@@ -5,8 +5,10 @@ Two CUDA kernels replace the Pallas kernel
 ``repro/kernels/quant_attention.py:streaming_attention``:
 
   * ``streaming_attention`` (``csrc/quant_attention.cu``): the non-causal,
-    cache-free ``quant_bits > 0`` case the vision models run, with one
-    head's K and V held in shared memory;
+    cache-free ``quant_bits > 0`` case the vision models run: 32 query rows
+    a block, K and then V streamed in 64-key chunks, scores and P.V formed
+    from 4 x 4 register micro-tiles, the tile's scores kept in shared
+    memory (``vision_layout``);
   * ``lm_attention`` (``csrc/lm_attention.cu``): every mode of the LM path,
     causal and window masks on absolute positions, per-row ``q_offset`` and
     ``kv_valid_len`` (a [B] tensor, or a Python int passed as a scalar),
@@ -16,8 +18,10 @@ Two CUDA kernels replace the Pallas kernel
     block a KV head and all its <= 4 query rows; K and V read once, the
     scores held in shared memory) and ``tile`` (16 query rows a block, K/V
     tiles double-buffered, dead tiles skipped by position and by segment).
-    Both form q.k with the same split-precision tf32 tensor-core products,
-    so they give the same scores and codes bit for bit.
+    Both form q.k with the same exact split-precision tensor-core products
+    (q in three bf16 pieces against int8 and bf16 K, three tf32 pieces of
+    q and two of k against f32 K), so they give the same scores and codes
+    bit for bit.
 
 Their plain version is ``ref.flash_attention_ref``, which ``kernels/ops.py``
 takes for CPU tensors.
@@ -32,7 +36,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_SMEM = 232_448  # dynamic shared memory one H100 block may use
-MAX_HEAD_DIM = 128  # lm_attention's widest head
+MAX_HEAD_DIM = 128  # the widest head of lm_attention and of the vision tile kernel
 # lm_attention's schedules: 0 decode (K/V streamed once, scores kept in
 # shared memory), 1 tile (16 query rows a block)
 SCHEDULES = {0: "decode", 1: "tile"}
@@ -42,10 +46,35 @@ DECODE_SCORE_BYTES = 64 * 1024  # the decode block's f32 scores, rows x Sk
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+VISION_ROWS = 32  # query rows of a tile block: 8 row lanes x 4
+VISION_KEYS = 64  # keys of a staged K or V chunk: 16 key lanes x 4
+VISION_HEAD_DIMS = (16, 32, 64, 128)  # hd is zero-padded to the first >= hd
+
+
+def vision_layout(Sk: int, hd: int) -> tuple[int, int, int]:
+    """The vision kernel's shared memory for Sk keys of head dim hd <=
+    ``MAX_HEAD_DIM``: (padded head dim, the score tile's row in floats,
+    bytes). A q tile of ``VISION_ROWS`` rows of hdp + 4 floats; the score
+    tile, its rows Sk rounded up to 16 floats, 16 more where that is a
+    multiple of 32 (the two row lanes of a warp then write 32 distinct
+    banks); two ``VISION_KEYS``-key chunk slots of hdp + 4 floats a row."""
+    hdp = next(p for p in VISION_HEAD_DIMS if p >= hd)
+    ps_ld = -(-Sk // 16) * 16
+    ps_ld += 16 if ps_ld % 32 == 0 else 0
+    floats = VISION_ROWS * (hdp + 4) + VISION_ROWS * ps_ld + 2 * VISION_KEYS * (hdp + 4)
+    return hdp, ps_ld, 4 * floats
+
+
+def fits_in_shared_memory(Sk: int, hd: int) -> bool:
+    """Whether ``streaming_attention`` takes Sk keys of head dim hd."""
+    return 0 < hd <= MAX_HEAD_DIM and Sk > 0 and vision_layout(Sk, hd)[2] <= MAX_SMEM
+
+
 def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, quant_bits: int) -> torch.Tensor:
     """q [B, Sq, H, hd], k/v [B, Sk, KVH, hd] f32 -> [B, Sq, H, hd] f32,
-    non-causal, ``quant_bits`` in 1..8. CUDA tensors only."""
+    non-causal, ``quant_bits`` in 1..8. CUDA tensors only; Sk and hd as
+    ``fits_in_shared_memory`` admits."""
     _build.require_cuda("streaming_attention", q, k, v)
     if not 0 < quant_bits <= 8:
         raise NotImplementedError(
@@ -58,30 +87,23 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, Sk, KVH, hd) or v.shape != k.shape or H % KVH:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    lib = _build.library()
-    smem = lib.quant_attention_smem_bytes(Sk, hd)
-    if smem > MAX_SMEM:
+    if not fits_in_shared_memory(Sk, hd):
         raise NotImplementedError(
-            f"Sk={Sk}, hd={hd}: K and V of one head must fit in shared memory "
-            f"({smem} > {MAX_SMEM} bytes); longer sequences need the "
-            "streaming kernel of the LM path")
+            f"Sk={Sk}, hd={hd}: the tile block's shared memory exceeds {MAX_SMEM} "
+            f"bytes or hd > {MAX_HEAD_DIM}; longer sequences take lm_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    hdp, ps_ld, _ = vision_layout(Sk, hd)
     with torch.cuda.device(q.device):
-        err = lib.quant_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, KVH, hd, quant_bits, 1.0 / math.sqrt(hd), _build.stream(q))
+        err = _build.library().quant_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KVH, hd,
+            hdp, ps_ld, quant_bits, math.sqrt(hd), _build.stream(q))
     _build.check(err, "streaming_attention")
     streaming_attention.launches += 1
     return out
 
 
 streaming_attention.launches = 0
-
-
-def fits_in_shared_memory(Sk: int, hd: int) -> bool:
-    """Whether ``streaming_attention`` can hold one head's K and V."""
-    return _build.library().quant_attention_smem_bytes(Sk, hd) <= MAX_SMEM
 
 
 def choose_schedule(Sq: int, Sk: int, H: int, KVH: int, hd: int,

@@ -145,6 +145,16 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale,
     return y
 
 
+def rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim, gemma-style (1 + gamma), the sum in f32,
+    y in x's dtype (``repro.models.layers.rmsnorm``)."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + gamma)).to(dt)
+
+
 def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor, a: torch.Tensor, d: torch.Tensor):
     """Mamba-1 selective scan over x, dt [B, S, di] (dt after softplus),

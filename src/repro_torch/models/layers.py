@@ -32,11 +32,7 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    y = x * torch.rsqrt(var + eps)
-    return (y * (1.0 + gamma)).to(dt)  # gemma-style (1+g); init gamma=0
+    return ops.rmsnorm(x, gamma, eps)  # gemma-style (1+g); init gamma=0
 
 
 def apply_norm(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:

@@ -446,3 +446,89 @@ def test_tile_fragment_reads_hit_32_banks(hd, es):
                   for n in range(hdp // 8) for dk in (0, 4))
     assert worst_v == 1
     assert k_row % 16 == 0 and v_row % 16 == 0  # 16-byte cp.async destinations
+
+
+# ---------------------------------------------------------------------------
+# the vision kernel's tile variant (csrc/quant_attention.cu)
+# ---------------------------------------------------------------------------
+
+# a block is TILE_TY x TILE_TX = 8 row lanes x 16 key / head-dim lanes
+VISION_TY, VISION_TX = 8, 16
+
+
+@pytest.mark.parametrize("Sq,Sk", [(197, 197), (1, 1), (33, 77), (50, 50), (64, 1024),
+                                   (20, 1440), (100, 65), (31, 16), (40, 17), (8, 257),
+                                   (288, 70), (300, 197), (520, 64)])
+def test_vision_tiles_score_every_pair_once(Sq, Sk):
+    """The vision kernel's work split: blocks of VISION_ROWS query rows;
+    thread (ty, tx) scores rows ty + 8 i (i < 4) against keys tx + 16 j of
+    each VISION_KEYS-key chunk, j below the chunk's live 16-key groups.
+    Every pair of a live row and a live key is scored exactly once; the
+    score tile's row holds every key written, and pass 2 (each thread over
+    the keys it wrote, tx + 16 m) reaches every key P.V reads (up to Sk
+    rounded to 4; past Sk weight 0)."""
+    from repro_torch.kernels.quant_attention import VISION_KEYS, VISION_ROWS, vision_layout
+
+    assert VISION_ROWS == 4 * VISION_TY and VISION_KEYS == 4 * VISION_TX
+    count = np.zeros((Sq, Sk), int)
+    written = set()
+    rows = np.arange(VISION_TY)[:, None]
+    keys = np.arange(VISION_TX)[None, :]
+    for blk in range(-(-Sq // VISION_ROWS)):
+        for chunk in range(-(-Sk // VISION_KEYS)):
+            live = min(VISION_KEYS, Sk - chunk * VISION_KEYS)
+            for i in range(4):
+                for j in range(-(-live // 16)):
+                    r, k = np.broadcast_arrays(blk * VISION_ROWS + rows + 8 * i,
+                                               chunk * VISION_KEYS + keys + 16 * j)
+                    written.update(k.ravel().tolist())
+                    ok = (r < Sq) & (k < Sk)
+                    np.add.at(count, (r[ok], k[ok]), 1)
+    assert (count == 1).all()
+    _, ps_ld, _ = vision_layout(Sk, 64)
+    read = set(range(-(-Sk // 4) * 4))  # P.V's keys: 16-byte reads of the weights
+    assert read <= written and max(written) < ps_ld and ps_ld % 4 == 0
+    assert ps_ld % 32 == 16  # the two row lanes of a warp: 32 distinct banks
+
+
+@pytest.mark.parametrize("hdp", [16, 32, 64, 128])
+def test_vision_pv_dims_cover_the_head_once_and_hit_32_banks(hdp):
+    """P.V: lane tx of a row holds head dims 64 q + 4 tx + e (hdp >= 64,
+    16-byte loads) or (hdp / 16) tx + e; the 16 lanes cover each padded
+    dim once. The 16-byte K loads of pass 1 (rows tx + 16 j of hdp + 4
+    floats) and V loads of pass 3 hit 32 distinct banks in every phase of
+    eight lanes."""
+    dpt = hdp // VISION_TX
+    dims = [64 * (e // 4) + 4 * tx + e % 4 if dpt >= 4 else dpt * tx + e
+            for tx in range(VISION_TX) for e in range(dpt)]
+    assert sorted(dims) == list(range(hdp))
+    ld = hdp + 4
+    for phase in range(0, VISION_TX, 8):
+        for j in range(4):
+            k_banks = [((phase + t + 16 * j) * ld + w) % 32 for t in range(8) for w in range(4)]
+            assert len(set(k_banks)) == 32
+        if dpt >= 4:
+            v_banks = [(ld + 4 * (phase + t) + w) % 32 for t in range(8) for w in range(4)]
+            assert len(set(v_banks)) == 32
+
+
+def test_vision_layout_fits_wherever_it_is_admitted():
+    """fits_in_shared_memory admits exactly the (Sk, hd) whose tile block
+    fits a block's shared memory, hd up to 128; at M3ViT-S ([197 keys, hd
+    64]) three blocks share an SM (228 KB, 1 KB reserved a block)."""
+    from repro_torch.kernels.quant_attention import (
+        MAX_HEAD_DIM,
+        MAX_SMEM,
+        fits_in_shared_memory,
+        vision_layout,
+    )
+
+    for hd in range(1, MAX_HEAD_DIM + 1):
+        hdp, ps_ld, _ = vision_layout(1, hd)
+        assert hd <= hdp and hdp % 16 == 0
+        sizes = [vision_layout(Sk, hd)[2] for Sk in range(1, 2000)]
+        admitted = [fits_in_shared_memory(Sk, hd) for Sk in range(1, 2000)]
+        assert admitted == [b <= MAX_SMEM for b in sizes]
+        assert admitted[196] and not admitted[-1]
+    assert not fits_in_shared_memory(197, MAX_HEAD_DIM + 1)
+    assert 3 * (vision_layout(197, 64)[2] + 1024) <= 228 * 1024

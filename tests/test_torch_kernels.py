@@ -33,7 +33,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.expert_linear import grouped_matmul, route_metadata
 from repro_torch.kernels import int8_matmul as i8
 from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.norm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.quant_attention import lm_attention, streaming_attention
+from repro_torch.kernels.selective_scan import selective_scan as scan_kernel
 
 
 def _i8(rng, *shape):
@@ -204,8 +206,15 @@ def test_causal_attention_on_cpu_matches_reference(qb):
     lambda: lm_attention(torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 2, 8), dtype=torch.int8),
                          torch.zeros((1, 4, 2, 8), dtype=torch.int8), quant_bits=4,
                          k_scale=torch.ones((1, 4, 2)), v_scale=torch.ones((1, 4, 2))),
+    lambda: scan_kernel(*[torch.zeros(s) for s in ((1, 4, 8), (1, 4, 8), (1, 4, 16),
+                                                   (1, 4, 16))],
+                        torch.zeros((8, 16)), torch.zeros(8), layout=(4, 4)),
+    lambda: rmsnorm_kernel(torch.zeros((3, 8)), torch.zeros(8)),
+    lambda: scan_kernel(*[torch.zeros(s, dtype=torch.bfloat16) for s in
+                          ((1, 4, 8), (1, 4, 8), (1, 4, 12), (1, 4, 12))],
+                        torch.zeros((8, 12)), torch.zeros(8)),
 ], ids=["int8_matmul", "grouped_matmul", "grouped_matmul_w4a8", "streaming_attention",
-        "lm_attention"])
+        "lm_attention", "selective_scan_layout", "rmsnorm", "selective_scan_bf16"])
 def test_kernel_wrappers_launch_only_on_cuda_tensors(call):
     """A kernel wrapper never falls back to its plain version: given CPU
     tensors it refuses (ops routes CPU tensors to the plain versions)."""
@@ -214,7 +223,8 @@ def test_kernel_wrappers_launch_only_on_cuda_tensors(call):
 
 
 def test_cpu_tensors_never_reach_a_kernel():
-    kernels = (int8_matmul, grouped_matmul, streaming_attention, lm_attention)
+    kernels = (int8_matmul, grouped_matmul, streaming_attention, lm_attention,
+               rmsnorm_kernel, scan_kernel)
     counts = [f.launches for f in kernels]
     x = torch.zeros((1, 4, 2, 8))
     x8, s = torch.zeros((1, 4, 2, 8), dtype=torch.int8), torch.ones((1, 4, 2))
@@ -230,6 +240,9 @@ def test_cpu_tensors_never_reach_a_kernel():
     ops.grouped_matmul(torch.zeros((2, 4)), torch.zeros((1, 2, 3), dtype=torch.uint8),
                        torch.tensor([2], dtype=torch.int32), w_scale=torch.ones((1, 3)),
                        a_scale=torch.tensor(0.1))
+    ops.rmsnorm(torch.zeros((2, 8)), torch.zeros(8))
+    ops.selective_scan(*[torch.zeros(s) for s in ((1, 3, 4), (1, 3, 4), (1, 3, 12), (1, 3, 12),
+                                                  (4, 12), (4,))])
     assert counts == [f.launches for f in kernels]
 
 
@@ -239,15 +252,20 @@ def test_cpu_tensors_never_reach_a_kernel():
     ("int8_matmul.cu", "mma"), ("int8_matmul.cu", "stream"), ("int8_matmul.cu", "dp4a"),
     ("grouped_matmul.cu", "mma"), ("grouped_matmul.cu", "stream"),
     ("grouped_matmul.cu", "dp4a"), ("lm_attention.cu", "decode"),
-    ("lm_attention.cu", "tile"),
+    ("lm_attention.cu", "tile"), ("selective_scan.cu", ""), ("selective_scan.cu", "states"),
+    ("selective_scan.cu", "lane"), ("quant_attention.cu", "tile"),
+    ("quant_attention.cu", "shared memory"), ("rmsnorm.cu", ""), ("rmsnorm.cu", "registers"),
 ])
 def test_kernel_sources_carry_their_notes(source, mode):
-    """Each CUDA source names the TPU kernel it replaces, what bounds it on
-    the H100 and what its design does about that (for each mode it runs)."""
+    """Each CUDA source names the TPU kernel it replaces (RMSNorm: the
+    reference's plain XLA function), what bounds it on the H100 and what its
+    design does about that (for each mode it runs)."""
     import repro_torch.kernels as K
 
     text = (Path(K.__file__).parent / "csrc" / source).read_text()
-    assert "Replaces: src/repro/kernels/" in text
+    replaced = ("src/repro/models/layers.py:21" if source == "rmsnorm.cu"
+                else "src/repro/kernels/")
+    assert f"Replaces: {replaced}" in text
     assert "Bound on the H100" in text and "Design:" in text
     assert text.count(mode) >= 3  # named in the summary, the bound and the design
 

@@ -44,6 +44,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.core.quant.calibrate import TapCollector
 from repro_torch.core.quant.ptq import calibrate_model, ptq_model
 from repro_torch.kernels import ops
+from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels.ref import selective_scan_ref
 from repro_torch.kernels.selective_scan import selective_scan as scan_kernel
 from repro_torch.models import init_model_params, module_for, ssm_lm, synth_batch
@@ -103,24 +104,155 @@ def _scan_inputs(rng, B, S, di, N):
 # (a, b) the selective scan
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("B,S,di,N,bs,bd", [
-    (2, 64, 32, 8, 16, 16),
-    (1, 100, 64, 16, 32, 32),  # ragged S (the Pallas kernel pads it)
-    (2, 17, 16, 4, 8, 16),
+@pytest.mark.parametrize("B,S,di,N,bs,bd,dtype", [
+    (2, 64, 32, 8, 16, 16, "float32"),
+    (1, 100, 64, 16, 32, 32, "float32"),  # ragged S (the Pallas kernel pads it)
+    (2, 17, 16, 4, 8, 16, "float32"),
+    (2, 40, 32, 12, 16, 16, "float32"),  # a state size off the powers of two
+    (1, 24, 16, 32, 8, 16, "float32"),
+    (2, 33, 32, 16, 16, 16, "bfloat16"),  # bf16 x, dt, B, C; y in bf16
+    (1, 20, 16, 12, 8, 16, "bfloat16"),
 ])
-def test_scan_matches_pallas_kernel_and_reference_ops(monkeypatch, B, S, di, N, bs, bd):
+def test_scan_matches_pallas_kernel_and_reference_ops(monkeypatch, B, S, di, N, bs, bd,
+                                                      dtype):
+    """f32: y and h_last within SCAN_TOL of both reference forms. bf16
+    operands: against the Pallas kernel, which widens them to f32 first as
+    the port does (the reference's associative-scan ops form rounds dt x to
+    bf16 before widening, ``repro/kernels/ref.py:199``, and so computes
+    another function); h_last (f32) within SCAN_TOL, y each side's f32 y
+    rounded once to bf16, so within one bf16 step (rtol 2^-7)."""
     rng = np.random.default_rng(S)
     args = _scan_inputs(rng, B, S, di, N)
-    y, h = ops.selective_scan(*map(torch.from_numpy, args))
+    wide = [torch.from_numpy(a) for a in args]
+    targs = [t.to(getattr(torch, dtype)) if i < 4 else t for i, t in enumerate(wide)]
+    y, h = ops.selective_scan(*targs)
     assert y.shape == (B, S, di) and h.shape == (B, di, N)
-    assert y.dtype == h.dtype == torch.float32
-    jargs = [jnp.asarray(a) for a in args]
+    assert y.dtype == targs[0].dtype and h.dtype == torch.float32
+    jargs = [jnp.asarray(t.float().numpy()).astype(dtype) if i < 4 else jnp.asarray(a)
+             for i, (t, a) in enumerate(zip(targs, args))]
     ky, kh = jax_scan_kernel(*jargs, block_s=bs, block_d=bd, interpret=True)
     monkeypatch.setenv("REPRO_PALLAS", "ref")
     ry, rh = jax_ops.selective_scan(*jargs)
-    for want_y, want_h in ((ky, kh), (ry, rh)):
-        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **SCAN_TOL)
+    y_tol = SCAN_TOL if dtype == "float32" else dict(atol=1e-5, rtol=2.0**-7)
+    for want_y, want_h in ((ky, kh), (ry, rh))[:2 if dtype == "float32" else 1]:
+        assert want_y.dtype == dtype
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(want_y, np.float32), **y_tol)
         np.testing.assert_allclose(h.numpy(), np.asarray(want_h), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("di", [256, 8192])
+@pytest.mark.parametrize("N", [1, 4, 8, 12, 16, 32, 64, 200])
+def test_scan_layout_fills_the_card_and_covers_every_state_once(B, di, N):
+    """The states variant's grid (csrc/selective_scan.cu): blocks of
+    SCAN_THREADS threads over (128 / lanes channels, batch row), thread t
+    holding channel t // lanes, states (t % lanes) spt + k. Every (b, d, n)
+    with d < di and n < N is held by exactly one thread (the padded states
+    by threads of live channels only), lanes a channel are a power of two
+    within one warp, and the layout is, of those that give a busy SM at
+    least LATENCY_WARPS_PER_STATE x states-a-thread warps, the one with
+    the least wave-quantized work an SM (ties: the widest), or the one with
+    the most threads when none qualifies."""
+    spt, lanes = ss.scan_layout(B, di, N)
+    assert spt in ss.STATES_PER_THREAD and lanes & (lanes - 1) == 0
+    assert lanes <= ss.MAX_LANES
+    ch = ss.SCAN_THREADS // lanes
+    t = np.arange(ss.SCAN_THREADS)
+    blocks = -(-di // ch)
+    d = (np.arange(blocks)[:, None] * ch + t[None, :] // lanes).reshape(-1)
+    n = ((t % lanes)[:, None] * spt + np.arange(spt)[None, :])  # [threads, spt]
+    d_all = np.repeat(d, spt)
+    n_all = np.tile(n.reshape(-1), blocks)
+    live = (d_all < di) & (n_all < N)
+    flat = d_all[live] * N + n_all[live]
+    counts = np.bincount(flat, minlength=di * N)
+    assert counts.min() == counts.max() == 1  # one batch row; every row alike
+    padded = spt * lanes
+    assert padded == max(4, 1 << (N - 1).bit_length())
+    options = {s: padded // s for s in ss.STATES_PER_THREAD
+               if s <= padded and padded // s <= ss.MAX_LANES}
+
+    def per_sm(s):  # blocks of SCAN_THREADS an SM takes, in whole waves
+        return -(-B * -(-di // (ss.SCAN_THREADS // options[s])) // ss.H100_SMS)
+
+    ok = [s for s in options
+          if per_sm(s) * ss.SCAN_THREADS / 32 >= ss.LATENCY_WARPS_PER_STATE * s]
+    if ok:
+        least = min(per_sm(s) * s for s in ok)
+        assert spt == max(s for s in ok if per_sm(s) * s == least)
+    else:  # none hides the latency: the most threads
+        assert lanes == max(options.values())
+
+
+@pytest.mark.parametrize("N", [1, 4, 5, 8, 16, 17, 32, 64, 128, 200, 256, 512])
+def test_scan_layouts_cover_the_padded_state_exactly(N):
+    """scan_layouts(N) lists every (states a thread, lanes a channel) of the
+    states variant whose product is N padded to a power of two >= 4, lanes
+    within one warp, widest states a thread first; scan_layout picks one
+    of them at every B and d_inner."""
+    padded = max(4, 1 << (N - 1).bit_length())
+    layouts = ss.scan_layouts(N)
+    assert layouts and all(s * n == padded and n <= ss.MAX_LANES for s, n in layouts)
+    assert [s for s, _ in layouts] == sorted((s for s, _ in layouts), reverse=True)
+    assert {s for s, _ in layouts} == {s for s in ss.STATES_PER_THREAD
+                                      if s <= padded and padded // s <= ss.MAX_LANES}
+    for B in range(1, 9):
+        for di in (256, 8192):
+            assert ss.scan_layout(B, di, N) in layouts
+
+
+def test_scan_layout_at_the_falcon_mamba_prefill_groups():
+    """At d_inner 8192, state 16 a grouped admission of 1-8 prompts takes
+    each of the three layouts: 4 states a thread for one prompt, 8 for B
+    2-5 and 7, 16 for B 6 and 8, the fastest of the three at every B in
+    chip_smoke.py's layout sweep (which checks each at B 1, 4 and 8)."""
+    picks = {B: ss.scan_layout(B, 8192, 16) for B in range(1, 9)}
+    assert picks[1] == (4, 4)
+    assert {picks[B] for B in (2, 3, 4, 5, 7)} == {(8, 2)}
+    assert {picks[B] for B in (6, 8)} == {(16, 1)}
+    assert ss.scan_layout(8, 8192, 32) == (16, 2)  # chip_smoke.py's SCAN_WIDE
+
+
+def test_scan_wrapper_refuses_a_layout_that_does_not_cover_the_state():
+    """A forced layout must be one of scan_layouts(N), on the states
+    variant; the check comes before the device check."""
+    def args(N, di=8, S=4):
+        return [torch.zeros((1, S, di)), torch.zeros((1, S, di)), torch.zeros((1, S, N)),
+                torch.zeros((1, S, N)), torch.zeros((di, N)), torch.zeros(di)]
+
+    for N, layout in ((16, (4, 2)), (16, (3, 5)), (4, (8, 1)), (512, (8, 64))):
+        with pytest.raises(ValueError, match="layout"):
+            scan_kernel(*args(N), layout=layout)
+    with pytest.raises(ValueError, match="layout"):
+        scan_kernel(*args(16), variant=2, layout=(16, 1))
+    for layout in ss.scan_layouts(16):
+        with pytest.raises(ValueError, match="CUDA"):
+            scan_kernel(*args(16), layout=layout)
+    assert scan_kernel.launches == 0
+
+
+def test_scan_wrapper_takes_any_state_size_and_bf16():
+    """The wrapper's contract checks pass every N up to MAX_STATE and bf16
+    operands, and stop only at the device (CPU tensors never reach a
+    kernel); mixed operand types and N past MAX_STATE are refused first."""
+    def args(N, dtype, di=8, S=4):
+        xs = [torch.zeros((1, S, di), dtype=dtype), torch.zeros((1, S, di), dtype=dtype),
+              torch.zeros((1, S, N), dtype=dtype), torch.zeros((1, S, N), dtype=dtype)]
+        return xs + [torch.zeros((di, N)), torch.zeros(di)]
+
+    for N, dtype in ((3, torch.float32), (12, torch.bfloat16), (64, torch.float32),
+                     (ss.MAX_STATE, torch.bfloat16)):
+        with pytest.raises(ValueError, match="CUDA"):
+            scan_kernel(*args(N, dtype))
+    with pytest.raises(ValueError, match="state size"):
+        scan_kernel(*args(ss.MAX_STATE + 1, torch.float32))
+    mixed = args(16, torch.float32)
+    mixed[2] = mixed[2].bfloat16()
+    with pytest.raises(TypeError):
+        scan_kernel(*mixed)
+    with pytest.raises(ValueError, match="lane variant"):
+        scan_kernel(*args(12, torch.float32), variant=2)
+    assert scan_kernel.launches == 0
 
 
 def test_scan_padded_with_zero_dt_steps_keeps_h_last_exactly():
