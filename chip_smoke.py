@@ -45,39 +45,54 @@ caught:
                  among more), timed beside ``F.rms_norm``;
   4. serving  -- full-width M3ViT-S (``configs/moe_vit.py:CONFIG``): seeded fp
                  init on the card, calibration on 2 batches of 2, PTQ to the
-                 int8 tree, ``VisionEngine(buckets=(1, 4, 8))`` serving 24
-                 requests; every kernel's launch count must grow by exactly
-                 its per-forward count times the dispatched batches, and
-                 every int8_matmul and integer grouped_matmul call go
-                 through variant 1 or 2;
+                 int8 tree, ``VisionEngine(buckets=(1, 4, 8))``, its three
+                 programs captured as CUDA graphs by ``warmup()`` (capture
+                 time and graph pool printed; each graph's kernel nodes by
+                 family equal to the launches its capture counted and to one
+                 forward's), serving 24 requests; every kernel's launch
+                 count must grow by exactly its per-forward count times the
+                 dispatched batches (replays add what their capture
+                 counted), every int8_matmul and integer grouped_matmul call
+                 go through variant 1 or 2, ``retraces`` stays 0, and the
+                 same 24 requests in batches of 8 give the
+                 ``aot_warmup=False`` engine's classes and probabilities bit
+                 for bit;
   5. e2e      -- one batch of 4 through ``forward`` on the card and on a CPU
                  copy of the same tree (plain versions): free-running logits
                  printed, then every block and the head teacher-forced from
                  the card's input and gated;
-  6. profile  -- one int8 forward at B=8: wall and enqueue time, device time
-                 of every kernel launched (torch.profiler); exactly one
-                 device kernel per int8_matmul, grouped_matmul and attention
-                 call (here and in phase 7's profiles);
+  6. profile  -- one int8 forward at B=8, then one dispatch of 8 images
+                 through the eager engine's program and the graph engine's:
+                 wall and enqueue time, device time of every kernel launched
+                 (torch.profiler, which sees the kernels of a replayed
+                 graph), busy share; exactly one device kernel per
+                 int8_matmul, grouped_matmul and attention call (here and in
+                 phases 7 and 8);
   7. lm       -- full-width OLMoE-1B-7B (``configs/olmoe_1b_7b.py``): seeded
                  fp init on the card, calibration on 2 batches of 2 x 32
                  tokens, PTQ to the int8 tree and to the W4A8 tree (the fp
                  tree is then freed); each tree is served by
-                 ``ServeEngine(batch_slots=8, max_len=512)``, 16 seeded
-                 requests of 16-256 prompt tokens and 32 new tokens. Gates:
-                 launches grow by exactly 81 / 32 / 16 (int8_matmul / grouped
-                 / lm_attention) per packed admission and per decode tick,
-                 every int8_matmul and grouped_matmul call on variant 1 (mma)
-                 or 2 (stream);
-                 every request completes; teacher-forced, the engine's logits
-                 of every request at 9 of its 32 steps match ``prefill`` over
-                 the same prefix within the stated limits; the same requests
-                 served again give bit-equal tokens and logits; the expert
-                 combine of 8 tokens equals theirs among 512, and so does
-                 the RMSNorm of 8 rows. Printed, not gated: the worst request
-                 served alone and, where its step-0 logits differ from the
-                 packed run's, the first op whose rows differ between a pack
-                 and a solo prefill. Then one decode tick and one 512-token
-                 packed prefill are profiled;
+                 ``ServeEngine(batch_slots=8, max_len=512)``, its decode
+                 tick and 20 packed admissions (5 buckets x 4 prompt counts)
+                 captured as CUDA graphs by ``warmup()`` (gated as in phase
+                 4), 16 seeded requests of 16-256 prompt tokens and 32 new
+                 tokens. Gates: launches grow by exactly 81 / 32 / 16 / 65
+                 (int8_matmul / grouped / lm_attention / rmsnorm) per packed
+                 admission and per decode tick, every int8_matmul and
+                 grouped_matmul call on variant 1 (mma) or 2 (stream),
+                 ``retraces`` 0; every request completes; every request's
+                 step-0 logits bit-equal to ``prefill`` of its prompt alone;
+                 teacher-forced, the engine's logits of every request at 9
+                 of its 32 steps match ``prefill`` over the same prefix
+                 within ``LM_TF_LIMITS``; ``_first_pack_dependence`` finds
+                 no op whose rows differ between a pack and a prefill alone;
+                 the same requests served again, and served by the
+                 ``aot_warmup=False`` engine, give bit-equal tokens and
+                 logits; the expert combine of 8 tokens equals theirs among
+                 512, and so does the RMSNorm of 8 rows. Printed: the worst
+                 request served alone. Then one decode tick and one
+                 512-token packed admission are profiled, eager and as graph
+                 replays;
   8. ssm      -- the OLMoE trees and engines freed (at most 1 GB of the
                  earlier phases may stay allocated), full-width falcon-mamba-7b
                  (``configs/falcon_mamba_7b.py``, seeded f32 init on the card,
@@ -90,10 +105,13 @@ caught:
                  kernel is launched, every
                  request completes, and the engine's logits at every step of
                  every request match ``forward`` over the same prefix within
-                 ``SSM_TF_LIMIT``, and the first wave served again with TF32
-                 matmuls or with a bf16 conv history fails that gate. One
-                 decode tick and one grouped prefill of 8 x 256 tokens are
-                 profiled.
+                 ``SSM_TF_LIMIT``, the ``aot_warmup=False`` engine serves
+                 bit-equal tokens and logits, and the first wave served
+                 again with TF32 matmuls or with a bf16 conv history fails
+                 that gate. The decode tick is a captured graph (its
+                 per-length prefill stays eager; ``retraces`` 0). One decode
+                 tick, eager and as a graph replay, and one grouped prefill
+                 of 8 x 256 tokens are profiled.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before that
@@ -162,12 +180,14 @@ PROFILE_ATTEMPTS = 5  # traces of one profile, at most, while one is incomplete
 # teacher-forced gate, per tree: every request at these steps (the first
 # token from the packed prefill, then decode ticks); limits on the median
 # and p90 of the per-step max |logit| error against prefill and on the
-# number of steps (of 144) whose greedy token differs. The int8 tree read
-# median 0.054, p90 0.144 and 5 such steps on an H100, with |logit| up to
-# 4.6; the limits sit about 3x above. A fault (wrong slot, row, position
-# or scale) moves nearly every step by the size of the logits.
+# number of steps (of 144) whose greedy token differs. Exact: with
+# lm_attention's segment-keyed plan a prompt's rows in a pack get the bits
+# of a prefill of it alone, and a decode tick's the bits of a prefill's
+# last row (both trees read 0 at every step and 144 of 144 tokens on an
+# H100). Before the plan the int8 tree read median 0.065, p90 0.166 and 8
+# disagreeing steps, gated at 0.15 / 0.4 / 14.
 LM_TF_STEPS = (0, 1, 2, 3, 5, 8, 13, 21, 31)
-LM_TF_LIMITS = {"int8": (0.15, 0.4, 14), "int4": (0.15, 0.4, 14)}
+LM_TF_LIMITS = {"int8": (0.0, 0.0, 0), "int4": (0.0, 0.0, 0)}
 # falcon-mamba-7b serving: 64 layers, one selective_scan launch each per
 # grouped prefill dispatch; 8 slots, 16 requests of 64, 128 or 256 prompt
 # tokens and 32 new tokens
@@ -679,6 +699,108 @@ def _one_device_kernel(label: str, fn) -> int:
     return n
 
 
+def _graph_kernel_names(graph) -> list:
+    """The function names of a captured CUDA graph's kernel nodes, read
+    through ``libcuda``: ``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams_v2``, ``cuFuncGetName``."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = ([("func", ctypes.c_void_p)]
+                    + [(n, ctypes.c_uint) for n in ("gx", "gy", "gz", "bx", "by", "bz", "smem")]
+                    + [(n, ctypes.c_void_p) for n in ("params", "extra", "kern", "ctx")])
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what} failed: CUresult {err}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        prm = KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(prm)),
+              "cuGraphKernelNodeGetParams_v2")
+        name = ctypes.c_char_p()
+        if prm.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(prm.func)),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(prm.kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode())
+    return names
+
+
+def _check_programs(tag: str, eng, per: dict) -> dict:
+    """Gate: every program of a warmed engine is a captured CUDA graph, and
+    each graph's kernel nodes of each kernel family (``KERNEL_NAMES``, by
+    function name) equal the launches its capture counted, which equal
+    ``per`` (one forward's launches; families absent from ``per``: 0), so
+    the counts a replay adds are the kernels it runs."""
+    nodes = 0
+    for key, prog in eng._programs.items():
+        if prog.graph is None:
+            raise AssertionError(f"[{tag}] program {key} is not a captured graph")
+        names = _graph_kernel_names(prog.graph)
+        found = {f: sum(any(k in n for k in ks) for n in names)
+                 for f, ks in KERNEL_NAMES.items()}
+        counted = {f: prog.launches.get(f, 0) for f in KERNEL_NAMES}
+        want = {f: per.get(f, 0) for f in KERNEL_NAMES}
+        if not found == counted == want:
+            raise AssertionError(f"[{tag}] {key}: kernel nodes {found}, launches counted at "
+                                 f"capture {counted}, a forward launches {want}")
+        nodes += len(names)
+    print(f"[{tag}] {len(eng._programs)} captured programs: kernel nodes by family equal "
+          f"the launches counted at capture and one forward's {per} (gate); "
+          f"{nodes} kernel nodes in all", flush=True)
+    return {"programs": len(eng._programs), "kernel_nodes": nodes}
+
+
+def _warm(tag: str, eng) -> dict:
+    """``eng.warmup()`` timed, with the graph pool it leaves (0 for an
+    eager engine); gate: ``retraces`` 0."""
+    torch.cuda.synchronize()
+    reserved, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # the allocator's segments in the engine's graph pool, live or cached
+    pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if eng._graphs and tuple(seg.get("segment_pool_id", ())) == tuple(eng._pool))
+    if eng.metrics.counters.get("retraces", 0):
+        raise AssertionError(f"[{tag}] retraces after warmup: {eng.metrics.counters}")
+    print(f"[{tag}] warmup: {len(eng._programs)} programs, "
+          f"{'captured as CUDA graphs' if eng._graphs else 'eager'}, in {seconds:.2f} s; "
+          f"graph pool {pool / 1e6:.1f} MB, reserved memory {reserved / 1e9:.2f} -> "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB", flush=True)
+    return {"capture_s": seconds, "pool_bytes": pool, "programs": len(eng._programs)}
+
+
+def _check_retraces(tag: str, eng) -> None:
+    n = eng.metrics.counters.get("retraces", 0)
+    print(f"[{tag}] retraces after serving: {n} (gate: 0)", flush=True)
+    if n:
+        raise AssertionError(f"[{tag}] {n} programs built while serving")
+
+
+def _eager(cfg):
+    """``cfg`` with ``serve.aot_warmup=False``: the engines' eager switch."""
+    import dataclasses
+
+    return cfg.replace(serve=dataclasses.replace(cfg.serve, aot_warmup=False))
+
+
 def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) -> dict:
     """Check one LM attention mode against the plain version on inputs
     whose scores are exact in f32 (``tol``), and with Gaussian q
@@ -698,7 +820,8 @@ def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) ->
     from repro_torch.kernels import ref
     from repro_torch.kernels.quant_attention import SCHEDULES, choose_schedule, lm_attention
 
-    got, want = lm_attention(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw)
+    plain_kw = {key: val for key, val in kw.items() if key != "segments"}  # a grid hint
+    got, want = lm_attention(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **plain_kw)
     torch.cuda.synchronize()
     atol, rtol = tol
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
@@ -720,7 +843,7 @@ def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) ->
     if gaussian is not None:
         kp, vp = (k.float(), v.float()) if k.dtype == torch.bfloat16 else (k, v)
         g_got, g_want = lm_attention(gaussian, k, v, **kw), ref.flash_attention_ref(
-            gaussian, kp, vp, **kw)
+            gaussian, kp, vp, **plain_kw)
         torch.cuda.synchronize()
         diff = (g_got - g_want).abs().amax(-1)
         over = int((diff > 1e-4).sum())
@@ -769,7 +892,7 @@ def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) ->
         "max_abs_err": err, "tolerance": f"atol={atol}, rtol={rtol}",
         "device_kernels": _one_device_kernel(f"lm_attention[{name}]", kernel),
         "ms": graph_ms(kernel), "eager_ms": time_ms(kernel),
-        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), iters=5),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **plain_kw), iters=5),
         "bound_ms": nb, "bound_by": by,
         "library_ms": None if sdpa is None else graph_ms(sdpa),
         "library_eager_ms": None if sdpa is None else time_ms(sdpa),
@@ -818,7 +941,8 @@ def _check_lm_attention(gen) -> list:
         f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v), is_causal=True),
         gaussian=gauss(2, 32, H, hd)))
 
-    # packed prefill: 4 prompts + pad tail in one 512 row, int8 K/V, 4-bit
+    # packed prefill: 4 prompts + pad tail in one 512 row, int8 K/V, 4-bit;
+    # the grid hint as prefill_packed gives it (prompt slots + the pad tail)
     P = 512
     seg = torch.full((1, P), -1, dtype=torch.int32, device="cuda")
     cursor = 0
@@ -829,7 +953,7 @@ def _check_lm_attention(gen) -> list:
     v8, vs = quantize_kv(randn(1, P, H, hd))
     kw = dict(causal=True, quant_bits=4, k_scale=ks, v_scale=vs,
               kv_valid_len=torch.full((1,), P, dtype=torch.int32, device="cuda"),
-              q_segment_ids=seg, kv_segment_ids=seg)
+              q_segment_ids=seg, kv_segment_ids=seg, segments=5)
     rows.append(_lm_attention_row("packed_prefill", "causal/int8/qb4/segments",
                                   grid(1, P, H, hd), k8, v8, kw, f32_tol,
                                   gaussian=randn(1, P, H, hd)))
@@ -1338,7 +1462,8 @@ def phase_serving(smi: str):
 
     eng = VisionEngine(qcfg, p_int8, batch_buckets=(1, 4, 8), max_wait_s=2e-3,
                        device="cuda")
-    eng.warmup()
+    warm = _warm("serving", eng)
+    _check_programs("serving", eng, PER_FORWARD)
     reqs = synth_requests(qcfg, 24, seed=3)
     _reset_counts()
     for r in reqs:
@@ -1357,13 +1482,32 @@ def phase_serving(smi: str):
                                  f"batches, expected {per} per forward")
     _check_int8_variants("serving", counts)
     _check_grouped_variants_used("serving", counts)
+    _check_retraces("serving", eng)
     snap = eng.metrics.snapshot()
     lat = snap["latency_ms"]
     print(f"[serving] smoke figure, not a benchmark: {snap['counters']['completed']} "
           f"requests in {batches} batches, {snap['fps']:.1f} FPS, p50 "
           f"{lat['p50']:.2f} ms, p99 {lat['p99']:.2f} ms ({smi}); launches {counts}",
           flush=True)
-    return qcfg, p_int8, counts, calib_counts
+    # the graph engine against the eager switch: the same 24 requests in the
+    # same batches (all queued, then flushed: three of 8) on each
+    eager = VisionEngine(_eager(qcfg), p_int8, batch_buckets=(1, 4, 8), max_wait_s=2e-3,
+                         device="cuda")
+    _warm("serving eager", eager)
+    served = {}
+    for mode, e in (("graph", eng), ("eager", eager)):
+        served[mode] = synth_requests(qcfg, 24, seed=3)
+        for r in served[mode]:
+            e.submit(r)
+        e.flush()
+    same = all(np.array_equal(a.classes, b.classes) and np.array_equal(a.probs, b.probs)
+               for a, b in zip(served["graph"], served["eager"]))
+    print(f"[serving] graph engine vs aot_warmup=False engine, 24 requests in batches of 8: "
+          f"classes and probabilities bit-equal {same} (gate)", flush=True)
+    if not same:
+        raise AssertionError("[serving] the graph engine and the eager engine disagree")
+    _check_retraces("serving", eng)
+    return qcfg, p_int8, counts, calib_counts, {"graph": eng, "eager": eager, "warmup": warm}
 
 
 def phase_lm(smi: str) -> dict:
@@ -1435,14 +1579,16 @@ def _lm_requests(vocab: int):
             for i, n in enumerate(rng.integers(16, 257, LM_REQUESTS))]
 
 
-def _run_engine(qcfg, params, prompts=None):
+def _run_engine(qcfg, params, prompts=None, tag="lm", eager=False):
     """Serve the seeded requests (or one request per prompt given) on a
-    fresh engine; returns (engine, requests, wall seconds, launch counts)."""
+    fresh engine, warmed (``_warm``): its programs captured as CUDA graphs,
+    or with ``eager`` the ``aot_warmup=False`` engine; returns (engine,
+    requests, wall seconds, launch counts, warmup)."""
     from repro_torch.serving import Request, ServeEngine
 
-    eng = ServeEngine(qcfg, params, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN,
-                      device="cuda", keep_logits=True)
-    eng.warmup()
+    eng = ServeEngine(_eager(qcfg) if eager else qcfg, params, batch_slots=LM_SLOTS,
+                      max_len=LM_MAX_LEN, device="cuda", keep_logits=True)
+    warm = _warm(tag, eng)
     reqs = (_lm_requests(qcfg.vocab_size) if prompts is None else
             [Request(uid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
              for i, p in enumerate(prompts)])
@@ -1453,7 +1599,7 @@ def _run_engine(qcfg, params, prompts=None):
         eng.submit(r)
     eng.run_until_drained()
     torch.cuda.synchronize()
-    return eng, reqs, time.perf_counter() - t0, _read_counts()
+    return eng, reqs, time.perf_counter() - t0, _read_counts(), warm
 
 
 def _teacher_forced(params, qcfg, r, steps):
@@ -1534,7 +1680,9 @@ def _first_pack_dependence(params, qcfg, prompt, other) -> str:
 def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
     from repro_torch.models.layers import rmsnorm
 
-    eng, reqs, wall, counts = _run_engine(qcfg, params)
+    eng, reqs, wall, counts, warm = _run_engine(qcfg, params, tag=f"lm {mat}")
+    programs = _check_programs(f"lm {mat}", eng, LM_PER_FORWARD)
+    _check_retraces(f"lm {mat}", eng)
     snap = eng.metrics.snapshot()
     c = snap["counters"]
     forwards = c["prefill_batches"] + c["decode_ticks"]
@@ -1564,15 +1712,19 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
 
     # teacher-forced: the logits behind generated tokens against prefill
     # over the same prefix, for every request (so every admission and
-    # every slot) at LM_TF_STEPS. The two do the same math in tensors of
-    # other shapes (a pack of prompts at offsets, 8 slots a tick, against
-    # one prompt); where that rounds a value in the last bit on the other
-    # side of an int8 or 4-bit code boundary, the flip moves the logits and
-    # routing amplifies it.
+    # every slot) at LM_TF_STEPS. Step 0 comes from the packed prefill:
+    # with lm_attention's segment-keyed plan (and RMSNorm, the integer
+    # matmuls and the expert combine independent of the batch) a prompt's
+    # rows in a pack get the bits of a prefill of it alone (gate: 0)
     tf = {r.uid: _teacher_forced(params, qcfg, r, LM_TF_STEPS) for r in reqs}
     errs = np.concatenate([e for e, _ in tf.values()])
     agree = sum(a for _, a in tf.values())
     hit = sorted(uid for uid, (e, _) in tf.items() if e.max() > 0)
+    step0 = max(float(e[LM_TF_STEPS.index(0)]) for e, _ in tf.values())
+    print(f"[lm {mat}] step-0 logits of every request (in its pack) vs prefill of its "
+          f"prompt alone: max err {step0:.3g} (gate: bit-equal)", flush=True)
+    if step0:
+        raise AssertionError(f"[lm {mat}] a packed prefill's logits differ from prefill alone")
     median, p90, far = LM_TF_LIMITS[mat]
     print(f"[lm {mat}] teacher-forced logits vs prefill, {len(reqs)} requests x steps "
           f"{list(LM_TF_STEPS)}: max err median {np.median(errs):.3g}, p90 "
@@ -1585,11 +1737,11 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
             and errs.size - agree <= far):
         raise AssertionError(f"[lm {mat}] teacher-forced logits disagree")
     # RMSNorm of the same rows in a tensor of 8 rows (a decode tick) and of
-    # 512 rows (a prefill): bit-equal (gate). Then the witness, printed:
-    # the request that strayed most served alone (offset 0 of its
-    # admission, no other slot busy); where its step-0 logits differ from
-    # the packed run's, the first op whose rows differ between a pack and
-    # a solo prefill of it (``_first_pack_dependence``)
+    # 512 rows (a prefill): bit-equal (gate). Then the first op whose rows
+    # differ between a pack [the longest other prompt, the request that
+    # strayed most] and a prefill of that request alone
+    # (``_first_pack_dependence``; gate: none), and that request served
+    # alone (offset 0 of its admission, no other slot busy), printed
     g = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn((LM_MAX_LEN, qcfg.d_model), generator=g, device="cuda")
     gamma = 0.1 * torch.randn(qcfg.d_model, generator=g, device="cuda")
@@ -1599,60 +1751,72 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
     if not torch.equal(few, many):
         raise AssertionError(f"[lm {mat}] RMSNorm depends on the number of rows")
     worst = max(reqs, key=lambda r: tf[r.uid][0].max())
-    solo = _run_engine(qcfg, params, [worst.prompt])[1][0]
+    other = max((r for r in reqs if r.uid != worst.uid), key=lambda r: len(r.prompt))
+    first_dep = _first_pack_dependence(params, qcfg, worst.prompt, other.prompt)
+    print(f"[lm {mat}] pack [request {other.uid}, request {worst.uid}] vs request "
+          f"{worst.uid} alone, first op whose rows differ: {first_dep} (gate: none)",
+          flush=True)
+    if not first_dep.startswith("none"):
+        raise AssertionError(f"[lm {mat}] a pack changes a prompt's rows: {first_dep}")
+    solo = _run_engine(qcfg, params, [worst.prompt], tag=f"lm {mat} solo")[1][0]
     solo_errs, _ = _teacher_forced(params, qcfg, solo, range(LM_NEW_TOKENS))
     off = np.flatnonzero(solo_errs)
-    step0 = max_err(solo.step_logits[0], worst.step_logits[0])
+    solo0 = max_err(solo.step_logits[0], worst.step_logits[0])
     print(f"[lm {mat}] per request (prompt tokens, max err): "
           f"{ {r.uid: (len(r.prompt), round(float(tf[r.uid][0].max()), 4)) for r in reqs} }; "
-          f"request {worst.uid} served alone: step-0 logits vs packed {step0:.3g}, "
+          f"request {worst.uid} served alone: step-0 logits vs packed {solo0:.3g}, "
           f"teacher-forced max err over all {LM_NEW_TOKENS} steps {solo_errs.max():.3g}, first "
           f"nonzero at step {int(off[0]) if off.size else None}", flush=True)
-    if step0:
-        other = max((r for r in reqs if r.uid != worst.uid), key=lambda r: len(r.prompt))
-        print(f"[lm {mat}] pack [request {other.uid}, request {worst.uid}] vs request "
-              f"{worst.uid} alone, first op whose rows differ: "
-              f"{_first_pack_dependence(params, qcfg, worst.prompt, other.prompt)}", flush=True)
-    # the same requests again on a fresh engine: serving is deterministic
-    reqs2 = _run_engine(qcfg, params)[1]
-    same = all(a.generated == b.generated and all(
-        torch.equal(x, y) for x, y in zip(a.step_logits, b.step_logits))
-        for a, b in zip(reqs, reqs2))
-    print(f"[lm {mat}] served twice: tokens and logits bit-equal: {same}", flush=True)
-    if not same:
-        raise AssertionError(f"[lm {mat}] serving is not deterministic")
-    del reqs2
-    profile = _profile_lm(eng, mat, smi)
-    del eng
+    # the same requests again on a fresh graph engine (serving is
+    # deterministic) and on the aot_warmup=False engine (a replayed graph
+    # computes the eager step's bits)
+    reqs2 = _run_engine(qcfg, params, tag=f"lm {mat} again")[1]
+    eager, reqs_e, wall_e, _, _ = _run_engine(qcfg, params, tag=f"lm {mat} eager", eager=True)
+    for label, other_reqs in (("served twice", reqs2), ("graph vs aot_warmup=False engine",
+                                                        reqs_e)):
+        same = all(a.generated == b.generated and all(
+            torch.equal(x, y) for x, y in zip(a.step_logits, b.step_logits))
+            for a, b in zip(reqs, other_reqs))
+        print(f"[lm {mat}] {label}: tokens and logits bit-equal: {same} (gate)", flush=True)
+        if not same:
+            raise AssertionError(f"[lm {mat}] {label}: tokens or logits differ")
+    print(f"[lm {mat}] smoke figure ({smi}): the same requests in {wall:.2f} s through the "
+          f"graphs, {wall_e:.2f} s eager", flush=True)
+    del reqs2, reqs_e
+    profile = _profile_lm(eng, eager, mat, smi)
+    del eng, eager
     torch.cuda.empty_cache()
     return {"counts": counts, "counters": c, "tok_s": tokens / wall, "latency_ms": lat,
+            "tok_s_eager": tokens / wall_e, "warmup": warm, "programs": programs,
             "tf_median": float(np.median(errs)), "tf_max": float(errs.max()),
-            "tf_hit": hit, "step0_pack_vs_solo": step0,
+            "tf_hit": hit, "step0": step0, "step0_pack_vs_solo": solo0,
             "profile": profile}
 
 
-def _profile_lm(eng, mat: str, smi: str) -> dict:
-    """Where one decode tick (8 slots at fill level 300) and one 512-token
-    packed prefill spend their time."""
-    from repro_torch.models import transformer
+def _profile_lm(eng, eager, mat: str, smi: str) -> dict:
+    """Where one decode tick (8 slots at fill level 300) and one packed
+    admission of 4 prompts of 128 tokens (the 512-token prefill, the first
+    tokens, the merge into slots) spend their time: each engine's program,
+    eager and as a graph replay, on the same inputs."""
+    from repro_torch.serving.programs import own
 
-    cfg, p = eng.cfg, eng.params
-    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device="cuda")
-    index = torch.full((LM_SLOTS,), 300, dtype=torch.int32, device="cuda")
-    P = LM_MAX_LEN
-    seg = torch.arange(P, device="cuda", dtype=torch.int32) // (P // 4)
-    pos = torch.arange(P, device="cuda", dtype=torch.int32) % (P // 4)
-    last = torch.arange(1, 5, device="cuda", dtype=torch.int32) * (P // 4) - 1
-    out = {
-        "decode tick": _profile(
-            f"profile lm {mat}", "decode tick", smi, 3,
-            lambda: transformer.decode_step(p, cfg, tok, eng.cache, index, with_stats=True),
-            expect=LM_PER_FORWARD),
-        "packed prefill 512": _profile(
-            f"profile lm {mat}", "packed prefill 512", smi, 3,
-            lambda: transformer.prefill_packed(p, cfg, tok.new_zeros((1, P)), pos, seg,
-                                               last, max_len=P), expect=LM_PER_FORWARD),
-    }
+    P, n = LM_MAX_LEN, LM_MAX_LEN // 4
+    pos = np.full(LM_SLOTS, 300, np.int32)
+    pack = np.concatenate([np.zeros(P, np.int32), np.arange(P) % n, np.arange(P) // n,
+                           np.arange(1, 5) * n - 1, np.arange(4) * n, np.full(4, n),
+                           np.arange(4)]).astype(np.int32)
+    out = {}
+    for mode, e in (("eager", eager), ("graph", eng)):
+        tick = e._compiled(e._program_key("decode"), e._build_tick)
+        admit = e._compiled(e._program_key("packed_prefill", bucket=P, n=4),
+                            lambda: e._build_admit(P, 4))
+        with torch.inference_mode():
+            out[f"decode tick, {mode}"] = _profile(
+                f"profile lm {mat}", f"decode tick, {mode}", smi, 3,
+                lambda: own(tick, tick(e._tok, pos)), expect=LM_PER_FORWARD)
+            out[f"packed prefill 512, {mode}"] = _profile(
+                f"profile lm {mat}", f"packed prefill 512, {mode}", smi, 3,
+                lambda: own(admit, admit(pack)), expect=LM_PER_FORWARD)
     for label, prof in out.items():
         _check_kernels_per_call(f"profile lm {mat} {label}", prof, LM_PER_FORWARD)
     return out
@@ -1746,8 +1910,8 @@ def phase_ssm(smi: str) -> dict:
     params = init_model_params(cfg, seed=0, device="cuda")
     eng = ServeEngine(cfg, params, batch_slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
                       device="cuda", keep_logits=True)
-    eng.warmup()
-    torch.cuda.synchronize()
+    warm = _warm("ssm", eng)
+    programs = _check_programs("ssm", eng, {"rmsnorm": SSM_LAYERS + 1})
     print(f"[ssm] {cfg.name}: {tree_bytes(params) / 1e9:.2f} GB f32 ({left:.2f} GB "
           f"of earlier phases left on the card); init + warmup "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1785,6 +1949,7 @@ def phase_ssm(smi: str) -> dict:
         if r.status != "completed" or len(r.generated) != SSM_NEW_TOKENS:
             raise AssertionError(f"[ssm] request {r.uid}: {r.status}, "
                                  f"{len(r.generated)} tokens")
+    _check_retraces("ssm", eng)
     snap = eng.metrics.snapshot()
     lat = snap["latency_ms"]
     tokens = sum(len(r.generated) for r in reqs)
@@ -1804,20 +1969,45 @@ def phase_ssm(smi: str) -> dict:
           f"{SSM_TF_LIMIT[1]}", flush=True)
     if not _ssm_tf_pass(rel):
         raise AssertionError("[ssm] teacher-forced logits disagree")
+    # the same requests on the aot_warmup=False engine: bit-equal (gate)
+    eager = ServeEngine(_eager(cfg), params, batch_slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+                        device="cuda", keep_logits=True)
+    _warm("ssm eager", eager)
+    again = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=SSM_NEW_TOKENS) for r in reqs]
+    t0 = time.perf_counter()
+    for r in again:
+        eager.submit(r)
+    eager.run_until_drained()
+    torch.cuda.synchronize()
+    wall_e = time.perf_counter() - t0
+    same = all(a.generated == b.generated and all(
+        torch.equal(x, y) for x, y in zip(a.step_logits, b.step_logits))
+        for a, b in zip(reqs, again))
+    print(f"[ssm] graph engine vs aot_warmup=False engine: tokens and logits bit-equal "
+          f"{same} (gate); smoke figure ({smi}): {wall:.2f} s through the graphs, "
+          f"{wall_e:.2f} s eager", flush=True)
+    if not same:
+        raise AssertionError("[ssm] the graph engine and the eager engine disagree")
+    del again
     controls = {name: _ssm_control(name, params, cfg, reqs[:SSM_SLOTS])
                 for name in SSM_CONTROLS}
 
-    tok = torch.zeros((SSM_SLOTS, 1), dtype=torch.int32, device="cuda")
+    from repro_torch.serving.programs import own
+
     group = torch.zeros((SSM_SLOTS, SSM_PROMPT_LENS[-1]), dtype=torch.int32, device="cuda")
-    profile = {
-        "decode tick": _profile("profile ssm", "decode tick, 8 slots", smi, 3,
-                                lambda: ssm_lm.decode_step(params, cfg, tok, eng.cache)),
-        "grouped prefill": _profile("profile ssm", "grouped prefill, 8 x 256", smi, 2,
-                                    lambda: ssm_lm.prefill(params, cfg, group)),
-    }
-    del eng, params
+    host_tok = np.zeros(SSM_SLOTS, np.int32)
+    profile = {}
+    for mode, e in (("eager", eager), ("graph", eng)):
+        tick = e._compiled(e._program_key("decode"), e._build_tick)
+        profile[f"decode tick, {mode}"] = _profile(
+            "profile ssm", f"decode tick, 8 slots, {mode}", smi, 3,
+            lambda: own(tick, tick(host_tok, e.pos)))
+    profile["grouped prefill"] = _profile("profile ssm", "grouped prefill, 8 x 256", smi, 2,
+                                          lambda: ssm_lm.prefill(params, cfg, group))
+    del eng, eager, params
     torch.cuda.empty_cache()
     return {"counts": counts, "counters": dict(c), "tok_s": tokens / wall,
+            "tok_s_eager": tokens / wall_e, "warmup": warm, "programs": programs,
             "latency_ms": lat, "tf_max": float(rel.max()), "controls": controls,
             "profile": profile}
 
@@ -1917,14 +2107,25 @@ def phase_e2e(qcfg, p_int8) -> None:
     torch.testing.assert_close(logits, ref_logits, atol=1e-3, rtol=0)
 
 
-def phase_profile(qcfg, p_int8, smi: str) -> None:
-    """Where one int8 forward at B=8 spends its time."""
+def phase_profile(qcfg, p_int8, smi: str, engines: dict) -> dict:
+    """Where one int8 forward at B=8 spends its time, and one dispatch of
+    8 images (input copy, forward, outputs) through the eager engine's
+    program and through the graph engine's."""
     from repro_torch.models import classify, synth_patches
+    from repro_torch.serving.programs import own
 
-    x = torch.from_numpy(synth_patches(qcfg, 8, seed=4)).cuda()
+    xs = synth_patches(qcfg, 8, seed=4)
+    x = torch.from_numpy(xs).cuda()
     prof = _profile("profile", f"{qcfg.name} int8 forward, B=8", smi, 5,
                     lambda: classify(p_int8, qcfg, x), expect=PER_FORWARD)
     _check_kernels_per_call("profile", prof, PER_FORWARD)
+    out = {"forward": prof}
+    for mode in ("eager", "graph"):
+        prog = engines[mode]._compiled(8)
+        out[mode] = _profile("profile", f"{qcfg.name} dispatch of 8, {mode}", smi, 5,
+                             lambda: own(prog, prog(xs)), expect=PER_FORWARD)
+        _check_kernels_per_call(f"profile {mode}", out[mode], PER_FORWARD)
+    return out
 
 
 def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) -> int:
@@ -1956,10 +2157,10 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
-    qcfg, p_int8, counts, calib_counts = phase_serving(smi)
+    qcfg, p_int8, counts, calib_counts, engines = phase_serving(smi)
     phase_e2e(qcfg, p_int8)
-    phase_profile(qcfg, p_int8, smi)
-    del p_int8
+    phase_profile(qcfg, p_int8, smi, engines)
+    del p_int8, engines
     torch.cuda.empty_cache()
     lm = phase_lm(smi)
     ssm = phase_ssm(smi)

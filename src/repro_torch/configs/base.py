@@ -87,6 +87,10 @@ class ContinuousBatchingConfig:
     max_prefill: int = 0
     min_bucket: int = 32
     async_retire: bool = True
+    # build every serving program at warmup(): on the card each is a
+    # captured CUDA graph (False: every step runs eagerly, programs are
+    # built on first use)
+    aot_warmup: bool = True
 
 
 @dataclass(frozen=True)

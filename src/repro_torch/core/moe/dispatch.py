@@ -26,7 +26,8 @@ def grouped_dispatch(x: torch.Tensor, experts: torch.Tensor,
     """x: [T, D]; experts/weights: [T, k]."""
     T, k = experts.shape
     flat_e = experts.reshape(-1).long()
-    flat_t = torch.arange(T, device=x.device).repeat_interleave(k)
+    # the source token of each (token, slot) row, with no host sync
+    flat_t = torch.div(torch.arange(T * k, device=x.device), max(k, 1), rounding_mode="floor")
     sort_idx = torch.sort(flat_e, stable=True).indices
     token_idx = flat_t[sort_idx]
     # a scatter-add histogram: torch.bincount on a CUDA tensor reads the

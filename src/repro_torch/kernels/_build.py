@@ -37,7 +37,7 @@ _SIGNATURES = {
     "grouped_matmul_f32_launch": (_I, [_P] * 4 + [_I] * 4 + [_P]),
     "quant_attention_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),
     "lm_attention_launch": (_I, [_P] * 3 + [_I] + [_P] * 7 + [_I] * 11 + [_F] * 2
-                            + [_I, _P]),
+                            + [_I, _I, _P]),
     "lm_attention_smem_bytes": (_SZ, [_I] * 6),
     "selective_scan_launch": (_I, [_P] * 8 + [_I] * 7 + [_P]),
     "selective_scan_lane_launch": (_I, [_P] * 8 + [_I] * 4 + [_P]),

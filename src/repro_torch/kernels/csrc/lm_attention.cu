@@ -45,7 +45,9 @@
 // the same tokens computes for that row.
 //
 // Each call is one kernel launch of one of two schedules, chosen by the
-// wrapper (kernels/quant_attention.py:choose_schedule).
+// wrapper (kernels/quant_attention.py:choose_schedule). With segment ids the
+// tile schedule walks the segment-keyed plan (below), so a packed prefill
+// gives each prompt's rows the bits of a prefill of that prompt alone.
 //
 // Schedule decode (hd = 128, 16-byte aligned operands, at most 4 query rows
 // per KV head: Sq x H/KVH):
@@ -97,8 +99,25 @@
 //   the warps' maxima meet before the second pass.
 //   Dead tiles: only tiles of keys in [window start of the first row, last
 //   visible key of the last row] are walked, and with segment ids a tile is
-//   skipped when none of its kv ids equals any q id of the block's rows: no
-//   row of the block can see a key of it, so it would add exact zeros.
+//   skipped when none of its kv ids equals the block's q id: no row of the
+//   block can see a key of it, so it would add exact zeros.
+//
+// The segment-keyed plan (tile schedule with segment ids, the packed
+// prefill): a prompt's rows get the bits of a prefill of that prompt alone.
+//   Bound on the H100: as the tile schedule; the plan adds one read of the
+//   q ids (2 KB at 512 rows) and of the block's kv ids, from L2.
+//   Design: the rows are cut at every change of q id into runs (each
+//   prompt, the pad tail) and each run into blocks of 16 rows from its
+//   first row (plan_block), so no block straddles two segments; a block's
+//   64-key tiles start at its segment's first key. Each key of a prompt then
+//   falls to the tile, warp, lane and MMA column it takes when the prompt
+//   is prefilled alone at offset 0, and each row to the same block row, so
+//   the sums run in the same order. The plan is derived on the device from
+//   the ids: nothing is read back. The grid is ceil(Sq / 16) + a count of
+//   runs the caller gives (the engine: its prompt slots + 1), fixed by
+//   (bucket, prompt slots); a block takes plan blocks blockIdx.x,
+//   + gridDim.x, ..., so a smaller count is slower, never wrong, and the
+//   blocks past the plan exit after reading the ids.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -696,7 +715,6 @@ __global__ void __launch_bounds__(TL_THREADS) lm_decode_kernel(Args a) {
 
 constexpr int TL_BQ = 16;     // query rows a block
 constexpr int TL_STAGES = 2;  // K/V tiles in flight: double buffering
-constexpr int TL_SEG_TILES = 2;  // tiles a warp checks with the q ids' load
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -741,11 +759,66 @@ __device__ __forceinline__ void copy_elem(int8_t* row, int d, const void* src, s
     row[d] = ok ? static_cast<const int8_t*>(src)[i] : 0;
 }
 
+// The segment-keyed plan of a packed prefill (q segment ids given): the
+// query rows of batch row b are cut at every change of q id into runs (a
+// prompt, the pad tail) and each run into blocks of TL_BQ rows from its
+// first row. Plan block pb (in row order) -> its first row; -1 past the
+// last. The ids come in chunks of TL_THREADS through shared memory (one
+// round trip a chunk) and warp 0 walks each chunk 32 rows at a time: a run
+// starts where the id changes, a block where (row - run start) % TL_BQ is
+// 0. Returns (first row, rows: up to TL_BQ rows of its id), the same in
+// every thread.
+__device__ int2 plan_block(const Args& a, int b, int pb) {
+  __shared__ int ids[TL_THREADS], found, rows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int* qs = a.q_seg + (size_t)b * a.Sq;
+  // warp 0: plan blocks before this chunk, the open run's first row, the
+  // id before this chunk, the row found (warp-uniform)
+  int count = 0, run_start = 0, prev = 0, row = -1;
+  if (tid == 0) found = -1;
+  for (int base = 0; base < a.Sq; base += TL_THREADS) {
+    __syncthreads();  // `found` is set and the previous chunk is consumed
+    if (found >= 0) break;
+    ids[tid] = base + tid < a.Sq ? qs[base + tid] : 0;
+    __syncthreads();
+    if (warp != 0) continue;
+    for (int sub = 0; sub < TL_THREADS && base + sub < a.Sq && row < 0; sub += 32) {
+      const int r = base + sub + lane;
+      const bool in = r < a.Sq;
+      const int id = ids[sub + lane];
+      const int before = lane > 0 ? ids[sub + lane - 1] : (sub > 0 ? ids[sub - 1] : prev);
+      const unsigned starts = __ballot_sync(0xffffffffu, in && (r == 0 || id != before));
+      const unsigned upto = starts & (0xffffffffu >> (31 - lane));  // run starts <= r
+      const int rs = upto ? base + sub + 31 - __clz(upto) : run_start;
+      const bool first = in && (r - rs) % TL_BQ == 0;
+      const unsigned firsts = __ballot_sync(0xffffffffu, first);
+      const unsigned hit = __ballot_sync(
+          0xffffffffu, first && __popc(firsts & ((1u << lane) - 1)) == pb - count);
+      if (hit) row = base + sub + __ffs(hit) - 1;
+      count += __popc(firsts);
+      if (starts) run_start = base + sub + 31 - __clz(starts);
+    }
+    prev = ids[TL_THREADS - 1];
+    if (tid == 0) found = row;
+  }
+  __syncthreads();
+  const int q0 = found;
+  if (q0 >= 0 && warp == 0) {  // the run goes on while the id does
+    const bool same = lane < TL_BQ && q0 + lane < a.Sq && qs[q0 + lane] == qs[q0];
+    const unsigned m = __ballot_sync(0xffffffffu, same);
+    if (lane == 0) rows = __ffs(~m) - 1;
+  }
+  __syncthreads();
+  return make_int2(q0, q0 >= 0 ? rows : 0);
+}
+
+// One block of the tile schedule: rows [q0, q0 + n_rows) of (b, head h),
+// all of one q segment id when segment ids are given.
 template <int KV, bool QUANT>
-__global__ void __launch_bounds__(TL_THREADS) lm_tile_kernel(Args a) {
+__device__ __forceinline__ void tile_block(const Args& a, int8_t* smem, int b, int h, int q0,
+                                           int n_rows) {
   constexpr int ES = kv_bytes<KV>();
-  extern __shared__ __align__(128) int8_t smem[];
-  __shared__ int q_ids[TL_BQ], n_live;  // the block's q segment ids
+  __shared__ int n_live, first_key;
   __shared__ float red_m[TL_WARPS][16], red_l[TL_WARPS][16];
   const int hd = a.hd;
   const TileLayout L = tile_layout(hd, ES, a.Sk);
@@ -758,8 +831,7 @@ __global__ void __launch_bounds__(TL_THREADS) lm_tile_kernel(Args a) {
   const int qp_row = q_piece_row<KV>(L.hdp), qp_piece = TL_BQ * qp_row;
   int* live = reinterpret_cast<int*>(smem + L.list_off);
   const uint32_t s0 = smem_u32(smem);
-  const int b = blockIdx.z, h = blockIdx.y, kvh = h / (a.H / a.KVH);
-  const int q0 = blockIdx.x * TL_BQ, n_rows = min(TL_BQ, a.Sq - q0);
+  const int kvh = h / (a.H / a.KVH);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   float* pw = reinterpret_cast<float*>(smem + L.p_off) + warp * 16 * TL_PSTR;
@@ -771,10 +843,9 @@ __global__ void __launch_bounds__(TL_THREADS) lm_tile_kernel(Args a) {
   int khi = valid, klo = 0;
   if (a.causal) khi = min(khi, pos_last + 1);
   if (a.local_window > 0) klo = max(0, pos_first - a.local_window + 1);
-  const int ntiles = khi > klo ? (khi - klo + TL_BK - 1) / TL_BK : 0;
 
-  // f32 q rows of the block (zero past Sq and past hd) into the hi array,
-  // with stage 0
+  // f32 q rows of the block (zero past n_rows and past hd) into the hi
+  // array, with stage 0
   const float* qsrc = a.q + (((size_t)b * a.Sq + q0) * a.H + h) * hd;
   const size_t q_stride = (size_t)a.H * hd;  // floats between query rows
   if (a.vec) {
@@ -792,55 +863,43 @@ __global__ void __launch_bounds__(TL_THREADS) lm_tile_kernel(Args a) {
   }
 
   // this lane's rows g and g + 8
-  int qseg[2], qpos[2];
+  const int sigma = segs ? a.q_seg[(size_t)b * a.Sq + q0] : 0;  // the block's q id
+  int qpos[2];
   bool row_ok[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = g + 8 * i;
-    row_ok[i] = r < n_rows;
-    qpos[i] = q_off + q0 + r;
-    qseg[i] = (segs && row_ok[i]) ? a.q_seg[(size_t)b * a.Sq + q0 + r] : 0;
+    row_ok[i] = g + 8 * i < n_rows;
+    qpos[i] = q_off + q0 + g + 8 * i;
   }
 
-  // the live tiles: every tile of [klo, khi), or with segment ids those
-  // holding a kv id equal to one of the block's q ids
+  // With segment ids the block's tiles start at its segment's first key
+  // (the first key of id sigma at or past the window's start), so a
+  // prompt's keys fall to the same tile, warp and lane as in a prefill of
+  // it alone; and only the tiles holding a key of id sigma are live, since
+  // no row of the block can see any other key (a dead tile would add exact
+  // zeros). Without segment ids every tile of [klo, khi) is live.
+  const int* kv_ids = segs ? a.kv_seg + (size_t)b * a.Sk : nullptr;
+  if (segs) {
+    if (tid == 0) first_key = max(khi, klo);
+    __syncthreads();
+    for (int key = klo + tid; key < khi; key += TL_THREADS)
+      if (kv_ids[key] == sigma) {
+        atomicMin(&first_key, key);
+        break;
+      }
+    __syncthreads();
+    klo = first_key;
+  }
+  const int ntiles = khi > klo ? (khi - klo + TL_BK - 1) / TL_BK : 0;
   if (!segs) {
     if (tid == 0) n_live = ntiles;
   } else {
-    // the block's q ids, and the kv ids of its first tiles read with them
-    // (one round trip); a run of equal q ids is compared once
-    for (int r = tid; r < n_rows; r += TL_THREADS) q_ids[r] = a.q_seg[(size_t)b * a.Sq + q0 + r];
-    auto tile_ids = [&](int tile, int& id0, int& id1, bool& ok0, bool& ok1) {
+    for (int tile = warp; tile < ntiles; tile += TL_WARPS) {
       const int key = klo + tile * TL_BK + lane;
-      ok0 = tile < ntiles && key < khi;
-      ok1 = tile < ntiles && key + 32 < khi;
-      id0 = ok0 ? a.kv_seg[(size_t)b * a.Sk + key] : 0;
-      id1 = ok1 ? a.kv_seg[(size_t)b * a.Sk + key + 32] : 0;
-    };
-    auto mark = [&](int tile, int id0, int id1, bool ok0, bool ok1) {
-      bool hit = false;
-      for (int r = 0; r < n_rows; ++r) {
-        if (r > 0 && q_ids[r] == q_ids[r - 1]) continue;  // block-uniform
-        hit = hit || (ok0 && id0 == q_ids[r]) || (ok1 && id1 == q_ids[r]);
-      }
-      hit = __any_sync(0xffffffffu, hit);
-      if (lane == 0 && tile < ntiles) live[tile] = hit;
-    };
-    int id0[TL_SEG_TILES], id1[TL_SEG_TILES];
-    bool ok0[TL_SEG_TILES], ok1[TL_SEG_TILES];
-#pragma unroll
-    for (int i = 0; i < TL_SEG_TILES; ++i)
-      tile_ids(warp + TL_WARPS * i, id0[i], id1[i], ok0[i], ok1[i]);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < TL_SEG_TILES; ++i)
-      mark(warp + TL_WARPS * i, id0[i], id1[i], ok0[i], ok1[i]);
-    // tiles past the registers' reach
-    for (int tile = warp + TL_WARPS * TL_SEG_TILES; tile < ntiles; tile += TL_WARPS) {
-      int i0, i1;
-      bool k0, k1;
-      tile_ids(tile, i0, i1, k0, k1);
-      mark(tile, i0, i1, k0, k1);
+      const bool hit = (key < khi && kv_ids[key] == sigma) ||
+                       (key + 32 < khi && kv_ids[key + 32] == sigma);
+      const bool any = __any_sync(0xffffffffu, hit);
+      if (lane == 0) live[tile] = any;
     }
     __syncthreads();
     if (tid == 0) {
@@ -951,7 +1010,7 @@ __global__ void __launch_bounds__(TL_THREADS) lm_tile_kernel(Args a) {
       const int i = e >> 1, jj = 2 * t + (e & 1), key = k0 + jj;
       const float fs = finish_score(s[e], scaled ? kscale[jj] : 1.f, scaled, a);
       const bool ok = row_ok[i] && key < khi &&
-                      visible(a, key, qpos[i], valid, segs, qseg[i], segs ? kseg[jj] : 0);
+                      visible(a, key, qpos[i], valid, segs, sigma, segs ? kseg[jj] : 0);
       s[e] = ok ? fs : -INFINITY;
     }
     if (max_pass) {
@@ -972,6 +1031,28 @@ __global__ void __launch_bounds__(TL_THREADS) lm_tile_kernel(Args a) {
     if (row_ok[i])
       merge_row(part, red_m, red_l, g + 8 * i, hdp, hd, a.vec, warp, t,
                 a.out + (((size_t)b * a.Sq + q0 + g + 8 * i) * a.H + h) * hd);
+}
+
+// grid (ceil(Sq / TL_BQ) + the wrapper's segment count when segment ids are
+// given, H, B). Without segment ids block x holds rows 16 x ..; with them
+// it takes plan blocks x, x + gridDim.x, ... until the plan ends (one each
+// when the grid covers the plan; a row's bits do not depend on which block
+// computes it).
+template <int KV, bool QUANT>
+__global__ void __launch_bounds__(TL_THREADS) lm_tile_kernel(Args a) {
+  extern __shared__ __align__(128) int8_t smem[];
+  const int b = blockIdx.z, h = blockIdx.y;
+  if (a.q_seg == nullptr) {
+    const int q0 = blockIdx.x * TL_BQ;
+    tile_block<KV, QUANT>(a, smem, b, h, q0, min(TL_BQ, a.Sq - q0));
+    return;
+  }
+  for (int pb = blockIdx.x;; pb += gridDim.x) {
+    const int2 blk = plan_block(a, b, pb);
+    if (blk.x < 0) return;
+    tile_block<KV, QUANT>(a, smem, b, h, blk.x, blk.y);
+    __syncthreads();  // the next plan block restages shared memory
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1005,7 +1086,7 @@ cudaError_t launch_with(Kernel* kernel, dim3 grid, int threads, size_t smem,
 }
 
 template <int KV, bool QUANT>
-cudaError_t launch_kv(const Args& a, int schedule, cudaStream_t stream) {
+cudaError_t launch_kv(const Args& a, int schedule, int segments, cudaStream_t stream) {
   if (schedule == 0) {
     const int R = a.Sq * (a.H / a.KVH);
     const size_t smem = decode_bytes(KV, R, a.Sk);
@@ -1015,14 +1096,14 @@ cudaError_t launch_kv(const Args& a, int schedule, cudaStream_t stream) {
                                 TL_THREADS, smem, a, stream);
   }
   const size_t smem = tile_layout(a.hd, kv_bytes<KV>(), a.Sk).bytes;
-  const dim3 grid((a.Sq + TL_BQ - 1) / TL_BQ, a.H, a.B);
+  const dim3 grid((a.Sq + TL_BQ - 1) / TL_BQ + (a.q_seg != nullptr ? segments : 0), a.H, a.B);
   return launch_with(lm_tile_kernel<KV, QUANT>, grid, TL_THREADS, smem, a, stream);
 }
 
 template <int KV>
-cudaError_t launch_q(const Args& a, int schedule, cudaStream_t stream) {
-  return a.quant_bits > 0 ? launch_kv<KV, true>(a, schedule, stream)
-                          : launch_kv<KV, false>(a, schedule, stream);
+cudaError_t launch_q(const Args& a, int schedule, int segments, cudaStream_t stream) {
+  return a.quant_bits > 0 ? launch_kv<KV, true>(a, schedule, segments, stream)
+                          : launch_kv<KV, false>(a, schedule, segments, stream);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -1038,7 +1119,9 @@ extern "C" size_t lm_attention_smem_bytes(int kv_type, int hd, int Sq, int G, in
 }
 
 // kv_type: 0 f32, 1 bf16, 2 int8. q_offset / kv_valid: [B] int32 or null,
-// then q_off0 / valid0 hold for every row. schedule 1 (tile) takes any hd in
+// then q_off0 / valid0 hold for every row. segments (with q_seg): the tile
+// grid's blocks beyond ceil(Sq / 16), at least the runs of equal q ids a
+// row holds for one block a plan block (any value >= 0 is correct). schedule 1 (tile) takes any hd in
 // 1..128 and any alignment; schedule 0 (decode) needs hd = 128, Sq x H/KVH
 // <= 4 and 16-byte aligned q, k, v, out. Anything else is refused with
 // cudaErrorInvalidValue.
@@ -1047,9 +1130,9 @@ extern "C" int lm_attention_launch(
     const float* v_scale, const int* q_offset, const int* kv_valid, const int* q_seg,
     const int* kv_seg, float* out, int B, int Sq, int Sk, int H, int KVH, int hd,
     int q_off0, int valid0, int causal, int quant_bits, int local_window,
-    float logit_softcap, float sqrt_hd, int schedule, cudaStream_t stream) {
+    float logit_softcap, float sqrt_hd, int schedule, int segments, cudaStream_t stream) {
   if (hd < 1 || hd > TL_MAX_HD || KVH < 1 || H % KVH != 0 || kv_type < KV_F32 ||
-      kv_type > KV_I8 || (schedule != 0 && schedule != 1))
+      kv_type > KV_I8 || (schedule != 0 && schedule != 1) || segments < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
                    hd % 4 == 0 && (hd * es_of(kv_type)) % 16 == 0;
@@ -1061,9 +1144,9 @@ extern "C" int lm_attention_launch(
                local_window, logit_softcap, sqrt_hd, vec ? 1 : 0};
   cudaError_t err;
   switch (kv_type) {
-    case KV_F32: err = launch_q<KV_F32>(a, schedule, stream); break;
-    case KV_BF16: err = launch_q<KV_BF16>(a, schedule, stream); break;
-    default: err = launch_q<KV_I8>(a, schedule, stream); break;
+    case KV_F32: err = launch_q<KV_F32>(a, schedule, segments, stream); break;
+    case KV_BF16: err = launch_q<KV_BF16>(a, schedule, segments, stream); break;
+    default: err = launch_q<KV_I8>(a, schedule, segments, stream); break;
   }
   return static_cast<int>(err);
 }

@@ -32,12 +32,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               v_scale: Optional[torch.Tensor] = None,
               kv_valid_len: Optional[torch.Tensor] = None,
               q_segment_ids: Optional[torch.Tensor] = None,
-              kv_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_segment_ids: Optional[torch.Tensor] = None,
+              segments: Optional[int] = None) -> torch.Tensor:
     """Streaming attention over [B, S, H, hd] (GQA-native k/v), the
     reference's keyword contract. On the card the non-causal, cache-free,
     quantized f32 case of the vision models takes ``streaming_attention``
     (K/V of a head in shared memory) while it fits; every other case takes
-    ``lm_attention``."""
+    ``lm_attention`` (``segments``: its grid hint for segment ids; the
+    plain version has no use for it)."""
     kw = dict(causal=causal, q_offset=q_offset, quant_bits=quant_bits,
               logit_softcap=logit_softcap, local_window=local_window,
               k_scale=k_scale, v_scale=v_scale, kv_valid_len=kv_valid_len,
@@ -51,7 +53,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               and fits_in_shared_memory(k.shape[1], q.shape[-1]))
     if vision:
         return streaming_attention(q, k, v, quant_bits=quant_bits)
-    return lm_attention(q, k, v, **kw)
+    return lm_attention(q, k, v, segments=segments, **kw)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,

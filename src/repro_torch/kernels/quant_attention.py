@@ -18,6 +18,11 @@ Two CUDA kernels replace the Pallas kernel
     block a KV head and all its <= 4 query rows; K and V read once, the
     scores held in shared memory) and ``tile`` (16 query rows a block, K/V
     tiles double-buffered, dead tiles skipped by position and by segment).
+    With segment ids the tile schedule is keyed to the segment: its blocks
+    are cut at every change of q id and start their key tiles at the
+    segment's first key (``tests/test_torch_attention.py`` models the
+    plan), so a packed prefill gives a prompt's rows the bits of a prefill
+    of that prompt alone.
     Both form q.k with the same exact split-precision tensor-core products
     (q in three bf16 pieces against int8 and bf16 K, three tf32 pieces of
     q and two of k against f32 K), so they give the same scores and codes
@@ -119,6 +124,9 @@ def choose_schedule(Sq: int, Sk: int, H: int, KVH: int, hd: int,
     return 1
 
 
+TILE_ROWS = 16  # the tile schedule's query rows a block
+
+
 def _offset(x, B: int, like: torch.Tensor):
     """A [B] (or broadcastable) integer tensor as a contiguous int32 [B]
     tensor on ``like``'s device and no scalar, or a Python int as the
@@ -140,6 +148,7 @@ def lm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  kv_valid_len: Optional[torch.Tensor] = None,
                  q_segment_ids: Optional[torch.Tensor] = None,
                  kv_segment_ids: Optional[torch.Tensor] = None,
+                 segments: Optional[int] = None,
                  schedule: Optional[int] = None) -> torch.Tensor:
     """q f32 [B, Sq, H, hd], k/v [B, Sk, KVH, hd] f32, bf16 or int8 (int8
     with f32 ``k_scale``/``v_scale`` [B, Sk, KVH]) -> f32 [B, Sq, H, hd]:
@@ -147,7 +156,12 @@ def lm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``MAX_HEAD_DIM``. ``schedule`` forces one of ``SCHEDULES`` (the decode
     schedule only where ``choose_schedule`` picks it; ``chip_smoke.py``
     holds the tile schedule at the decode shapes against it); by default
-    ``choose_schedule`` picks it. One kernel launch a call."""
+    ``choose_schedule`` picks it. ``segments`` (with segment ids): the most
+    runs of equal q ids a batch row holds (a pack's prompts and its pad
+    tail); the tile grid gets that many blocks beyond ceil(Sq / 16), one a
+    block of the segment-keyed plan. Fewer stay correct (a block then takes
+    several in turn); the default is ceil(Sq / 16). One kernel launch a
+    call."""
     _build.require_cuda("lm_attention", q, k, v, k_scale, v_scale, kv_valid_len,
                         q_segment_ids, kv_segment_ids)
     B, Sq, H, hd = q.shape
@@ -187,6 +201,10 @@ def lm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     elif schedule not in SCHEDULES or (schedule == 0 and pick != 0):
         raise ValueError(f"lm_attention schedule {schedule} cannot take q {tuple(q.shape)} "
                          f"over Sk={Sk}, KVH={KVH}")
+    if segments is None:
+        segments = -(-Sq // TILE_ROWS)
+    elif segments < 0:
+        raise ValueError(f"segments={segments}: a count of q id runs, >= 0")
     lib = _build.library()
     kv_type = _KV_TYPES[k.dtype]
     smem = lib.lm_attention_smem_bytes(kv_type, hd, Sq, H // KVH, Sk, schedule)
@@ -199,7 +217,7 @@ def lm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             None if valid is None else valid.data_ptr(), qseg, kseg,
             out.data_ptr(), B, Sq, Sk, H, KVH, hd, off0, valid0,
             int(causal), quant_bits, local_window, float(logit_softcap),
-            math.sqrt(hd), schedule, _build.stream(q))
+            math.sqrt(hd), schedule, int(segments), _build.stream(q))
     _build.check(err, f"lm_attention ({SCHEDULES[schedule]})")
     mode = (f"{'causal' if causal else 'full'}/{str(k.dtype).removeprefix('torch.')}"
             f"/qb{quant_bits}" + ("/segments" if q_segment_ids is not None else "")

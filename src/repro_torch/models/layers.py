@@ -159,7 +159,7 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *
                     positions: Optional[torch.Tensor] = None, causal: bool = True,
                     local_window: int = 0, cache: Optional[dict] = None,
                     cache_index=None, segment_ids: Optional[torch.Tensor] = None,
-                    taps=None):
+                    segments: Optional[int] = None, taps=None):
     """MSA block: qkv proj -> (QK-norm) -> RoPE -> streaming attention ->
     out proj. Returns (y, cache).
 
@@ -174,6 +174,8 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *
     ids; RoPE uses ``positions`` (within-segment) while causal masking runs
     on buffer indices, equal to within-segment distances inside a
     contiguous segment. Cache rows beyond S carry the never-matching id -2.
+    ``segments``: the most runs of equal ids a row holds, the attention
+    kernel's grid hint (``ops.attention``).
     """
     B, S, _ = x.shape
     q = quant_linear(x, p, "wq", cfg).reshape(B, S, a.num_heads, a.head_dim)
@@ -198,7 +200,7 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *
             q, k, v, causal=causal, quant_bits=quant_bits,
             logit_softcap=a.logit_softcap, local_window=local_window,
             q_segment_ids=(None if segment_ids is None
-                           else segment_ids.to(torch.int32)))
+                           else segment_ids.to(torch.int32)), segments=segments)
     else:
         smax = cache["k"].shape[1]
         if 0 < local_window and smax <= local_window:
@@ -229,7 +231,7 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *
             local_window=local_window, k_scale=ks, v_scale=vs, kv_valid_len=valid,
             q_segment_ids=(None if segment_ids is None
                            else segment_ids.to(torch.int32)),
-            kv_segment_ids=kv_segs)
+            kv_segment_ids=kv_segs, segments=segments)
     out = out.reshape(B, S, a.num_heads * a.head_dim)
     maybe_record(taps, "attn_out", out)
     if p["wo"].dtype != torch.int8:

@@ -30,10 +30,11 @@ def abstract_params(cfg: ModelConfig) -> dict:
     return tree
 
 
-def _run(params, cfg: ModelConfig, x: torch.Tensor, states=None, taps=None):
+def _run(params, cfg: ModelConfig, x: torch.Tensor, states=None, taps=None, out=None):
     """Every layer in order. Returns (x, the new states stacked like
-    ``init_cache``; None when recording calibration taps)."""
-    new = None
+    ``init_cache``, written into ``out`` where given; None when recording
+    calibration taps)."""
+    new = out
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         h = apply_norm(x, lp["ln"], cfg)
@@ -84,9 +85,12 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, states,
-                index=None):
-    """One step: tokens [B, 1] from ``states`` (left untouched). Returns
-    (logits [B, 1, V], new states)."""
+                index=None, out=None):
+    """One step: tokens [B, 1] from ``states`` (left untouched unless it
+    is ``out``). Returns (logits [B, 1, V], new states): written into
+    ``out`` (a dict like ``states``; it may be ``states`` itself, each
+    layer's state is read before it is written) where given, else new
+    tensors."""
     x = params["embed"][tokens.long()]
-    x, new_states = _run(params, cfg, x, states=states)
+    x, new_states = _run(params, cfg, x, states=states, out=out)
     return logits_from_hidden(params, cfg, x), new_states

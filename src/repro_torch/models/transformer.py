@@ -149,7 +149,7 @@ def layer(tree, i: int):
 
 
 def _block(x, p, cfg, *, positions, local_window=0, causal=True, cache=None,
-           cache_index=None, segment_ids=None, taps=None):
+           cache_index=None, segment_ids=None, segments=None, taps=None):
     """One pre-norm transformer block; returns (x, aux_loss,
     expert_counts, cache)."""
     h = apply_norm(x, p["ln1"], cfg)
@@ -157,7 +157,7 @@ def _block(x, p, cfg, *, positions, local_window=0, causal=True, cache=None,
     attn_out, cache = attention_block(
         h, p["attn"], cfg, cfg.attn, positions=positions, causal=causal,
         local_window=local_window, cache=cache, cache_index=cache_index,
-        segment_ids=segment_ids, taps=taps)
+        segment_ids=segment_ids, segments=segments, taps=taps)
     if cfg.post_block_norm:
         attn_out = apply_norm(attn_out, p["post_ln1"], cfg)
     x = x + attn_out
@@ -186,7 +186,7 @@ def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tenso
 
 
 def _run_layers(params, cfg: ModelConfig, x, *, positions, caches=None,
-                cache_index=None, segment_ids=None, taps=None):
+                cache_index=None, segment_ids=None, segments=None, taps=None):
     """Every layer in order (the reference's scan as a loop). Returns (x,
     aux_total, expert_counts summed over the MoE layers, caches)."""
     if taps is not None:
@@ -198,7 +198,7 @@ def _run_layers(params, cfg: ModelConfig, x, *, positions, caches=None,
         x, aux, ec, _ = _block(x, layer(params["layers"], i), cfg,
                                positions=positions, local_window=cfg.attn.local_window,
                                cache=cache, cache_index=cache_index,
-                               segment_ids=segment_ids)
+                               segment_ids=segment_ids, segments=segments)
         aux_total = aux_total + aux
         ec_total = ec_total + ec
     return x, aux_total, ec_total, caches
@@ -282,6 +282,8 @@ def prefill_packed(params, cfg: ModelConfig, tokens: torch.Tensor,
     -1 on the pad tail; last_idx [N] buffer index of each prompt's last
     token. Returns (next-token logits [N, V], the packed cache [layers, 1,
     max_len, ...]); the engine scatters each segment's rows into its slot.
+    The attention kernel's grid takes N + 1 runs of equal ids (the prompts
+    and the pad tail), so it is fixed by (P, N).
     """
     x = _embed_inputs(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
@@ -291,7 +293,7 @@ def prefill_packed(params, cfg: ModelConfig, tokens: torch.Tensor,
     cache = init_cache(cfg, B, max_len or S, dtype=x.dtype, device=x.device)
     x, _, _, cache = _run_layers(
         params, cfg, x, positions=positions.reshape(S).to(torch.int32),
-        caches=cache, cache_index=0, segment_ids=seg)
+        caches=cache, cache_index=0, segment_ids=seg, segments=last_idx.shape[0] + 1)
     h_last = x[0].index_select(0, last_idx.long())  # [N, D]
     return logits_from_hidden(params, cfg, h_last), cache
 

@@ -20,13 +20,23 @@ the retirement thread, which alone copies it to the host, appends to each
 request, checks ``eos_id`` and fires ``on_done``. Slot lifetimes are
 host-deterministic (emission counts), so slots free without reading tokens.
 
+Each step is a program of the engine's cache (``_program_key`` /
+``_compiled``, the reference's schema and ``retraces`` counter): the decode
+tick (``_build_tick``) and one packed admission per (bucket, prompt count)
+(``_build_admit``), whose merge into the slots has a fixed shape
+(``merge_pack``). On the card with ``serve.aot_warmup`` (the default) each
+program is a CUDA graph that ``warmup()`` captures (``serving/programs.py``),
+so serving replays graphs and builds nothing; with ``aot_warmup=False``,
+and on the CPU, each runs eagerly through the same code.
+
 A family without ``prefill_packed`` (or ``serve.packed_prefill=False``)
 takes the grouped path instead, as the reference decides it: the polled
 prompts of one length prefill as one ``[n, S]`` batch, each row of the
 prefilled state (SSM: ``h`` and the conv history, kept in f32, the dtype
 ``prefill`` and ``decode_step`` produce) is copied into its slot, and the
-decode tick reads its tokens from the host, takes the argmax there, checks
-``eos_id`` and retires inline.
+decode tick (a program too) reads its tokens from the host, its argmax goes
+to the host, and it checks ``eos_id`` and retires inline; its per-length
+prefill runs eagerly.
 
 The reference's tracer, event log, introspection, expert-health monitor,
 mesh / expert-parallel placement, autotune warmup, eviction and ring
@@ -48,6 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import module_for
 from repro_torch.models.param import require_device, tree_to
 from repro_torch.serving.metrics import EngineMetrics
+from repro_torch.serving.programs import EagerProgram, GraphProgram, PinnedRing, own
 from repro_torch.serving.scheduler import MicroBatcher
 
 
@@ -68,6 +79,40 @@ def _pow2_ladder(lo: int, hi: int) -> Tuple[int, ...]:
         b *= 2
     out.append(hi)
     return tuple(sorted(set(out)))
+
+
+def _as_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [layers, slots, rows, ...] (contiguous) as [layers, slots, rows,
+    n] of the widest integer type whose size divides a row's bytes: the same
+    memory, so a copy through it moves the same bits in fewer elements."""
+    rows = t.reshape(t.shape[:3] + (-1,))
+    nbytes = rows.shape[-1] * rows.element_size()
+    wide = next(d for d in (torch.int64, torch.int32, torch.int16, torch.uint8)
+                if nbytes % d.itemsize == 0)
+    return rows.view(wide)
+
+
+def merge_pack(cache: dict, part: dict, starts: torch.Tensor, lens: torch.Tensor,
+               slots: torch.Tensor, chunk: int) -> None:
+    """Write each pack entry's cache rows into its slot, in place: the
+    reference's fixed-shape masked merge. For entry i, the ``chunk`` rows
+    of the packed prefill's cache ``part`` from ``starts[i]`` go to rows
+    0 .. chunk - 1 of slot ``slots[i]`` wherever the row is below
+    ``lens[i]``; the slot keeps its own rows elsewhere. Every index is a
+    device tensor, entries merge one after another, and a dummy entry
+    (``len == 0``) writes back the rows it read: an exact no-op. Rows move
+    as wide integers (``_as_rows``), after ``part`` takes the cache's
+    dtype."""
+    ar = torch.arange(chunk, device=starts.device)
+    src = {name: _as_rows(part[name].to(buf.dtype))[:, 0] for name, buf in cache.items()}
+    dst = {name: _as_rows(buf) for name, buf in cache.items()}
+    for i in range(starts.shape[0]):
+        slot = slots[i:i + 1].long()
+        keep = (ar < lens[i])[None, None, :, None]
+        for name, rows in src.items():
+            picked = rows.index_select(1, torch.clamp(starts[i] + ar, max=rows.shape[1] - 1))
+            out = dst[name]
+            out[:, slot, :chunk] = torch.where(keep, picked[:, None], out[:, slot, :chunk])
 
 
 def _retire_loop(engine_ref, rq: "queue.Queue") -> None:
@@ -122,7 +167,8 @@ class ServeEngine:
     ``max_pending > 0`` bounds the queue (``submit`` then raises
     ``scheduler.Backpressure``); ``metrics`` exposes tokens/s,
     request latency percentiles, queue depth, the pack counters and (MoE)
-    per-expert routed-token occupancy. ``keep_logits=True`` keeps the
+    per-expert routed-token occupancy, and ``retraces`` the programs built
+    after ``warmup()`` (0 once it has run). ``keep_logits=True`` keeps the
     logits behind every generated token on the request (device tensors,
     no sync)."""
 
@@ -175,8 +221,21 @@ class ServeEngine:
         self._buckets = _pow2_ladder(min(cfg.serve.min_bucket, self.max_prefill),
                                      self.max_prefill)
         self._nb_ladder = _pow2_ladder(1, batch_slots)
-        # next-token feed: device-resident, written by admission and ticks
-        self._tok = torch.zeros(batch_slots, dtype=torch.int32, device=self.device)
+        # next-token feed on the device, written in place by admission and
+        # ticks: slots 0..B-1, and entry B, which takes the dummy pack
+        # entries' writes
+        self._feed = torch.zeros(batch_slots + 1, dtype=torch.int32, device=self.device)
+        self._tok = self._feed[:batch_slots]
+        # the program cache; on the card with aot_warmup every program is a
+        # CUDA graph, captured on one side stream into one memory pool, its
+        # host inputs staged in pinned buffers (a pack is the largest)
+        self._aot = bool(cfg.serve.aot_warmup)
+        self._programs: Dict[str, Callable] = {}
+        self._graphs = self.device.type == "cuda" and self._aot
+        if self._graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+            self._ring = PinnedRing(4 * (3 * self.max_prefill + 4 * batch_slots))
         self._async = bool(cfg.serve.async_retire) and self._packed
         self._rq: "queue.Queue" = queue.Queue()
         self._rthread: Optional[threading.Thread] = None
@@ -195,24 +254,131 @@ class ServeEngine:
                 and self._pending_retire() == 0)
 
     def warmup(self) -> None:
-        """Run one decode tick and one smallest prefill outside the measured
-        path (builds the kernels, warms the allocator). The tick writes
-        cache rows or states of the empty slots; admission overwrites a
-        slot's, so nothing leaks."""
+        """Build the serving programs outside the measured path: the decode
+        tick and, with ``aot_warmup`` on the packed path, the admission of
+        every (bucket x prompt count), so that serving builds nothing
+        (``retraces`` stays 0). On the card with ``aot_warmup`` each is a
+        captured CUDA graph; eagerly, one tick and one smallest prefill run
+        (builds the kernels, warms the allocator), and so does the grouped
+        path's prefill, which stays eager. A tick writes cache rows or
+        states of the empty slots; admission overwrites a slot's, so
+        nothing leaks."""
         b = self._buckets[0]
         zeros = torch.zeros(b, dtype=torch.int32, device=self.device)
         with torch.inference_mode():
+            tick = self._compiled(self._program_key("decode"), self._build_tick,
+                                  count_miss=False)
+            if self._packed and self._aot:
+                for bucket in self._buckets:
+                    for nb in self._nb_ladder:
+                        self._compiled(
+                            self._program_key("packed_prefill", bucket=bucket, n=nb),
+                            lambda b_=bucket, n=nb: self._build_admit(b_, n),
+                            count_miss=False)
+            if self._graphs and self._packed:
+                return
+            if not self._graphs:
+                tick(*self._tick_inputs(np.zeros(self.B, np.int32)))
             if self._packed:
-                self._tick()
                 logits, _ = self.mod.prefill_packed(
                     self.params, self.cfg, zeros[None], zeros, zeros, zeros[:1],
                     max_len=b)
             else:
-                self._decode(torch.zeros((self.B, 1), dtype=torch.int32,
-                                         device=self.device))
                 logits, _ = self.mod.prefill(self.params, self.cfg, zeros[None],
                                              max_len=self.max_len)
             logits.cpu()
+
+    # -- programs (the reference's AOT program cache) ----------------------------
+
+    def _program_key(self, prog: str, **kv) -> str:
+        """Program-cache key in the reference's schema:
+        ``serve/<prog>|B=..|S=..|k=v`` (keys sorted)."""
+        parts = [f"serve/{prog}", f"B={self.B}", f"S={self.max_len}"]
+        parts += [f"{k}={v}" for k, v in sorted(kv.items())]
+        return "|".join(parts)
+
+    def _compiled(self, key: str, build: Callable[[], Callable], count_miss: bool = True):
+        """The program for ``key``, built on a miss. A miss on the serving
+        path adds to ``retraces``, which must stay 0 after ``warmup()``."""
+        prog = self._programs.get(key)
+        if prog is None:
+            if count_miss:
+                self.metrics.inc("retraces")
+            with torch.inference_mode():
+                prog = self._programs[key] = build()
+        return prog
+
+    def _program(self, fn: Callable, *example):
+        """Step ``fn`` as a program: on the card with ``aot_warmup`` a CUDA
+        graph captured from ``example`` inputs (``GraphProgram``; a failed
+        capture raises), else ``fn`` run eagerly."""
+        if not self._graphs:
+            return EagerProgram(fn, self.device)
+        if self._async:
+            self._rq.join()  # no retirement copy runs while a graph is captured
+        return GraphProgram(fn, example, device=self.device, pool=self._pool,
+                            stream=self._stream, ring=self._ring)
+
+    def _tick_inputs(self, host_tokens: np.ndarray):
+        """The tick's inputs: the device feed (packed path) or the host
+        tokens [B], and the fill levels [B] from the host."""
+        return (self._tok if self._packed else host_tokens), self.pos
+
+    def _build_tick(self):
+        """The decode tick: one position for every slot at its own fill
+        level, from tokens [B] (the feed, or host tokens); the cache is
+        updated in place (the SSM's new state is written over the old),
+        the argmax taken on the device and, on the packed path, written to
+        the feed. Returns (next tokens [B] int32, logits [B, V], the
+        routed-token histogram (MoE) or None)."""
+        cfg, mod, params, cache = self.cfg, self.mod, self.params, self.cache
+        with_stats = self._with_stats
+        kw = {"with_stats": True} if with_stats else {}
+        if cfg.ssm is not None:
+            kw["out"] = cache
+        feed = self._tok if self._packed else None
+
+        def tick(tokens, index):
+            out = mod.decode_step(params, cfg, tokens[:, None], cache, index, **kw)
+            logits = out[0][:, -1, :]
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            if feed is not None:
+                feed.copy_(nxt)
+            return nxt, logits, (out[2]["expert_tokens"] if with_stats else None)
+
+        if not self._graphs:
+            return self._program(tick)
+        # the capture's warm-up call decodes one step: put the state back
+        saved = {k: v.clone() for k, v in cache.items()}, self._feed.clone()
+        prog = self._program(tick, *self._tick_inputs(np.zeros(self.B, np.int32)))
+        for k, v in saved[0].items():
+            cache[k].copy_(v)
+        self._feed.copy_(saved[1])
+        return prog
+
+    def _build_admit(self, bucket: int, nb: int):
+        """One packed admission (the reference's ``_build_admit``): one
+        segment-masked prefill over ``[1, bucket]`` tokens holding up to
+        ``nb`` prompts, each prompt's first token (argmax on the device),
+        its K/V rows merged into its slot (``merge_pack``) and its first
+        token into the feed, dummy entries (``len == 0``) dropped. The host
+        input is one int32 array: tokens, positions and segment ids
+        [bucket] each, then last_idx, starts, lens and slots [nb] each.
+        Returns (first tokens [nb], logits [nb, V])."""
+        cfg, mod, params, cache, B = self.cfg, self.mod, self.params, self.cache, self.B
+        feed, chunk = self._feed, min(self.max_len, bucket)
+
+        def admit(packed):
+            tokens, positions, seg = packed[:3 * bucket].view(3, bucket)
+            last_idx, starts, lens, slots = packed[3 * bucket:].view(4, nb)
+            logits, part = mod.prefill_packed(params, cfg, tokens[None], positions, seg,
+                                              last_idx, max_len=bucket)
+            first = torch.argmax(logits, dim=-1).to(torch.int32)  # [nb]
+            merge_pack(cache, part, starts, lens, slots, chunk)
+            feed.index_copy_(0, torch.where(lens > 0, slots, B).long(), first)
+            return first, logits
+
+        return self._program(admit, np.zeros(3 * bucket + 4 * nb, np.int32))
 
     # -- retirement --------------------------------------------------------------
 
@@ -368,20 +534,16 @@ class ServeEngine:
             self.metrics.inc("prefill_batches")
             self.metrics.inc("pack_real_tokens", total)
             self.metrics.inc("pack_pad_tokens", bucket - total)
-            put = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+            slot_ids = np.zeros(nb, np.int32)
+            slot_ids[:len(slots)] = slots
+            prog = self._compiled(self._program_key("packed_prefill", bucket=bucket, n=nb),
+                                  lambda: self._build_admit(bucket, nb))
             with torch.inference_mode():
-                logits, part = self.mod.prefill_packed(
-                    self.params, self.cfg, put(tokens), put(positions), put(seg),
-                    put(last_idx), max_len=bucket)
-                first = torch.argmax(logits, dim=-1).to(torch.int32)  # [nb]
-                for i, slot in enumerate(slots):
-                    s, n = int(starts[i]), int(lens[i])
-                    for name, buf in self.cache.items():
-                        buf[:, slot, :n] = part[name][:, 0, s:s + n]
-                # out of place: the last tick's event still holds the old
-                # feed until the retirement thread copies it home
-                self._tok = self._tok.index_put(
-                    (torch.tensor(slots, device=self.device),), first[:len(slots)])
+                first, logits = prog(np.concatenate(
+                    [tokens[0], positions, seg, last_idx, starts, lens, slot_ids]))
+                first = own(prog, first)
+                if self._keep_logits:
+                    logits = own(prog, logits)
             append = []
             for i, (slot, req) in enumerate(zip(slots, reqs)):
                 self.pos[slot] = lens[i]
@@ -431,35 +593,20 @@ class ServeEngine:
 
     # -- decode ------------------------------------------------------------------
 
-    def _decode(self, tokens: torch.Tensor):
-        """One decode position for every slot at its own fill level, from
-        tokens [B, 1] on the device. The cache becomes the step's (the
-        transformer's is updated in place, the ssm state is new). Returns
-        (logits [B, V], the routed-token histogram (MoE) or None)."""
-        index = torch.from_numpy(self.pos).to(self.device)
-        kw = {"with_stats": True} if self._with_stats else {}
-        out = self.mod.decode_step(self.params, self.cfg, tokens, self.cache, index, **kw)
-        self.cache = out[1]
-        return out[0][:, -1, :], (out[2]["expert_tokens"] if self._with_stats else None)
-
-    def _tick(self):
-        """The packed path's decode: reads and replaces the device-side
-        next-token feed. Returns what ``_decode`` does."""
-        logits, stats = self._decode(self._tok[:, None])
-        self._tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return logits, stats
-
     def _step_grouped(self) -> None:
         """The grouped path's tick: tokens from the host, argmax to the
         host, EOS checked and finished requests retired inline."""
-        tokens = np.zeros((self.B, 1), np.int32)
+        tokens = np.zeros(self.B, np.int32)
         for slot, req in self.active.items():
-            tokens[slot, 0] = req.generated[-1]
+            tokens[slot] = req.generated[-1]
+        tick = self._compiled(self._program_key("decode"), self._build_tick)
         with torch.inference_mode():
-            logits, stats = self._decode(torch.from_numpy(tokens).to(self.device))
+            nxt, logits, stats = tick(*self._tick_inputs(tokens))
+            if self._keep_logits:
+                logits = own(tick, logits)
         if stats is not None:
             self.metrics.add_expert_tokens(stats.cpu().numpy())
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = nxt.cpu().numpy()
         now = self._clock()
         self.metrics.inc("decode_ticks")
         self.metrics.work_done(len(self.active), "tokens")
@@ -489,9 +636,12 @@ class ServeEngine:
         if not self._packed:
             self._step_grouped()
             return
+        tick = self._compiled(self._program_key("decode"), self._build_tick)
         with torch.inference_mode():
-            logits, stats = self._tick()
-        nxt = self._tok
+            nxt, logits, stats = tick(*self._tick_inputs(None))
+            nxt, stats = own(tick, (nxt, stats))
+            if self._keep_logits:
+                logits = own(tick, logits)
         now = self._clock()
         self.metrics.inc("decode_ticks")
         self.metrics.work_done(len(self.active), "tokens")

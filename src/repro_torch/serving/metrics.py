@@ -119,6 +119,8 @@ class EngineMetrics:
       tokens           -- decode tokens produced (LM)
       pack_real_tokens / pack_pad_tokens -- real and padding tokens of the
                           dispatched buffers (LM pack buffer, vision patches)
+      retraces         -- serving programs built after construction outside
+                          ``warmup()``; 0 once it has run
       callback_errors / retire_errors    -- ``on_done`` or a retirement
                           event raised (LM)
     ``expert_tokens`` accumulates the per-expert routed-token histogram

@@ -12,8 +12,14 @@ at once. On a card, ``classify`` only enqueues kernels on the current CUDA
 stream and returns; a CUDA event recorded after each batch says when its
 work has finished, and retirement synchronizes by copying the results to
 the host. Batch shapes are quantized to the ``batch_buckets`` ladder (zero
-pad rows). The reference's mesh/expert-parallel placement, tracer, event
-log, introspection and autotuning are not ported yet.
+pad rows), and each bucket has its program (``classify|b=<bucket>``, the
+reference's one jitted program a bucket): on the card with
+``serve.aot_warmup`` a CUDA graph that ``warmup()`` captures
+(``serving/programs.py``), whose outputs each dispatch clones, so a replay
+never overwrites a batch still in flight; with ``aot_warmup=False``, and on
+the CPU, ``classify`` run eagerly. The reference's mesh/expert-parallel
+placement, tracer, event log, introspection and autotuning are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from repro_torch.models.param import require_device, tree_to
 from repro_torch.models.vit import PATCH_DIM, classify
 from repro_torch.serving.engine import serving_config
 from repro_torch.serving.metrics import EngineMetrics
+from repro_torch.serving.programs import EagerProgram, GraphProgram, PinnedRing, own
 from repro_torch.serving.scheduler import MicroBatcher
 
 
@@ -89,19 +96,48 @@ class VisionEngine:
             num_experts=cfg.moe.num_experts if cfg.moe is not None else 0)
         self.max_inflight = max(1, int(max_inflight))
         self._inflight: deque = deque()
+        # one program a bucket; on the card with aot_warmup each is a CUDA
+        # graph (one side stream, one memory pool, pinned input staging)
+        self._programs: dict = {}
+        self._graphs = self.device.type == "cuda" and self.cfg.serve.aot_warmup
+        if self._graphs:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+            self._ring = PinnedRing(4 * max(self.scheduler.batch_sizes) * self.n_patches
+                                    * PATCH_DIM, depth=self.max_inflight + 2)
 
     # -- lifecycle ----------------------------------------------------------
 
-    def _classify(self, x: torch.Tensor) -> dict:
-        with torch.inference_mode():
-            return classify(self.params, self.cfg, x, top_k=self.top_k)
+    def _compiled(self, b: int, count_miss: bool = True):
+        """The program of bucket ``b``, built on a miss (which adds to
+        ``retraces`` when it happens while serving)."""
+        key = f"classify|b={b}"
+        prog = self._programs.get(key)
+        if prog is None:
+            if count_miss:
+                self.metrics.inc("retraces")
+            params, cfg, k = self.params, self.cfg, self.top_k
+
+            def fn(x):
+                return classify(params, cfg, x, top_k=k)
+
+            with torch.inference_mode():
+                prog = self._programs[key] = (
+                    GraphProgram(fn, [np.zeros((b, self.n_patches, PATCH_DIM), np.float32)],
+                                 device=self.device, pool=self._pool, stream=self._stream,
+                                 ring=self._ring)
+                    if self._graphs else EagerProgram(fn, self.device))
+        return prog
 
     def warmup(self) -> None:
-        """Run every bucket size once (builds the kernels and warms the
-        allocator outside the measured serving path)."""
+        """Build every bucket's program outside the measured serving path
+        (on the card with ``aot_warmup``: capture its graph; eagerly: run
+        it once, which builds the kernels and warms the allocator)."""
         for b in self.scheduler.batch_sizes:
-            x = torch.zeros((b, self.n_patches, PATCH_DIM), device=self.device)
-            self._classify(x)["classes"].cpu()
+            prog = self._compiled(b, count_miss=False)
+            if prog.graph is None:
+                with torch.inference_mode():
+                    prog(np.zeros((b, self.n_patches, PATCH_DIM), np.float32))["classes"].cpu()
 
     @property
     def inflight(self) -> int:
@@ -167,17 +203,15 @@ class VisionEngine:
             t0 = time.monotonic()
             for r in reqs:
                 self.metrics.queue_wait.record(max(0.0, t0 - r.submitted_at))
-            xt = torch.from_numpy(x)
+            # the program copies x from pinned memory without waiting: the
+            # copy queues behind the batch in flight
+            prog = self._compiled(batch.pad_to)
+            with torch.inference_mode():
+                out = own(prog, prog(x))
             finished = None
             if self.device.type == "cuda":
-                # pinned + non_blocking: the copy queues behind the batch in
-                # flight instead of blocking the host until it finishes
-                xt = xt.pin_memory().to(self.device, non_blocking=True)
-                out = self._classify(xt)
                 finished = torch.cuda.Event()
                 finished.record()
-            else:
-                out = self._classify(xt)
             self._inflight.append(_InFlight(reqs, batch.pad_to, out, finished, t0))
             self.metrics.inc("batches")
             self.metrics.inc("padded_frames", batch.pad_to - len(reqs))

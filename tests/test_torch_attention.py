@@ -214,23 +214,101 @@ DECODE_KEYS, DECODE_WARPS = 64, 8  # the decode schedule's ring tile and warps
 
 
 def _tile_block_keys(b, q0, bq, Sq, Sk, causal, q_off, valid, window, qseg, kseg):
-    """lm_tile_kernel's walk for the block of rows [q0, q0 + bq) of batch b:
-    the key range [klo, khi) and its 64-key tiles, a tile skipped when none
-    of its kv segment ids equals a q id of the block's rows. Returns the
-    keys of the tiles walked."""
+    """lm_tile_kernel's walk for the block of rows [q0, q0 + bq) of batch b
+    without segment ids: the key range [klo, khi) and its 64-key tiles.
+    Returns the keys of the tiles walked."""
     n_rows = min(bq, Sq - q0)
     vb = min(valid[b], Sk)
     pos_first, pos_last = q_off[b] + q0, q_off[b] + q0 + n_rows - 1
     khi = min(vb, pos_last + 1) if causal else vb
     klo = max(0, pos_first - window + 1) if window > 0 else 0
-    ntiles = -(-(khi - klo) // TILE_KEYS) if khi > klo else 0
     keys = set()
-    for t in range(ntiles):
-        k0, k1 = klo + t * TILE_KEYS, min(khi, klo + (t + 1) * TILE_KEYS)
-        if qseg is not None and not set(kseg[b, k0:k1]) & set(qseg[b, q0:q0 + n_rows]):
-            continue
-        keys.update(range(k0, k1))
+    for k0 in range(klo, khi, TILE_KEYS):
+        keys.update(range(k0, min(khi, k0 + TILE_KEYS)))
     return keys
+
+
+def _tile_plan(qseg, kseg, Sk, *, q_off=0, valid=None, causal=True, window=0):
+    """lm_tile_kernel's segment-keyed plan over one batch row (plan_block,
+    then tile_block): the rows cut into runs of equal q id, each run into
+    blocks of TILE_ROWS rows from its first row; a block's keys [klo, khi)
+    start at the first key of its id at or past the window start of its
+    first row and are walked in 64-key tiles, a tile live when it holds a
+    key of the block's id. Returns (q0, n_rows, klo, live tile starts) a
+    block, in plan order."""
+    Sq = len(qseg)
+    valid = Sk if valid is None else min(valid, Sk)
+    plan, r = [], 0
+    while r < Sq:
+        end = r
+        while end < Sq and qseg[end] == qseg[r]:
+            end += 1
+        for q0 in range(r, end, TILE_ROWS):
+            n = min(TILE_ROWS, end - q0)
+            sigma = qseg[q0]
+            khi = min(valid, q_off + q0 + n) if causal else valid
+            lo = max(0, q_off + q0 - window + 1) if window > 0 else 0
+            klo = next((k for k in range(lo, khi) if kseg[k] == sigma), max(khi, lo))
+            tiles = [k0 for k0 in range(klo, khi, TILE_KEYS)
+                     if (kseg[k0:min(k0 + TILE_KEYS, khi)] == sigma).any()]
+            plan.append((q0, n, klo, tiles))
+        r = end
+    return plan
+
+
+def _plan_block(qseg, pb, threads=256):
+    """lm_attention.cu's plan_block, step for step: ids in chunks of
+    ``threads`` rows, warp 0 walking each 32 rows at a time with ballots
+    (run starts, block starts, the pb-th block start), the run and the id
+    before carried from chunk to chunk. Returns (first row, rows) or
+    (-1, 0)."""
+    Sq, count, run_start, prev, row = len(qseg), 0, 0, 0, -1
+    for base in range(0, Sq, threads):
+        if row >= 0:
+            break
+        ids = [int(qseg[base + i]) if base + i < Sq else 0 for i in range(threads)]
+        for sub in range(0, threads, 32):
+            if base + sub >= Sq or row >= 0:
+                break
+            r = [base + sub + lane for lane in range(32)]
+            before = [ids[sub + lane - 1] if lane else (ids[sub - 1] if sub else prev)
+                      for lane in range(32)]
+            starts = [r[i] < Sq and (r[i] == 0 or ids[sub + i] != before[i]) for i in range(32)]
+            rs = []
+            for lane in range(32):
+                upto = [i for i in range(lane + 1) if starts[i]]
+                rs.append(base + sub + upto[-1] if upto else run_start)
+            first = [r[i] < Sq and (r[i] - rs[i]) % TILE_ROWS == 0 for i in range(32)]
+            hit = [first[i] and sum(first[:i]) == pb - count for i in range(32)]
+            if any(hit):
+                row = base + sub + hit.index(True)
+            count += sum(first)
+            if any(starts):
+                run_start = base + sub + max(i for i in range(32) if starts[i])
+        prev = ids[threads - 1]
+    if row < 0:
+        return -1, 0
+    n = 0
+    while n < TILE_ROWS and row + n < Sq and qseg[row + n] == qseg[row]:
+        n += 1
+    return row, n
+
+
+def _random_pack(rng, Sq, Sk=None):
+    """Packed q ids [Sq]: prompts of 1.. tokens back to back (starts off
+    the 16-row grid), a pad tail of -1; kv ids [Sk] the same, -2 past Sq."""
+    Sk = Sq if Sk is None else Sk
+    qseg = np.full(Sq, -1, np.int32)
+    pos, i = 0, 0
+    tail = int(rng.integers(0, max(Sq // 6, 1) + 1))
+    while pos < Sq - tail:
+        n = int(rng.choice([1, 1, 2, 3, 15, 16, 17, 31, 33, 64, 65, 100]))
+        n = min(n, Sq - tail - pos)
+        qseg[pos:pos + n] = i
+        pos, i = pos + n, i + 1
+    kseg = np.full(Sk, -2, np.int32)
+    kseg[:Sq] = qseg
+    return qseg, kseg
 
 
 def _visible(B, Sq, Sk, causal, q_off, valid, window, qseg, kseg):
@@ -251,9 +329,9 @@ def _visible(B, Sq, Sk, causal, q_off, valid, window, qseg, kseg):
 def test_tile_schedule_never_skips_a_visible_pair(seed):
     """Random masks (causal or not, offsets, fill levels, windows, packed
     segment ids with q pad -1 and kv pad -2): every visible (row, key) pair
-    lies in a tile the block walks; with segments, tiles whose ids only
-    bracket the block's (a pad row's -1 below, a prompt's id above) are
-    skipped too."""
+    lies in a tile its block walks; with segments (the segment-keyed
+    plan), every walked tile holds a key of the block's id, so the tiles of
+    the other prompts are skipped."""
     rng = np.random.default_rng(seed)
     B, Sq = 2, int(rng.integers(1, 160))
     Sk = Sq + int(rng.integers(0, 200))
@@ -273,22 +351,112 @@ def test_tile_schedule_never_skips_a_visible_pair(seed):
         q_off[:] = 0
         qseg = kseg[:, :Sq].copy()
     vis = _visible(B, Sq, Sk, causal, q_off, valid, window, qseg, kseg)
-    skipped = bracketed = 0
-    bq = TILE_ROWS
+    skipped = 0
     for b in range(B):
-        for q0 in range(0, Sq, bq):
-            walked = _tile_block_keys(b, q0, bq, Sq, Sk, causal, q_off, valid,
-                                      window, qseg, kseg)
-            need = set(np.flatnonzero(vis[b, q0:q0 + bq].any(0)))
+        if qseg is None:
+            blocks = [(q0, min(TILE_ROWS, Sq - q0), _tile_block_keys(
+                b, q0, TILE_ROWS, Sq, Sk, causal, q_off, valid, window, qseg, kseg))
+                for q0 in range(0, Sq, TILE_ROWS)]
+        else:
+            blocks = []
+            for q0, n, _, tiles in _tile_plan(qseg[b], kseg[b], Sk, q_off=int(q_off[b]),
+                                              valid=int(valid[b]), causal=causal,
+                                              window=window):
+                khi = min(valid[b], q0 + n) if causal else valid[b]
+                walked = set()
+                for k0 in tiles:
+                    walked.update(range(k0, min(k0 + TILE_KEYS, khi)))
+                    assert (kseg[b, k0:min(k0 + TILE_KEYS, khi)] == qseg[b, q0]).any()
+                blocks.append((q0, n, walked))
+        for q0, n, walked in blocks:
+            need = set(np.flatnonzero(vis[b, q0:q0 + n].any(0)))
             assert need <= walked
             skipped += len(set(range(Sk)) - walked)
-            if qseg is not None:  # tiles a [min, max] id range would keep
-                lo, hi = qseg[b, q0:q0 + bq].min(), qseg[b, q0:q0 + bq].max()
-                bracketed += sum(1 for k in range(Sk) if k not in walked
-                                 and lo <= kseg[b, k] <= hi)
     assert skipped > 0  # the rule does skip work
-    if qseg is not None and Sq > 64:
-        assert bracketed > 0
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_segment_plan_keeps_blocks_inside_segments(seed):
+    """The segment-keyed plan over random packs (prompts of 1 token, starts
+    off the 16-row grid, a pad tail of -1): its blocks cover every row
+    once, no block straddles two ids, each starts 16 j rows into its run,
+    and the kernel's ballot walk (``_plan_block``, with chunks of 256 and of
+    64 rows to cross chunk edges) finds the same blocks and -1 past the
+    last; any grid of at least one block takes every plan block once."""
+    rng = np.random.default_rng(100 + seed)
+    Sq = int(rng.choice([1, 5, 32, 33, 64, 100, 256, 300, 512, 600]))
+    qseg, kseg = _random_pack(rng, Sq)
+    plan = _tile_plan(qseg, kseg, Sq)
+    rows = np.zeros(Sq, int)
+    for q0, n, _, _ in plan:
+        rows[q0:q0 + n] += 1
+        assert (qseg[q0:q0 + n] == qseg[q0]).all()
+        run0 = q0
+        while run0 > 0 and qseg[run0 - 1] == qseg[q0]:
+            run0 -= 1
+        assert (q0 - run0) % TILE_ROWS == 0
+    assert (rows == 1).all()
+    runs = 1 + int((qseg[1:] != qseg[:-1]).sum())
+    assert len(plan) <= -(-Sq // TILE_ROWS) + runs  # the grid the engine launches
+    for threads in (256, 64):
+        got = [_plan_block(qseg, pb, threads) for pb in range(len(plan) + 2)]
+        assert got == [(q0, n) for q0, n, _, _ in plan] + [(-1, 0)] * 2
+    for grid in (1, 3, len(plan)):
+        taken = [pb for x in range(grid) for pb in range(x, len(plan), grid)]
+        assert sorted(taken) == list(range(len(plan)))
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_segment_plan_tiles_start_at_the_segments_first_key(seed):
+    """Each block's key tiles start at its segment's first key (the window
+    start where that is later), and every visible (row, key) pair is
+    scored exactly once: it lies in one walked tile of its row's block,
+    taken by one warp (key offset in the tile // 8) and one lane column."""
+    rng = np.random.default_rng(200 + seed)
+    Sq = int(rng.choice([7, 40, 100, 257, 512]))
+    Sk = Sq + int(rng.integers(0, 64))
+    window = int(rng.integers(1, 80)) if seed % 3 == 1 else 0
+    qseg, kseg = _random_pack(rng, Sq, Sk)
+    vis = _visible(1, Sq, Sk, True, np.zeros(1, int), np.asarray([Sk]), window,
+                   qseg[None], kseg[None])[0]
+    scored = np.zeros((Sq, Sk), int)
+    for q0, n, klo, tiles in _tile_plan(qseg, kseg, Sk, window=window):
+        start = int(np.flatnonzero(kseg == qseg[q0])[0])
+        lo = max(0, q0 - window + 1) if window else 0
+        assert klo == max(start, lo)
+        assert all((k0 - klo) % TILE_KEYS == 0 for k0 in tiles)
+        khi = q0 + n
+        for k0 in tiles:
+            for j in range(TILE_KEYS):  # warp j // 8, lane column j % 8
+                key = k0 + j
+                if key < khi:
+                    for r in range(q0, q0 + n):
+                        scored[r, key] += vis[r, key]
+    assert (scored == vis).all()
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_segment_plan_walk_in_a_pack_equals_the_walk_alone(seed):
+    """A prompt at offset s of a pack is walked as a prefill of it alone
+    at offset 0 (no segment ids): the same blocks, key ranges and tiles,
+    shifted by s. So each key meets the same tile, warp and lane, each
+    row the same block row, and the sums run in the same order."""
+    rng = np.random.default_rng(300 + seed)
+    Sq = int(rng.choice([33, 100, 256, 512]))
+    window = int(rng.integers(1, 80)) if seed % 4 == 3 else 0
+    qseg, kseg = _random_pack(rng, Sq)
+    plan = _tile_plan(qseg, kseg, Sq, window=window)
+    for sigma in set(qseg.tolist()) - {-1}:
+        where = np.flatnonzero(qseg == sigma)
+        s, n = int(where[0]), len(where)
+        packed = [(q0 - s, rows, klo - s, [k0 - s for k0 in tiles])
+                  for q0, rows, klo, tiles in plan if qseg[q0] == sigma]
+        alone = []
+        for q0 in range(0, n, TILE_ROWS):
+            rows = min(TILE_ROWS, n - q0)
+            klo = max(0, q0 - window + 1) if window else 0
+            alone.append((q0, rows, klo, list(range(klo, q0 + rows, TILE_KEYS))))
+        assert packed == alone
 
 
 @pytest.mark.parametrize("klo,khi", [(0, 0), (0, 1), (0, 63), (0, 64), (0, 65), (17, 300),

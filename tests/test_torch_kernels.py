@@ -252,7 +252,8 @@ def test_cpu_tensors_never_reach_a_kernel():
     ("int8_matmul.cu", "mma"), ("int8_matmul.cu", "stream"), ("int8_matmul.cu", "dp4a"),
     ("grouped_matmul.cu", "mma"), ("grouped_matmul.cu", "stream"),
     ("grouped_matmul.cu", "dp4a"), ("lm_attention.cu", "decode"),
-    ("lm_attention.cu", "tile"), ("selective_scan.cu", ""), ("selective_scan.cu", "states"),
+    ("lm_attention.cu", "tile"), ("lm_attention.cu", "segment-keyed"),
+    ("selective_scan.cu", ""), ("selective_scan.cu", "states"),
     ("selective_scan.cu", "lane"), ("quant_attention.cu", "tile"),
     ("quant_attention.cu", "shared memory"), ("rmsnorm.cu", ""), ("rmsnorm.cu", "registers"),
 ])
