@@ -17,9 +17,14 @@ caught:
                  int8 and W4A8 in every variant (mma, stream, dp4a), bit-equal
                  at the M3ViT-S and OLMoE-1B-7B decode / prefill shapes and at
                  ``GROUPED_RAGGED``, timed in the chosen variant beside dp4a
-                 (cold L2 at decode), and the f32 mode at the M3ViT-S and
-                 OLMoE calibration shapes, each timed call alone one device
-                 kernel; ``streaming_attention`` with ``lm_attention`` on the
+                 (cold L2 at decode); the f32 mode in every variant (mma,
+                 stream: 3xTF32, bit-equal to each other; fma: the first
+                 port's tiles) within atol = rtol = 1e-5 at the M3ViT-S and
+                 OLMoE calibration, decode and prefill shapes and at
+                 ``GROUPED_RAGGED``, timed in the chosen variant beside fma
+                 (cold L2 at decode) and bounded at the f32 FMA and the
+                 3xTF32 rates; each timed call alone one device kernel;
+                 ``streaming_attention`` with ``lm_attention`` on the
                  same vision inputs; every LM mode of ``lm_attention`` at the
                  OLMoE-1B-7B shapes, and at head dims 112 and 100
                  (exact-score inputs within 1e-5; with Gaussian q the
@@ -28,7 +33,9 @@ caught:
                  ``PARENT_GAUSSIAN_OVER``; at the decode shapes the tile
                  schedule bit-equal to the decode schedule; a call alone one
                  device kernel; ``scaled_dot_product_attention`` timed
-                 beside each ``quant_bits=0`` row); the vision case of
+                 beside each ``quant_bits=0`` row, the fp admission's
+                 ``packed_prefill_f32`` beside SDPA with its block-diagonal
+                 causal mask); the vision case of
                  ``streaming_attention`` (its Gaussian rows over 1e-4 no more
                  than ``PARENT_VISION_GAUSSIAN_OVER``) at M3ViT-S and at
                  ``VISION_EDGES``; ``selective_scan`` at the
@@ -70,8 +77,20 @@ caught:
                  phases 7 and 8);
   7. lm       -- full-width OLMoE-1B-7B (``configs/olmoe_1b_7b.py``): seeded
                  fp init on the card, calibration on 2 batches of 2 x 32
-                 tokens, PTQ to the int8 tree and to the W4A8 tree (the fp
-                 tree is then freed); each tree is served by
+                 tokens, PTQ to the int8 tree and to the W4A8 tree. The fp
+                 tree is first served as ``launch/serve.py`` serves it
+                 without ``--quantized`` (``_serve_lm_fp``: f32 weights,
+                 bf16 K/V cache, ``quant_bits=0``, the same engine, programs
+                 and requests as below): launches 0 / 32 / 16 / 65 a
+                 forward, the grouped calls all f32 (stream in a tick, mma
+                 in an admission), ``retraces`` 0, every request completes,
+                 every step teacher-forced against ``prefill``: the served
+                 engine (bf16 cache) within ``LM_FP_TF_LIMITS``, the same
+                 engine with an f32 cache every token within
+                 ``LM_FP_TF_TOL`` of the argmax; the ``aot_warmup=False``
+                 engine bit-equal; its tick and
+                 admission profiled as below; then the fp tree and its
+                 engines are freed. Each quantized tree is served by
                  ``ServeEngine(batch_slots=8, max_len=512)``, its decode
                  tick and 20 packed admissions (5 buckets x 4 prompt counts)
                  captured as CUDA graphs by ``warmup()`` (gated as in phase
@@ -123,6 +142,8 @@ CUDA-event times of eager calls (``rmsnorm``'s: graph replays).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -139,6 +160,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 INT8_OPS_PER_S = 1979e12  # dense tensor-core int8
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # dense tensor-core tf32
 REPLACES = {
     "int8_matmul": "src/repro/kernels/int8_matmul.py:53",
     "grouped_matmul": "src/repro/kernels/expert_linear.py:172",
@@ -169,12 +191,32 @@ LM_PER_FORWARD = {"int8_matmul": 81, "grouped_matmul": 32, "lm_attention": 16,
 KERNEL_NAMES = {
     "int8_matmul": ("int8_mma_kernel", "int8_stream_kernel", "int8_matmul_kernel"),
     "grouped_matmul": ("gmm_mma_kernel", "gmm_stream_kernel", "gmm_dp4a_kernel",
-                       "gmm_f32_kernel"),
+                       "gmm_f32_mma_kernel", "gmm_f32_stream_kernel", "gmm_f32_fma_kernel"),
     "streaming_attention": ("quant_attention_kernel",),
     "lm_attention": ("lm_decode_kernel", "lm_tile_kernel"),
     "selective_scan": ("selective_scan_kernel",),
     "rmsnorm": ("rmsnorm_kernel",),
 }
+# per forward of the fp tree served as launch/serve.py serves it: the dense
+# linears are torch matmuls, the expert linears the f32 grouped mode
+LM_FP_PER_FORWARD = {"int8_matmul": 0, "grouped_matmul": 32, "lm_attention": 16,
+                     "rmsnorm": 65}
+# the fp engine's emitted token may sit this far below the teacher-forced
+# argmax of prefill (tests/test_torch_lm.py holds the same gate on the CPU)
+LM_FP_TF_TOL = 1e-2
+# teacher-forced limits on the served fp engine: median and p90 of the
+# per-step relative logit error max |engine - prefill| / max |prefill|, and
+# the steps (of 512) whose token sits more than LM_FP_TF_TOL below
+# prefill's argmax. Its decode reads the bf16 K/V cache, prefill f32 K/V,
+# and 16 random-weight layers with top-8 routing amplify that rounding: an
+# H100 read median 8.59e-4, p90 0.0354 and 6 such steps (largest gap
+# 0.118); the limits sit 3x above. The same engine with an f32 cache (the
+# control) read median 1.04e-6, max 1.43e-6 and every token at the argmax:
+# it is held to LM_FP_TF_TOL at every step and to a median of
+# LM_FP_CTL_MEDIAN, so a fault (wrong slot, row or position, which moves
+# logits by their size) fails either gate
+LM_FP_TF_LIMITS = (2.6e-3, 0.11, 18)
+LM_FP_CTL_MEDIAN = 1e-5
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 512, 16, 32
 PROFILE_ATTEMPTS = 5  # traces of one profile, at most, while one is incomplete
 # teacher-forced gate, per tree: every request at these steps (the first
@@ -488,64 +530,104 @@ def _check_grouped_variants(x, w, sizes, ws, a_s, checked: dict) -> None:
             checked[VARIANTS[v]] = checked.get(VARIANTS[v], 0) + 1
 
 
+GROUPED_F32_SEED = 7  # the f32 grouped operands at the decode, prefill and ragged shapes
+
+
+def _check_grouped_f32(x, w, sizes, checked: dict) -> float:
+    """Every f32 variant that takes the widths within atol = rtol = 1e-5 of
+    ``grouped_matmul_ref``, and variants 1 and 2 bit-equal to each other
+    (one 3xTF32 chunk arithmetic); counts the calls in ``checked`` and
+    returns the largest error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.expert_linear import F32_VARIANTS, grouped_matmul, takes
+
+    T, Din = x.shape
+    G, _, Dout = w.shape
+    want = ref.grouped_matmul_ref(x, w, sizes)
+    got, err = {}, 0.0
+    for v in F32_VARIANTS:
+        if not takes(v, Din, Dout, f32=True):
+            continue
+        got[v] = grouped_matmul(x, w, sizes, variant=v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[v], want, atol=1e-5, rtol=1e-5, msg=lambda m: (
+            f"grouped f32[{F32_VARIANTS[v]}] T={T} G={G} {Din}->{Dout}: {m}"))
+        err = max(err, max_err(got[v], want))
+        checked[F32_VARIANTS[v]] = checked.get(F32_VARIANTS[v], 0) + 1
+    if 1 in got and not torch.equal(got[1], got[2]):
+        raise AssertionError(f"grouped f32 T={T} G={G} {Din}->{Dout}: mma and stream are not "
+                             f"bit-equal, max diff {max_err(got[1], got[2])}")
+    return err
+
+
+def _f32_operands(gen, T, G, Din, Dout, sizes=None):
+    """Gaussian x and a stack scaled by 1 / sqrt(Din), so outputs are O(1)."""
+    sizes = (_routing(gen, T, G) if sizes is None
+             else torch.tensor(sizes, dtype=torch.int32, device="cuda"))
+    x = torch.randn((T, Din), generator=gen, device="cuda")
+    w = torch.randn((G, Din, Dout), generator=gen, device="cuda") / math.sqrt(max(Din, 1))
+    return x, w, sizes
+
+
 def _check_grouped_matmul(gen) -> list:
     """The int8 mode in every variant, bit-equal, at the M3ViT-S expert
     shapes, the OLMoE-1B-7B decode / prefill shapes and ``GROUPED_RAGGED``;
-    the f32 mode at the M3ViT-S and OLMoE calibration shapes; then the
-    timed rows (``_grouped_timing``)."""
-    from repro_torch.kernels import ref
+    the f32 mode in every variant (``_check_grouped_f32``) at the M3ViT-S
+    calibration shapes, the OLMoE decode / prefill / calibration shapes and
+    ``GROUPED_RAGGED``; then the timed rows (``_grouped_timing``)."""
     from repro_torch.kernels.expert_linear import grouped_matmul
 
     B, G = 8, 16
     T = 2 * 197 * B  # top-2 routed rows of a batch of 8
     checked: dict = {}
-    rows = {}
+    f32_checked: dict = {}
+    # the f32 operands no earlier design drew take their own generator, so
+    # ``gen`` reaches the later checks in the state their gates were read in
+    fgen = torch.Generator(device="cuda").manual_seed(GROUPED_F32_SEED)
+    f32_err, rows = 0.0, {}
     for Din, Dout in ((384, 1536), (1536, 384)):
         x, w, sizes, ws, a_s = _grouped_operands(gen, T, G, Din, Dout, False)
         _check_grouped_variants(x, w, sizes, ws, a_s, checked)
         xf = torch.randn((T, Din), generator=gen, device="cuda")
         wf = torch.randn((G, Din, Dout), generator=gen, device="cuda") / math.sqrt(Din)
-        gotf, wantf = grouped_matmul(xf, wf, sizes), ref.grouped_matmul_ref(xf, wf, sizes)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(gotf, wantf, atol=1e-5, rtol=1e-5)
-        rows[Din] = (x, w, sizes, ws, a_s, xf, wf, max_err(gotf, wantf))
+        f32_err = max(f32_err, _check_grouped_f32(xf, wf, sizes, f32_checked))
+        rows[Din] = (x, w, sizes, ws, a_s, xf, wf)
     for T_, G_, Din, Dout, sz in GROUPED_RAGGED:
         _check_grouped_variants(*_grouped_operands(gen, T_, G_, Din, Dout, False, sz),
                                 checked)
+        f32_err = max(f32_err, _check_grouped_f32(*_f32_operands(fgen, T_, G_, Din, Dout, sz),
+                                                  f32_checked))
 
-    x, w, sizes, ws, a_s, xf, wf, f32_err = rows[384]  # expert fc1
+    x, w, sizes, ws, a_s, xf, wf = rows[384]  # expert fc1
     int8_row = {"name": "grouped_matmul", "mode": "int8", "max_abs_err": 0.0,
                 "tolerance": "bit-equal", "library_ms": None,
                 **_grouped_timing("m3vit_fc1", x, w, sizes, ws, a_s), "olmoe": []}
-    f32_row = {"name": "grouped_matmul_f32", "mode": "f32 (not redesigned, calibration only)",
-               "max_abs_err": f32_err, "tolerance": "atol=1e-5, rtol=1e-5",
+    f32_row = {"name": "grouped_matmul_f32", "mode": "f32",
+               "tolerance": "atol=1e-5, rtol=1e-5; mma and stream bit-equal",
                "library_ms": None, **_grouped_timing("m3vit_fc1", xf, wf, sizes), "olmoe": []}
 
     # OLMoE-1B-7B, 64 experts, fc1 (2048 -> 2 x 1024) and fc2 (1024 ->
-    # 2048), fc1 timed: int8 at a decode tick (8 slots x top-8 = 64 routed
-    # rows) and a 512-token packed prefill (4096 rows), f32 at a calibration
-    # forward (2 x 32 tokens x top-8 = 512 rows)
+    # 2048), fc1 timed: int8 and f32 at a decode tick (8 slots x top-8 = 64
+    # routed rows, cold L2) and a 512-token packed prefill (4096 rows), f32
+    # also at a calibration forward (2 x 32 tokens x top-8 = 512 rows)
     G = 64
     for T, label in ((LM_SLOTS * 8, "decode"), (LM_MAX_LEN * 8, "prefill"),
                      (2 * 32 * 8, "calibration")):
         for Din, Dout in ((2048, 2048), (1024, 2048)):
-            if label == "calibration":
-                sizes = _routing(gen, T, G)
-                xf = torch.randn((T, Din), generator=gen, device="cuda")
-                wf = torch.randn((G, Din, Dout), generator=gen, device="cuda") / math.sqrt(Din)
-                gotf, wantf = grouped_matmul(xf, wf, sizes), ref.grouped_matmul_ref(xf, wf, sizes)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(gotf, wantf, atol=1e-5, rtol=1e-5)
-                f32_row["max_abs_err"] = max(f32_row["max_abs_err"], max_err(gotf, wantf))
+            if label != "calibration":
+                x, w, sizes, ws, a_s = _grouped_operands(gen, T, G, Din, Dout, False)
+                _check_grouped_variants(x, w, sizes, ws, a_s, checked)
                 if Din == 2048:
-                    f32_row["olmoe"].append(_grouped_timing(f"{label}_fc1", xf, wf, sizes))
-                continue
-            x, w, sizes, ws, a_s = _grouped_operands(gen, T, G, Din, Dout, False)
-            _check_grouped_variants(x, w, sizes, ws, a_s, checked)
+                    int8_row["olmoe"].append(_grouped_timing(
+                        f"{label}_fc1", x, w, sizes, ws, a_s, cold=label == "decode"))
+                del x, w
+            xf, wf, sizes = _f32_operands(gen if label == "calibration" else fgen,
+                                          T, G, Din, Dout)
+            f32_err = max(f32_err, _check_grouped_f32(xf, wf, sizes, f32_checked))
             if Din == 2048:
-                int8_row["olmoe"].append(_grouped_timing(
-                    f"{label}_fc1", x, w, sizes, ws, a_s, cold=label == "decode"))
-            del x, w
+                f32_row["olmoe"].append(_grouped_timing(f"{label}_fc1", xf, wf, sizes,
+                                                        cold=label == "decode"))
+            del xf, wf
     empty = grouped_matmul(torch.zeros((0, 384), dtype=torch.int8, device="cuda"),
                            rows[384][1], torch.zeros(16, dtype=torch.int32, device="cuda"),
                            w_scale=rows[384][3], a_scale=rows[384][4])
@@ -553,7 +635,11 @@ def _check_grouped_matmul(gen) -> list:
     print(f"[kernels] grouped int8 bit-equal, calls by variant {checked} (the path's "
           f"shapes and {len(GROUPED_RAGGED)} ragged ones, with and without scales)",
           flush=True)
+    print(f"[kernels] grouped f32 within atol = rtol = 1e-5 (max err {f32_err:.3g}), mma and "
+          f"stream bit-equal, calls by variant {f32_checked} (the path's shapes and "
+          f"{len(GROUPED_RAGGED)} ragged ones)", flush=True)
     int8_row["checked"] = checked
+    f32_row.update(max_abs_err=f32_err, checked=f32_checked)
     return [int8_row, f32_row]
 
 
@@ -561,52 +647,59 @@ def _grouped_timing(label, x, w, sizes, ws=None, a_s=None, cold=False) -> dict:
     """Time one grouped matmul (int8, W4A8 or f32 by the operands) and its
     plain version, and bound it: each input read once (the weights of the
     experts that got rows only), the output written once, 2 T Din Dout
-    operations at the int8 or f32 rate. Device time per call by
-    ``graph_ms``; the integer modes in the variant the wrapper picks and in
-    the dp4a variant (the kernel this replaces), and with ``cold`` also
-    with the expert stack rotated over at least ``COLD_BYTES`` of buffers,
-    so that L2 holds none of it when a call starts (as on the path, where
-    each layer's experts arrive after the other layers')."""
+    operations at the int8 or f32 FMA rate (f32 also at the dense tf32
+    rate, 3 passes: ``bound_3xtf32_ms``, the rate the 3xTF32 variants run
+    at). Device time per call by ``graph_ms``, in the variant the wrapper
+    picks and in the first port's tiles (dp4a, f32: fma), each timed call
+    alone one device kernel; with ``cold`` also with the expert stack
+    rotated over at least ``COLD_BYTES`` of buffers, so that L2 holds none
+    of it when a call starts (as on the path, where each layer's experts
+    arrive after the other layers')."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.expert_linear import VARIANTS, choose_variant, grouped_matmul
+    from repro_torch.kernels.expert_linear import (
+        F32_VARIANTS, VARIANTS, choose_variant, grouped_matmul)
 
     T, Din = x.shape
     G, w_rows, Dout = w.shape
     g_active = int((sizes > 0).sum())
     row = {"label": label, "shape": [T, G, Din, Dout]}
-    if x.dtype == torch.int8:
+    f32 = x.dtype == torch.float32
+    names = F32_VARIANTS if f32 else VARIANTS
+    n_bytes = (x.element_size() * T * Din + w.element_size() * g_active * w_rows * Dout
+               + 4 * T * Dout)
+    if f32:
+        plain_fn = lambda: ref.grouped_matmul_ref(x, w, sizes)  # noqa: E731
+        nb, by = bound_ms(n_bytes, 2.0 * T * Din * Dout, F32_OPS_PER_S)
+        nb3, by3 = bound_ms(n_bytes, 3 * 2.0 * T * Din * Dout, TF32_OPS_PER_S)
+        row.update(bound_3xtf32_ms=nb3, bound_3xtf32_by=by3)
+        fn = lambda wt=w, var=None: grouped_matmul(x, wt, sizes, variant=var)  # noqa: E731
+    else:
         plain = ref.grouped_matmul_q4_ref if w.dtype == torch.uint8 else ref.grouped_matmul_q_ref
-        nb, by = bound_ms(T * Din + g_active * w_rows * Dout + 4 * G * Dout + 4
-                          + 4 * T * Dout, 2.0 * T * Din * Dout, INT8_OPS_PER_S)
-        v = choose_variant(T, G, Din, Dout)
+        plain_fn = lambda: plain(x, w, sizes, ws, a_s)  # noqa: E731
+        nb, by = bound_ms(n_bytes + 4 * G * Dout + 4, 2.0 * T * Din * Dout, INT8_OPS_PER_S)
         fn = lambda wt=w, var=None: grouped_matmul(  # noqa: E731
             x, wt, sizes, w_scale=ws, a_scale=a_s, variant=var)
-        row.update(variant=VARIANTS[v], ms=graph_ms(fn), dp4a_ms=graph_ms(lambda: fn(var=3)),
-                   eager_ms=time_ms(fn))
-        for var in (v, 3):
-            _one_device_kernel(f"grouped {label} {VARIANTS[var]}", lambda: fn(var=var))
-        plain_fn = lambda: plain(x, w, sizes, ws, a_s)  # noqa: E731
-        if cold:
-            n = max(2, math.ceil(COLD_BYTES / w.numel()))
-            bufs = [w] + [w.roll(i, dims=0) for i in range(1, n)]
-            for key, var in (("cold_ms", v), ("dp4a_cold_ms", 3)):
-                it = iter(range(1 << 30))
-                row[key] = graph_ms(lambda: fn(bufs[next(it) % n], var), n=2 * n, iters=5)
-            del bufs
-    else:
-        nb, by = bound_ms(4 * (T * Din + g_active * Din * Dout + T * Dout),
-                          2.0 * T * Din * Dout, F32_OPS_PER_S)
-        fn = lambda: grouped_matmul(x, w, sizes)  # noqa: E731
-        plain_fn = lambda: ref.grouped_matmul_ref(x, w, sizes)  # noqa: E731
-        row.update(variant="f32", ms=graph_ms(fn), eager_ms=time_ms(fn))
-        _one_device_kernel(f"grouped {label} f32", fn)
+    v = choose_variant(T, G, Din, Dout, f32=f32)
+    old = names[3]
+    row.update(variant=names[v], ms=graph_ms(fn), eager_ms=time_ms(fn),
+               **{f"{old}_ms": graph_ms(lambda: fn(var=3))})
+    for var in (v, 3):
+        _one_device_kernel(f"grouped {label} {names[var]}", lambda: fn(var=var))
+    if cold:
+        n = max(2, math.ceil(COLD_BYTES / (w.numel() * w.element_size())))
+        bufs = [w] + [w.roll(i, dims=0) for i in range(1, n)]
+        for key, var in (("cold_ms", v), (f"{old}_cold_ms", 3)):
+            it = iter(range(1 << 30))
+            row[key] = graph_ms(lambda: fn(bufs[next(it) % n], var), n=2 * n, iters=5)
+        del bufs
     row.update(plain_ms=time_ms(plain_fn, iters=10), bound_ms=nb, bound_by=by)
+    tf32 = (f", 3xTF32 bound {row['bound_3xtf32_ms']:.5f} ms ({row['bound_3xtf32_by']})"
+            if f32 else "")
     print(f"[kernels] grouped {'W4A8' if w.dtype == torch.uint8 else x.dtype} {label} "
           f"{row['shape']}: {row['variant']} {row['ms']:.4f} ms (cold "
-          f"{row.get('cold_ms', float('nan')):.4f}), dp4a {row.get('dp4a_ms', float('nan')):.4f}"
-          f" ms (cold {row.get('dp4a_cold_ms', float('nan')):.4f}), eager "
-          f"{row['eager_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound {nb:.5f} ms ({by})",
-          flush=True)
+          f"{row.get('cold_ms', float('nan')):.4f}), {old} {row[f'{old}_ms']:.4f} ms (cold "
+          f"{row.get(f'{old}_cold_ms', float('nan')):.4f}), eager {row['eager_ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.3f} ms, bound {nb:.5f} ms ({by}){tf32}", flush=True)
     return row
 
 
@@ -1045,6 +1138,21 @@ def _check_lm_attention(gen) -> list:
         "prefill_hd100_f32", "causal/float32/qb0/hd100", q, k, v, dict(causal=True, quant_bits=0),
         f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v), is_causal=True),
         gaussian=gauss(2, 80, 4, 100)))
+
+    # the fp tree's packed admission: the packed_prefill row's four prompts
+    # and pad tail over f32 K/V, online softmax (drawn last, so the rows
+    # above keep their inputs); SDPA beside it with the block-diagonal
+    # causal mask of the segments
+    q, k, v = grid(1, P, H, hd), grid(1, P, H, hd), randn(1, P, H, hd)
+    pos = torch.arange(P, device="cuda")
+    pmask = (seg[0][:, None] == seg[0][None, :]) & (pos[None, :] <= pos[:, None])
+    rows.append(_lm_attention_row(
+        "packed_prefill_f32", "causal/float32/qb0/segments", q, k, v,
+        dict(causal=True, quant_bits=0, kv_valid_len=torch.full(
+            (1,), P, dtype=torch.int32, device="cuda"), q_segment_ids=seg,
+             kv_segment_ids=seg, segments=5),
+        f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v), attn_mask=pmask),
+        gaussian=gauss(1, P, H, hd)))
     return rows
 
 
@@ -1531,6 +1639,7 @@ def phase_lm(smi: str) -> dict:
     qcfg = quantized_config(cfg)
     trees = {m: ptq_model(qcfg, params, taps, materialize=m) for m in ("int8", "int4")}
     fp_bytes = tree_bytes(params)
+    out = {"calib_counts": calib_counts, "runs": {"fp": _serve_lm_fp(cfg, params, smi)}}
     del params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1540,9 +1649,162 @@ def phase_lm(smi: str) -> dict:
           f"{time.perf_counter() - t0:.1f} s; calibration launches {calib_counts}",
           flush=True)
     _check_combine_invariance(qcfg)
-    out = {"calib_counts": calib_counts, "runs": {}}
     for mat, tree in trees.items():
         out["runs"][mat] = _serve_lm(qcfg, tree, mat, smi)
+    return out
+
+
+def _serve_lm_fp(cfg, params, smi: str) -> dict:
+    """The fp tree served as ``launch/serve.py`` serves it without
+    ``--quantized``: ``ServeEngine(serving_config(cfg), params,
+    batch_slots=8, max_len=512)``, f32 weights, the bf16 K/V cache,
+    ``quant_bits=0``, packed admission; every expert linear through the f32
+    mode of ``grouped_matmul``. Gates: exact launches per admission and per
+    tick (``LM_FP_PER_FORWARD``, the grouped calls all f32 on the variant
+    ``choose_variant`` picks: stream in a tick, mma in an admission),
+    ``retraces`` 0, every request completes; teacher-forced against
+    ``prefill`` over every prefix, the served engine within
+    ``LM_FP_TF_LIMITS`` and the same engine with an f32 K/V cache (the
+    control) with every token within ``LM_FP_TF_TOL`` of the argmax; the
+    ``aot_warmup=False`` engine's tokens and logits bit-equal. Printed:
+    step 0 against ``prefill`` of the prompt alone. Then a tick and a
+    512-token admission profiled, eager and as graph replays, and the
+    engines freed."""
+    from repro_torch.kernels.expert_linear import F32_VARIANTS, choose_variant
+    from repro_torch.models import transformer
+
+    tag = "lm fp"
+    eng, reqs, wall, counts, warm = _run_engine(cfg, params, tag=tag)
+    programs = _check_programs(tag, eng, LM_FP_PER_FORWARD)
+    _check_retraces(tag, eng)
+    snap = eng.metrics.snapshot()
+    c = snap["counters"]
+    admissions, ticks = c["prefill_batches"], c["decode_ticks"]
+    for name, per in LM_FP_PER_FORWARD.items():
+        if counts[name] != per * (admissions + ticks):
+            raise AssertionError(f"[{tag}] {name}: {counts[name]} launches for {admissions} "
+                                 f"admissions + {ticks} ticks, expected {per} per forward")
+    E, k, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+    tick_v = F32_VARIANTS[choose_variant(LM_SLOTS * k, E, d, d, f32=True)]
+    admit_v = F32_VARIANTS[choose_variant(32 * k, E, d, d, f32=True)]  # the smallest bucket
+    per = LM_FP_PER_FORWARD["grouped_matmul"]
+    want = {"grouped_matmul:f32": counts["grouped_matmul"]}
+    want[f"grouped_matmul:f32/{tick_v}"] = per * ticks
+    want[f"grouped_matmul:f32/{admit_v}"] = want.get(f"grouped_matmul:f32/{admit_v}", 0) \
+        + per * admissions
+    got = {key: counts.get(key, 0) for key in want}
+    print(f"[{tag}] grouped_matmul launches by mode and variant {got} (gate: all f32, "
+          f"{tick_v} in a tick, {admit_v} in an admission)", flush=True)
+    if got != want or counts["grouped_matmul"] != sum(
+            n for key, n in counts.items() if key.startswith("grouped_matmul:f32/")):
+        raise AssertionError(f"[{tag}] grouped launches {counts}, expected {want}")
+    for r in reqs:
+        if r.status != "completed" or len(r.generated) != LM_NEW_TOKENS:
+            raise AssertionError(f"[{tag}] request {r.uid}: {r.status}, "
+                                 f"{len(r.generated)} tokens")
+    tokens = sum(len(r.generated) for r in reqs)
+    lat = snap["latency_ms"]
+    print(f"[{tag}] smoke figure, not a benchmark ({smi}): {len(reqs)} requests, {tokens} "
+          f"tokens in {wall:.2f} s = {tokens / wall:.1f} tok/s; latency p50 {lat['p50']:.1f} "
+          f"ms, p99 {lat['p99']:.1f} ms; {admissions} admissions ({c['pack_real_tokens']} real "
+          f"+ {c['pack_pad_tokens']} pad tokens), {ticks} ticks; launches {counts}", flush=True)
+
+    # teacher-forced, every token of every request against prefill over its
+    # prefix, the served engine (bf16 K/V cache) and the same engine with an
+    # f32 cache (the control: prefill's own K/V precision)
+    tf = _fp_teacher_forced(params, cfg, reqs, tag)
+    with _f32_kv_cache():
+        ctl_reqs = _run_engine(cfg, params, tag=f"{tag} f32 cache")[1]
+    ctl = _fp_teacher_forced(params, cfg, ctl_reqs, f"{tag} f32 cache")
+    median, p90, far = LM_FP_TF_LIMITS
+    print(f"[{tag}] gates: served engine median <= {median}, p90 <= {p90}, tokens more "
+          f"than {LM_FP_TF_TOL} below prefill's argmax <= {far}; f32-cache control: every "
+          f"token within {LM_FP_TF_TOL} of the argmax, median <= {LM_FP_CTL_MEDIAN}",
+          flush=True)
+    if not (tf["median"] <= median and tf["p90"] <= p90 and tf["far"] <= far):
+        raise AssertionError(f"[{tag}] teacher-forced logits disagree with prefill")
+    if ctl["gap_max"] > LM_FP_TF_TOL or ctl["median"] > LM_FP_CTL_MEDIAN:
+        raise AssertionError(f"[{tag}] f32-cache control: an emitted token is "
+                             f"{ctl['gap_max']:.3g} below prefill's argmax, median "
+                             f"{ctl['median']:.3g}")
+    del ctl_reqs
+
+    eager, reqs_e, wall_e, _, _ = _run_engine(cfg, params, tag=f"{tag} eager", eager=True)
+    same = all(a.generated == b.generated and all(
+        torch.equal(x, y) for x, y in zip(a.step_logits, b.step_logits))
+        for a, b in zip(reqs, reqs_e))
+    print(f"[{tag}] graph vs aot_warmup=False engine: tokens and logits bit-equal: {same} "
+          f"(gate); the same requests in {wall:.2f} s through the graphs, {wall_e:.2f} s "
+          f"eager", flush=True)
+    if not same:
+        raise AssertionError(f"[{tag}] graph vs aot_warmup=False engine: tokens or logits "
+                             "differ")
+    del reqs_e
+    profile = _profile_lm(eng, eager, "fp", smi, LM_FP_PER_FORWARD)
+    per_call = {}
+    for label, fam, n in (("decode tick", "grouped_matmul", per),
+                          ("packed prefill 512", "grouped_matmul", per),
+                          ("decode tick", "lm_attention", LM_FP_PER_FORWARD["lm_attention"]),
+                          ("packed prefill 512", "lm_attention",
+                           LM_FP_PER_FORWARD["lm_attention"])):
+        for mode in ("eager", "graph"):
+            per_call[f"{fam} a call, {label}, {mode}"] = profile[f"{label}, {mode}"][
+                f"{fam}_ms"] / n
+    print(f"[{tag}] device ms a call on the path ({smi}): "
+          + ", ".join(f"{key} {ms:.4f}" for key, ms in per_call.items()), flush=True)
+    del eng, eager
+    torch.cuda.empty_cache()
+    return {"counts": counts, "counters": c, "tok_s": tokens / wall, "latency_ms": lat,
+            "tok_s_eager": tokens / wall_e, "warmup": warm, "programs": programs,
+            "tf": tf, "tf_f32_cache": ctl, "profile": profile, "per_call_ms": per_call}
+
+
+@contextlib.contextmanager
+def _f32_kv_cache():
+    """Engines built inside keep an f32 K/V cache (``init_cache``'s default
+    dtype taken as f32): the fp control of ``_serve_lm_fp``."""
+    from repro_torch.models import transformer
+
+    init = transformer.init_cache
+    transformer.init_cache = functools.partial(init, dtype=torch.float32)
+    try:
+        yield
+    finally:
+        transformer.init_cache = init
+
+
+def _fp_teacher_forced(params, cfg, reqs, tag: str) -> dict:
+    """Every emitted token of every request against ``prefill`` over its
+    prefix: per step the relative logit error max |engine - prefill| / max
+    |prefill| and the gap prefill.max() - prefill[token]; step 0 against
+    ``prefill`` of the prompt alone, bit for bit (a reading)."""
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    rel, gaps, step0, off = [], [], 0, []
+    with torch.inference_mode():
+        for r in reqs:
+            toks = list(map(int, r.prompt))
+            for t, tok in enumerate(r.generated):
+                ref = transformer.prefill(params, cfg, torch.tensor([toks], device="cuda"))[0][0, -1]
+                got = r.step_logits[t]
+                rel.append(float((got - ref).abs().max() / ref.abs().max()))
+                gaps.append(float(ref.max() - ref[tok]))
+                step0 += t == 0 and torch.equal(got, ref)
+                if gaps[-1] > 0:
+                    off.append((r.uid, t, round(gaps[-1], 4)))
+                toks.append(tok)
+    rel, gaps = np.asarray(rel), np.asarray(gaps)
+    out = {"median": float(np.median(rel)), "p90": float(np.quantile(rel, 0.9)),
+           "max": float(rel.max()), "gap_max": float(gaps.max()),
+           "far": int((gaps > LM_FP_TF_TOL).sum()), "off": len(off), "steps": int(rel.size),
+           "step0_equal": int(step0)}
+    print(f"[{tag}] teacher-forced vs prefill, {rel.size} steps ({time.perf_counter() - t0:.1f}"
+          f" s): relative logit error median {out['median']:.3g}, p90 {out['p90']:.3g}, max "
+          f"{out['max']:.3g}; tokens below prefill's argmax {len(off)} (more than "
+          f"{LM_FP_TF_TOL}: {out['far']}), largest gap {out['gap_max']:.3g}; (request, step, "
+          f"gap) {off[:12]}; step-0 logits equal prefill of the prompt alone for {step0} of "
+          f"{len(reqs)} requests (a reading)", flush=True)
     return out
 
 
@@ -1783,7 +2045,7 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
     print(f"[lm {mat}] smoke figure ({smi}): the same requests in {wall:.2f} s through the "
           f"graphs, {wall_e:.2f} s eager", flush=True)
     del reqs2, reqs_e
-    profile = _profile_lm(eng, eager, mat, smi)
+    profile = _profile_lm(eng, eager, mat, smi, LM_PER_FORWARD)
     del eng, eager
     torch.cuda.empty_cache()
     return {"counts": counts, "counters": c, "tok_s": tokens / wall, "latency_ms": lat,
@@ -1793,11 +2055,12 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
             "profile": profile}
 
 
-def _profile_lm(eng, eager, mat: str, smi: str) -> dict:
+def _profile_lm(eng, eager, mat: str, smi: str, per: dict) -> dict:
     """Where one decode tick (8 slots at fill level 300) and one packed
     admission of 4 prompts of 128 tokens (the 512-token prefill, the first
     tokens, the merge into slots) spend their time: each engine's program,
-    eager and as a graph replay, on the same inputs."""
+    eager and as a graph replay, on the same inputs; ``per``: the launches
+    of a forward, one device kernel each (gate)."""
     from repro_torch.serving.programs import own
 
     P, n = LM_MAX_LEN, LM_MAX_LEN // 4
@@ -1813,12 +2076,12 @@ def _profile_lm(eng, eager, mat: str, smi: str) -> dict:
         with torch.inference_mode():
             out[f"decode tick, {mode}"] = _profile(
                 f"profile lm {mat}", f"decode tick, {mode}", smi, 3,
-                lambda: own(tick, tick(e._tok, pos)), expect=LM_PER_FORWARD)
+                lambda: own(tick, tick(e._tok, pos)), expect=per)
             out[f"packed prefill 512, {mode}"] = _profile(
                 f"profile lm {mat}", f"packed prefill 512, {mode}", smi, 3,
-                lambda: own(admit, admit(pack)), expect=LM_PER_FORWARD)
+                lambda: own(admit, admit(pack)), expect=per)
     for label, prof in out.items():
-        _check_kernels_per_call(f"profile lm {mat} {label}", prof, LM_PER_FORWARD)
+        _check_kernels_per_call(f"profile lm {mat} {label}", prof, per)
     return out
 
 
@@ -1826,15 +2089,18 @@ def _profile(tag: str, label: str, smi: str, n: int, fn, expect=None) -> dict:
     """Host wall time per call of ``fn`` with a synchronize, host time to
     enqueue alone, and the device time of every kernel it launched
     (torch.profiler, summed by kernel name; the top 8 printed), over ``n``
-    calls after one warm-up call. ``expect`` (family -> launches a call):
-    a trace that holds fewer kernels of a family than its wrapper launched
-    is incomplete (a launch that returned success ran its kernel, so the
-    profiler lost events, as it did for ~1% of a 512-token prefill's
-    kernels in some runs on an H100) and is taken again,
+    calls after one warm-up call. Each trace records a warm-up step (one
+    call) before its active step of ``n`` calls (``torch.profiler.schedule``):
+    a window that starts cold lost the first RMSNorm of its first call in
+    every trace of some runs on an H100. ``expect`` (family -> launches a
+    call): a trace that holds fewer kernels of a family than its wrapper
+    launched is incomplete (a launch that returned success ran its kernel,
+    so the profiler lost events, as it did for ~1% of a 512-token
+    prefill's kernels in some runs on an H100) and is taken again,
     ``PROFILE_ATTEMPTS`` times at most; ``_check_kernels_per_call`` holds
     the last trace to exactly the launches, so a second kernel a call
     still fails."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     with torch.inference_mode():
         fn()
@@ -1846,13 +2112,23 @@ def _profile(tag: str, label: str, smi: str, n: int, fn, expect=None) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
         for attempt in range(1, PROFILE_ATTEMPTS + 1):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         acc_events=True) as prof:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
+                prof.step()
             by_name: dict = {}
             for ev in prof.events():
-                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                # device work only: the schedule's step marker is also an
+                # annotation on the device timeline, spanning the whole step
+                if (ev.device_type == torch.autograd.DeviceType.CUDA
+                        and not ev.is_user_annotation
+                        and not ev.name.startswith("ProfilerStep")):
                     us, calls = by_name.get(ev.name, (0.0, 0))
                     by_name[ev.name] = (us + ev.device_time, calls + 1)
             fam = {}
@@ -2130,9 +2406,9 @@ def phase_profile(qcfg, p_int8, smi: str, engines: dict) -> dict:
 
 def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) -> int:
     """A row's launches on the main path: the vision serving run, and for
-    the modes the LM runs, the two OLMoE serving runs (the fp32 grouped and
-    calibration attention rows: the calibration forwards); the scan's, the
-    falcon-mamba serving run."""
+    the modes the LM runs, the three OLMoE serving runs (fp, int8, W4A8;
+    the fp32 grouped row also the calibration forwards, the calibration
+    attention row those alone); the scan's, the falcon-mamba serving run."""
     runs = [r["counts"] for r in lm["runs"].values()]
     name = row["name"]
     if name.startswith("selective_scan"):
@@ -2141,7 +2417,8 @@ def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) 
         return (vision["rmsnorm"] + sum(c["rmsnorm"] for c in runs)
                 + ssm["counts"]["rmsnorm"])
     if name == "grouped_matmul_f32":
-        return vision_calib["grouped_matmul"] + lm["calib_counts"]["grouped_matmul:f32"]
+        return (vision_calib["grouped_matmul"] + lm["calib_counts"]["grouped_matmul:f32"]
+                + sum(c.get("grouped_matmul:f32", 0) for c in runs))
     if name == "grouped_matmul":
         return vision["grouped_matmul"] + sum(c.get("grouped_matmul:int8", 0) for c in runs)
     if name == "grouped_matmul_w4a8":
@@ -2166,8 +2443,9 @@ def main() -> None:
     ssm = phase_ssm(smi)
     for row in rows:
         row["launches"] = _launches(row, counts, calib_counts, lm, ssm)
-    for name in ("int8_matmul", "grouped_matmul", "grouped_matmul_w4a8",
+    for name in ("int8_matmul", "grouped_matmul", "grouped_matmul_w4a8", "grouped_matmul_f32",
                  "lm_attention[packed_prefill]", "lm_attention[decode_int8]",
+                 "lm_attention[packed_prefill_f32]", "lm_attention[decode_bf16]",
                  "selective_scan", "rmsnorm"):
         row = next(r for r in rows if r["name"] == name)
         if row["launches"] == 0:

@@ -4,7 +4,7 @@
 //   W4A8 mode: int8 x, nibble-packed int4 w (uint8 [G, ceil(Din/2), Dout],
 //              low nibble = even input row, value v - 16 (v >> 3)) -> the
 //              int8 mode's epilogue
-//   f32 mode:  f32 x, f32 w   -> f32 FMA sum
+//   f32 mode:  f32 x, f32 w   -> f32 sum (3xTF32 tensor-core chunks)
 //
 // Replaces: src/repro/kernels/expert_linear.py, grouped_matmul / _gmm_kernel
 // with _route_metadata (fp32, int8 and the int4_packed W4A8 modes).
@@ -77,24 +77,84 @@
 // 32 banks. The MMA, the fragments and the flush are the int8 mode's, so
 // W4A8 reads half the bytes for the same arithmetic.
 //
-// f32 mode (calibration only, not redesigned):
-//   Bound on the H100: f32 operations at 67 TFLOP/s (M3ViT-S), or the bytes
-//   of the f32 expert stack at OLMoE-1B-7B calibration.
+// f32 mode: f32 x against the f32 expert stack, what launch/serve.py serves
+// from an fp tree (every expert fc1 and fc2 of a packed admission and of a
+// decode tick: 32 calls an OLMoE-1B-7B forward) and what calibration runs.
+// Three variants, chosen per call like the integer ones
+// (choose_variant(..., f32=True)). Variants 1 and 2 run one arithmetic,
+// 3xTF32 chunk by chunk: x and w are each cut into hi + lo (hi rounded to
+// tf32 as cvt.rna rounds, lo = x - hi, which the MMA truncates to tf32),
+// and a k8 chunk is the m16n8k8 tf32 MMAs lo.w_hi + hi.w_lo + hi.w_hi from
+// zero (the small terms first; lo.lo, ~2^-22 of the product, is dropped),
+// added to the f32 sum with __fadd_rn, chunk after chunk in k order. A chunk never holds more than 8 products, so the
+// tensor cores' truncating accumulation works on a sum ~sqrt(Din / 8)
+// times smaller than the row's: the result stays within 1e-5 of the f32
+// plain version at Din = 2048. An output element depends only on its x
+// row and its expert's weight column, never on the tile or the other rows:
+// variants 1 and 2 give a row the same bits.
+//
+// f32 variant 1, mma (groups of many rows: a packed admission, both
+// calibrations):
+//   Bound on the H100: the larger of the bytes (each f32 operand read once,
+//   the active experts' weights only, the output written once, at 3.35
+//   TB/s) and 3 x 2 T Din Dout tf32 operations at 495 TFLOP/s. An OLMoE
+//   512-token admission's fc1 ([4096, 64, 2048, 2048]) moves 1.14 GB
+//   against 34 GFLOP: bound by bytes, 0.34 ms; M3ViT-S calibration's fc1
+//   ([3152, 16, 384, 1536]) by operations, 0.022 ms (0.055 ms at the 67
+//   TFLOP/s of f32 FMAs).
+//   Design: a block owns one work item and one 64-column strip: 4 warps of
+//   32 x 32 over a 64 x 64 tile, fed by a 3-stage cp.async ring of 32-deep
+//   stages (x 64 x 32 and w 32 x 64, 16 KB a stage, both swizzled at
+//   16 bytes so that every ldmatrix phase, every 16-byte fragment load and
+//   every cp.async phase touches 32 distinct banks). The items start at
+//   each group's first row (find_item's group-aligned table), so a group
+//   of 70 rows takes a 64-row and a 6-row item, and a warp skips each m16
+//   tile that holds none of its item's rows: the MMAs follow the rows, not
+//   the 64-row grid. A lane loads the four n8 B fragments of a k8 chunk as
+//   two 16-byte words (column 4g + j of the warp's 32 is column g of n8
+//   tile j), so the flush writes eight adjacent columns a row per lane.
+//   The tiles' three MMA passes are issued pass by pass, the next chunk's
+//   fragments read meanwhile, and each live-tile pattern is straight-line
+//   code; at most 128 registers, so 4 blocks share an SM. On an H100 the
+//   variant runs at ~115-120 TFLOP/s of tf32 MMA work on the M3ViT-S
+//   calibration and the OLMoE admission shapes alike, a quarter of the
+//   dense tf32 rate: the issue rate of mma.sync m16n8k8.tf32 holds it, not
+//   memory (PERF.md); wgmma is the way to the rest.
+//
+// f32 variant 2, stream (decode: groups of at most a few rows):
+//   Bound on the H100: the active experts' weight bytes. An OLMoE decode
+//   tick's fc1 (64 routed rows over 64 experts) reads the f32 weights of
+//   ~40 experts, ~0.67 GB a call, against 0.5 GFLOP: ~0.20 ms, every
+//   expert cold (each layer's experts come after the other layers').
+//   Design: one block per (expert, 64-column strip); an expert with no rows
+//   returns at once. The block streams its strip once through a 4-stage
+//   cp.async ring of 32-deep stages (8 KB of weight and the group's rows
+//   padded to one m16 tile, 10 KB a stage); each of the 8 warps owns one
+//   n8 tile of the strip and walks every k in order, so no partial sums
+//   meet across warps and a row gets variant 1's bits. A group of more
+//   than 16 rows is taken 16 rows at a time, the strip read again (L2).
+//
+// f32 variant 3, fma (what neither takes: Din % 8 != 0, Dout % 8 != 0, or
+// an operand off the 16-byte grid; never on the serving paths):
+//   Bound on the H100: as variant 1.
 //   Design: the first port's tiles (64 x 64 outputs a block, 16-deep k
-//   steps, f32 FMA), over the work item derived in the block as above.
+//   steps, f32 FMA on the CUDA cores, 2.3 TFLOP/s at calibration), over the
+//   reference's work table derived in the block. Its sums run in another
+//   order, so it agrees with variants 1 and 2 to f32 rounding, not in bits.
 #include <cuda_runtime.h>
 
 #include "int8_mma.cuh"
 #include "int8_tile.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 using namespace repro::mma8;
 
 constexpr int BM = 64;  // row tile of the work items, every variant
-constexpr int F_BN = 64;
-constexpr int F_BK = 16;
-constexpr int F_THREADS = 256;
+constexpr int FMA_BN = 64;  // f32 variant 3: the first port's tiles
+constexpr int FMA_BK = 16;
+constexpr int FMA_THREADS = 256;
 constexpr int TILE_N = 64;  // columns of a variant 1 tile and a variant 2 strip
 constexpr int MMA_THREADS = 128;
 constexpr int MMA_STAGES = 4;
@@ -138,8 +198,12 @@ struct Item {
 
 // Work item w of the reference's table (_route_metadata): items walk the
 // groups in order, and group g holds one item per 64-row tile that its rows
-// [start, start + size) touch. Past the last item, an empty range.
-template <int THREADS>
+// [start, start + size) touch. With GROUP_ALIGNED (the f32 mma variant) the
+// tiles start at each group's first row instead: group g holds
+// ceil(size / 64) items, rows [start + 64 i, start + 64 (i + 1)). Either
+// table has at most ceil(T / 64) + G items. Past the last item, an empty
+// range.
+template <int THREADS, bool GROUP_ALIGNED = false>
 __device__ Item find_item(const int* __restrict__ sizes, int G, int T, int w) {
   __shared__ int warp_sums[THREADS / 32];
   __shared__ Item found;
@@ -151,10 +215,12 @@ __device__ Item find_item(const int* __restrict__ sizes, int G, int T, int w) {
     int rows_total, items_total;
     const int start = rows_before + block_scan<THREADS>(size, warp_sums, rows_total);
     const int first = start / BM;
-    const int items = size > 0 ? (start + size - 1) / BM - first + 1 : 0;
+    const int items = size <= 0      ? 0
+                      : GROUP_ALIGNED ? (size + BM - 1) / BM
+                                      : (start + size - 1) / BM - first + 1;
     const int i0 = items_before + block_scan<THREADS>(items, warp_sums, items_total);
     if (w >= i0 && w < i0 + items) {  // one thread of the block at most
-      const int m0 = (first + w - i0) * BM;
+      const int m0 = GROUP_ALIGNED ? start + (w - i0) * BM : (first + w - i0) * BM;
       found = Item{g, m0, max(start, m0), min(min(start + size, m0 + BM), T)};
     }
     rows_before += rows_total;
@@ -461,7 +527,7 @@ __global__ void __launch_bounds__(STREAM_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// variant 3 and the f32 mode
+// variant 3, and f32 variant 3 (fma)
 // ---------------------------------------------------------------------------
 
 template <bool PACKED>
@@ -495,33 +561,33 @@ __global__ void __launch_bounds__(repro::I8_THREADS)
   }
 }
 
-__global__ void __launch_bounds__(F_THREADS)
-    gmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+__global__ void __launch_bounds__(FMA_THREADS)
+    gmm_f32_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const int* __restrict__ sizes, float* __restrict__ out, int T,
                    int G, int Din, int Dout) {
-  __shared__ float xs[F_BK][BM + 1];  // X tile transposed: k-major
-  __shared__ float ws[F_BK][F_BN];
-  const Item it = find_item<F_THREADS>(sizes, G, T, blockIdx.x);
+  __shared__ float xs[FMA_BK][BM + 1];  // X tile transposed: k-major
+  __shared__ float ws[FMA_BK][FMA_BN];
+  const Item it = find_item<FMA_THREADS>(sizes, G, T, blockIdx.x);
   if (it.lo >= it.hi) return;  // block-uniform
-  const int n0 = blockIdx.y * F_BN;
+  const int n0 = blockIdx.y * FMA_BN;
   const float* wg = w + (size_t)it.g * Din * Dout;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   float acc[4][4] = {};
-  for (int k0 = 0; k0 < Din; k0 += F_BK) {
-    for (int e = tid; e < BM * F_BK; e += F_THREADS) {
-      const int r = e / F_BK, kk = e % F_BK;
+  for (int k0 = 0; k0 < Din; k0 += FMA_BK) {
+    for (int e = tid; e < BM * FMA_BK; e += FMA_THREADS) {
+      const int r = e / FMA_BK, kk = e % FMA_BK;
       const int row = it.m0 + r, k = k0 + kk;
       xs[kk][r] = (row >= it.lo && row < it.hi && k < Din) ? x[(size_t)row * Din + k]
                                                            : 0.f;
     }
-    for (int e = tid; e < F_BK * F_BN; e += F_THREADS) {
-      const int kk = e / F_BN, c = e % F_BN;
+    for (int e = tid; e < FMA_BK * FMA_BN; e += FMA_THREADS) {
+      const int kk = e / FMA_BN, c = e % FMA_BN;
       const int k = k0 + kk, col = n0 + c;
       ws[kk][c] = (k < Din && col < Dout) ? wg[(size_t)k * Dout + col] : 0.f;
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
+    for (int kk = 0; kk < FMA_BK; ++kk) {
       float a[4], b[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
@@ -543,6 +609,307 @@ __global__ void __launch_bounds__(F_THREADS)
       const int col = n0 + tx + 16 * j;
       if (col < Dout) out[(size_t)row * Dout + col] = acc[i][j];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 variants 1 and 2: 3xTF32 chunks
+// ---------------------------------------------------------------------------
+
+using namespace repro::tf32;
+
+constexpr int F_BK = 32;  // k of a stage: four k8 chunks, 128 bytes of an x row
+constexpr int F_ROW_BYTES = F_BK * 4;
+constexpr int F_W_BYTES = F_BK * TILE_N * 4;  // a stage's weight: 32 x 64 f32
+constexpr int F_MMA_THREADS = 128;
+constexpr int F_MMA_STAGES = 3;
+constexpr int F_MMA_BLOCKS = 4;  // blocks an SM: 48 KB of ring and <= 128 registers each
+constexpr int F_STREAM_THREADS = 256;
+constexpr int F_STREAM_STAGES = 4;
+
+// Physical 16-byte chunk of logical chunk c in row r of an x tile (128-byte
+// rows) and of a weight tile (256-byte rows).
+__device__ __forceinline__ int swz_fx(int r, int c) { return c ^ (r & 7); }
+__device__ __forceinline__ int swz_fw(int r, int c) { return c ^ ((r & 3) << 1); }
+
+// Rows [m0, m0 + ROWS) x k [k0, k0 + 32) of x[T, K] (K % 4 == 0); rows
+// outside [lo, hi) and k >= K are zero-filled.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows_f32(uint32_t s, const float* __restrict__ x,
+                                              int K, int m0, int lo, int hi, int k0) {
+  constexpr int COPIES = ROWS * 8;
+#pragma unroll
+  for (int i = 0; i < (COPIES + THREADS - 1) / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    if (COPIES % THREADS != 0 && e >= COPIES) break;
+    const int r = e >> 3, c = e & 7;
+    const int row = m0 + r, k = k0 + 4 * c;
+    const bool ok = row >= lo && row < hi && k < K;
+    cp_async<16>(s + r * F_ROW_BYTES + 16 * swz_fx(r, c),
+                 ok ? x + (size_t)row * K + k : x, ok);
+  }
+}
+
+// Rows k [k0, k0 + 32) x columns [n0, n0 + 64) of one expert's w[K, N]
+// (N % 4 == 0); the rest is zero-filled.
+template <int THREADS>
+__device__ __forceinline__ void load_strip_f32(uint32_t s, const float* __restrict__ w,
+                                               int N, int K, int n0, int k0) {
+  constexpr int COPIES = F_BK * (TILE_N / 4);
+#pragma unroll
+  for (int i = 0; i < COPIES / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e >> 4, c = e & 15;
+    const int k = k0 + r, col = n0 + 4 * c;
+    const bool ok = k < K && col < N;
+    cp_async<16>(s + r * TILE_N * 4 + 16 * swz_fw(r, c),
+                 ok ? w + (size_t)k * N + col : w, ok);
+  }
+}
+
+// The A fragment of rows [r0, r0 + 16) and k8 chunk kk of a stage.
+__device__ __forceinline__ void frag_a_f32(uint32_t s, int r0, int kk, uint32_t (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int row = r0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+  ldsm_x4(s + row * F_ROW_BYTES + 16 * swz_fx(row, 2 * kk + (lane >> 4)), a);
+}
+
+// One stage of variant 1 for a warp: NK k8 chunks over the m16 tiles whose
+// bits are set in LIVE (a warp skips the tiles its item leaves empty), in
+// straight-line code. The fragments of chunk kk + 1 are read while chunk
+// kk's MMAs run. B: column 4g + j of the warp's 32 is column g of n8 tile
+// j, so rows 8kk + t and 8kk + t + 4 hold the four tiles' fragments in
+// one 16-byte word each.
+template <int LIVE, int NK>
+__device__ __forceinline__ void mma_stage(float (&acc)[2][4][4], uint32_t sa, const int8_t* sb,
+                                          int wm, int wn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float4 braw[2];
+  uint32_t araw[2][4];
+  auto load = [&](int kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 8 * kk + t + 4 * h;
+      braw[h] = *reinterpret_cast<const float4*>(sb + r * TILE_N * 4 +
+                                                 16 * swz_fw(r, wn * 8 + g));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (LIVE >> i & 1) frag_a_f32(sa, wm * 32 + 16 * i, kk, araw[i]);
+  };
+  load(0);
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    uint32_t bh[4][2], bl[4][2], ah[2][4], al[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      split_tf32(braw[h].x, bh[0][h], bl[0][h]);
+      split_tf32(braw[h].y, bh[1][h], bl[1][h]);
+      split_tf32(braw[h].z, bh[2][h], bl[2][h]);
+      split_tf32(braw[h].w, bh[3][h], bl[3][h]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (LIVE >> i & 1)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(araw[i][e]), ah[i][e], al[i][e]);
+    if (kk + 1 < NK) load(kk + 1);
+    // each tile's chunk from zero, lo.b_hi + hi.b_lo + hi.b_hi, issued pass
+    // by pass so that the tiles' MMA chains overlap; then added to the sums
+    float c[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (LIVE >> i & 1)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32_zero(c[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (LIVE >> i & 1)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(c[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (LIVE >> i & 1)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(c[i][j], ah[i], bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (LIVE >> i & 1)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], c[i][j][e]);
+  }
+}
+
+// A stage with NK < 4 chunks (Din % 32 != 0, the last stage only).
+template <int LIVE>
+__device__ __forceinline__ void mma_stage_tail(float (&acc)[2][4][4], uint32_t sa,
+                                               const int8_t* sb, int wm, int wn, int nk) {
+  if (nk == 1) mma_stage<LIVE, 1>(acc, sa, sb, wm, wn);
+  else if (nk == 2) mma_stage<LIVE, 2>(acc, sa, sb, wm, wn);
+  else mma_stage<LIVE, 3>(acc, sa, sb, wm, wn);
+}
+
+__global__ void __launch_bounds__(F_MMA_THREADS, F_MMA_BLOCKS)
+    gmm_f32_mma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       const int* __restrict__ sizes, float* __restrict__ out, int T,
+                       int G, int Din, int Dout) {
+  constexpr int A_BYTES = BM * F_ROW_BYTES;
+  constexpr int STAGE = A_BYTES + F_W_BYTES;
+  extern __shared__ __align__(128) int8_t smem[];
+  const Item it = find_item<F_MMA_THREADS, true>(sizes, G, T, blockIdx.x);
+  if (it.lo >= it.hi) return;  // block-uniform
+  const uint32_t s0 = smem_u32(smem);
+  const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.y * TILE_N;
+  const float* wg = w + (size_t)it.g * Din * Dout;
+  const int ktiles = (Din + F_BK - 1) / F_BK;
+  int live_mask = 0;  // bit i: the warp's m16 tile i holds rows of the item
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r0 = it.m0 + wm * 32 + 16 * i;
+    live_mask |= (r0 < it.hi && r0 + 16 > it.lo) << i;
+  }
+  float acc[2][4][4] = {};
+  auto issue = [&](int kt) {
+    const uint32_t st = s0 + (kt % F_MMA_STAGES) * STAGE;
+    load_rows_f32<BM, F_MMA_THREADS>(st, x, Din, it.m0, it.lo, it.hi, kt * F_BK);
+    load_strip_f32<F_MMA_THREADS>(st + A_BYTES, wg, Dout, Din, n0, kt * F_BK);
+  };
+
+#pragma unroll
+  for (int s = 0; s < F_MMA_STAGES - 1; ++s) {
+    if (s < ktiles) issue(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<F_MMA_STAGES - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 is free
+    if (kt + F_MMA_STAGES - 1 < ktiles) issue(kt + F_MMA_STAGES - 1);
+    cp_async_commit();
+    const uint32_t sa = s0 + (kt % F_MMA_STAGES) * STAGE;
+    const int8_t* sb = smem + (kt % F_MMA_STAGES) * STAGE + A_BYTES;
+    const int nk = min(F_BK, Din - kt * F_BK) / 8;  // Din % 8 == 0
+    if (nk == 4) {
+      if (live_mask == 3) mma_stage<3, 4>(acc, sa, sb, wm, wn);
+      else if (live_mask == 1) mma_stage<1, 4>(acc, sa, sb, wm, wn);
+      else if (live_mask == 2) mma_stage<2, 4>(acc, sa, sb, wm, wn);
+    } else {
+      if (live_mask == 3) mma_stage_tail<3>(acc, sa, sb, wm, wn, nk);
+      else if (live_mask == 1) mma_stage_tail<1>(acc, sa, sb, wm, wn, nk);
+      else if (live_mask == 2) mma_stage_tail<2>(acc, sa, sb, wm, wn, nk);
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator e of tile j lies at row g + 8 (e >> 1), column 4 (2t + (e &
+  // 1)) + j of the warp's 32: a lane writes columns 8t .. 8t + 7 of a row
+  const int col = n0 + wn * 32 + 8 * t;
+  if (col >= Dout) return;  // Dout % 8 == 0: all eight columns or none
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!(live_mask >> i & 1)) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = it.m0 + wm * 32 + 16 * i + g + 8 * h;
+      if (row < it.lo || row >= it.hi) continue;
+      float* o = out + (size_t)row * Dout + col;
+      *reinterpret_cast<float4*>(o) = make_float4(acc[i][0][2 * h], acc[i][1][2 * h],
+                                                  acc[i][2][2 * h], acc[i][3][2 * h]);
+      *reinterpret_cast<float4*>(o + 4) =
+          make_float4(acc[i][0][2 * h + 1], acc[i][1][2 * h + 1], acc[i][2][2 * h + 1],
+                      acc[i][3][2 * h + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(F_STREAM_THREADS)
+    gmm_f32_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                          const int* __restrict__ sizes, float* __restrict__ out, int T,
+                          int Din, int Dout) {
+  constexpr int A_BYTES = 16 * F_ROW_BYTES;
+  constexpr int STAGE = A_BYTES + F_W_BYTES;
+  extern __shared__ __align__(128) int8_t smem[];
+  const int grp = blockIdx.y;
+  const int size = sizes[grp];
+  if (size <= 0) return;  // an expert with no rows reads nothing
+  const int start = rows_before<F_STREAM_THREADS>(sizes, grp);
+  const int end = min(start + size, T);
+  const uint32_t s0 = smem_u32(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * TILE_N;
+  const float* wg = w + (size_t)grp * Din * Dout;
+  const int ktiles = (Din + F_BK - 1) / F_BK;
+  const int col = n0 + 8 * warp + 2 * t;  // the warp's n8 tile: columns 8 warp ..
+
+  for (int lo = start; lo < end; lo += 16) {  // 16 rows of the group at a time
+    const int hi = min(end, lo + 16);
+    float acc[4] = {};
+    auto issue = [&](int kt) {
+      const uint32_t st = s0 + (kt % F_STREAM_STAGES) * STAGE;
+      load_rows_f32<16, F_STREAM_THREADS>(st, x, Din, lo, lo, hi, kt * F_BK);
+      load_strip_f32<F_STREAM_THREADS>(st + A_BYTES, wg, Dout, Din, n0, kt * F_BK);
+    };
+#pragma unroll
+    for (int s = 0; s < F_STREAM_STAGES - 1; ++s) {
+      if (s < ktiles) issue(s);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < ktiles; ++kt) {
+      cp_async_wait<F_STREAM_STAGES - 2>();
+      __syncthreads();
+      if (kt + F_STREAM_STAGES - 1 < ktiles) issue(kt + F_STREAM_STAGES - 1);
+      cp_async_commit();
+      const uint32_t sa = s0 + (kt % F_STREAM_STAGES) * STAGE;
+      const float* sb =
+          reinterpret_cast<const float*>(smem + (kt % F_STREAM_STAGES) * STAGE + A_BYTES);
+      // the stage's four chunks, each from zero and pass by pass as in
+      // variant 1, then added to the sums in k order
+      const int nk = min(F_BK, Din - kt * F_BK) / 8;  // Din % 8 == 0
+      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+      float c[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk >= nk) continue;
+        uint32_t a[4];
+        frag_a_f32(sa, 0, kk, a);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), ah[kk][e], al[kk][e]);
+        // B fragment: rows 8kk + t and 8kk + t + 4, column 8 warp + g
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 8 * kk + t + 4 * h;
+          split_tf32(sb[r * TILE_N + 4 * swz_fw(r, 2 * warp + (g >> 2)) + (g & 3)],
+                     bh[kk][h], bl[kk][h]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk < nk) mma_tf32_zero(c[kk], al[kk], bh[kk][0], bh[kk][1]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk < nk) mma_tf32(c[kk], ah[kk], bl[kk][0], bl[kk][1]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk < nk) mma_tf32(c[kk], ah[kk], bh[kk][0], bh[kk][1]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk < nk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], c[kk][e]);
+    }
+    cp_async_wait<0>();
+    if (col < Dout) {
+      if (lo + g < hi)
+        *reinterpret_cast<float2*>(out + (size_t)(lo + g) * Dout + col) =
+            make_float2(acc[0], acc[1]);
+      if (lo + g + 8 < hi)
+        *reinterpret_cast<float2*>(out + (size_t)(lo + g + 8) * Dout + col) =
+            make_float2(acc[2], acc[3]);
+    }
+    __syncthreads();  // the ring is reused by the next 16 rows
   }
 }
 
@@ -614,13 +981,33 @@ extern "C" int grouped_matmul_i8_launch(const int8_t* x, const void* w, int pack
 }
 
 // f32 mode: x [T, Din], w [G, Din, Dout], sizes int32 [G] summing to T.
+// variant: 1 mma, 2 stream (both need Din % 8 == 0, Dout % 8 == 0 and
+// 16-byte aligned x, w, out; refused with cudaErrorInvalidValue otherwise),
+// 3 fma (any shape).
 extern "C" int grouped_matmul_f32_launch(const float* x, const float* w,
                                          const int* sizes, float* out, int T, int G,
-                                         int Din, int Dout, cudaStream_t stream) {
-  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (T > 0 && Dout > 0) {
-    const dim3 grid(work_items(T, G), (Dout + F_BN - 1) / F_BN);
-    gmm_f32_kernel<<<grid, F_THREADS, 0, stream>>>(x, w, sizes, out, T, G, Din, Dout);
+                                         int Din, int Dout, int variant,
+                                         cudaStream_t stream) {
+  if (variant < 1 || variant > 3 || G < 1 || G > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant != 3 && (Din % 8 != 0 || Dout % 8 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 0 || Dout <= 0) return static_cast<int>(cudaSuccess);
+  const int strips = (Dout + TILE_N - 1) / TILE_N;
+  if (variant == 1) {
+    const int smem = F_MMA_STAGES * (BM * F_ROW_BYTES + F_W_BYTES);  // 48 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        gmm_f32_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gmm_f32_mma_kernel<<<dim3(work_items(T, G), strips), F_MMA_THREADS, smem, stream>>>(
+        x, w, sizes, out, T, G, Din, Dout);
+  } else if (variant == 2) {
+    const int smem = F_STREAM_STAGES * (16 * F_ROW_BYTES + F_W_BYTES);  // 40 KB
+    gmm_f32_stream_kernel<<<dim3(strips, G), F_STREAM_THREADS, smem, stream>>>(
+        x, w, sizes, out, T, Din, Dout);
+  } else {
+    const dim3 grid(work_items(T, G), (Dout + FMA_BN - 1) / FMA_BN);
+    gmm_f32_fma_kernel<<<grid, FMA_THREADS, 0, stream>>>(x, w, sizes, out, T, G, Din, Dout);
   }
   return static_cast<int>(cudaGetLastError());
 }

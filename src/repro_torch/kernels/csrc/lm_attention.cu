@@ -123,7 +123,11 @@
 #include <cmath>
 #include <cstdint>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using namespace repro::tf32;
 
 constexpr float NEG2_LOG2E = -2.8853900817779268f;  // -2 log2(e)
 constexpr float SQRT2M1 = 0.41421356237309515f;     // sqrt(2) - 1
@@ -208,39 +212,9 @@ __device__ __forceinline__ float code_weight(float s, float m, float code_max) {
 }
 
 // ---------------------------------------------------------------------------
-// the score function: split-precision tf32 MMAs a k8 chunk
+// the score function: split-precision tf32 MMAs a k8 chunk (the pieces and
+// the MMA: tf32_mma.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo + O(2^-22 |x|), hi and lo tf32
-__device__ __forceinline__ void split2(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// x = hi + mid + lo exactly, each tf32 (each difference is exact in f32, and
-// what is left after two 11-bit pieces has at most 2 significant bits)
-__device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
-  hi = to_tf32(x);
-  const float r = x - __uint_as_float(hi);
-  mid = to_tf32(r);
-  lo = to_tf32(r - __uint_as_float(mid));
-}
-
-// d += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // One stored K/V element as f32 (exact; for bf16 and int8 also exactly a
 // tf32 value).

@@ -12,19 +12,28 @@ tensors.
 Every call is one kernel launch: each block derives its work item from
 ``group_sizes`` itself. ``route_metadata`` is the port of the reference's
 ``_route_metadata``, the table those blocks derive item by item; the CUDA
-path does not call it. Three variants compute the integer modes bit for
-bit alike, and ``choose_variant`` picks one from the shape and the
-operands' alignment:
+path does not call it. Each mode has three variants, and ``choose_variant``
+picks one from the shape, the operands' alignment and the mode:
 
-  * 1, ``mma``: s8 tensor-core tiles over (group, 64-row tile) items, for
-    groups of many rows (prefill, vision);
+  * 1, ``mma``: tensor-core tiles over (group, 64-row tile) items, for
+    groups of many rows (prefill, vision, calibration): s8 MMAs for the
+    integer modes, 3xTF32 MMAs for f32 (items start at each group's first
+    row, and a warp skips the m16 tiles its item leaves empty);
   * 2, ``stream``: each active expert's weight streamed once per 64-column
     strip, for a few rows a group (decode);
-  * 3, ``dp4a``: the first port's ``__dp4a`` tiles, for what neither takes
-    (Din % 16 != 0, Dout % 8 != 0, or an operand off the 16-byte grid).
+  * 3, ``dp4a`` (integer) or ``fma`` (f32): the first port's tiles, for
+    what neither takes (integer: Din % 16 != 0; f32: Din % 8 != 0; either:
+    Dout % 8 != 0, or an operand off the 16-byte grid).
+
+Variants 1 and 2 of a mode give the same bits: the integer modes
+accumulate exactly, and f32 adds each k8 chunk's 3xTF32 MMAs (x and w cut
+into tf32 hi + lo; lo.hi + hi.lo + hi.hi from zero) to the sum in k order
+with one rounding, so a row's output depends only on its x row and its
+expert's weights. Variant 3 of f32 sums in another order (within f32
+rounding of the others).
 
 ``grouped_matmul.launches_by_mode`` counts launches per mode (``int8``,
-``w4a8``, ``f32``) and per integer mode and variant (``int8/stream``).
+``w4a8``, ``f32``) and per mode and variant (``int8/stream``, ``f32/mma``).
 """
 from __future__ import annotations
 
@@ -35,7 +44,8 @@ import torch
 from repro_torch.kernels import _build
 
 BLOCK_M = 64  # row tile of the work items, every variant
-VARIANTS = {1: "mma", 2: "stream", 3: "dp4a"}
+VARIANTS = {1: "mma", 2: "stream", 3: "dp4a"}  # the integer modes
+F32_VARIANTS = {1: "mma", 2: "stream", 3: "fma"}
 STREAM_ROWS_PER_GROUP = 2  # variant 2 when T <= 2 G
 MAX_GROUPS = 65535  # variant 2's grid has one row of blocks a group
 
@@ -64,22 +74,28 @@ def route_metadata(group_sizes: torch.Tensor, block_m: int, n_work: int):
     return g.to(torch.int32), m.to(torch.int32), row_start, row_end
 
 
-def choose_variant(T: int, G: int, Din: int, Dout: int, aligned: bool = True) -> int:
+def choose_variant(T: int, G: int, Din: int, Dout: int, aligned: bool = True,
+                   f32: bool = False) -> int:
     """1, 2 or 3 (see the module docstring) for T sorted rows over G groups,
-    [T, Din] @ [G, Din, Dout]: the weight-streaming variant when the rows
-    are at most two a group on average (a decode tick: nearly every group
-    fits one m16 tile), the MMA tiles otherwise."""
-    if not aligned or Din % 16 or Dout % 8:
+    [T, Din] @ [G, Din, Dout], in the integer modes or (``f32``) the f32
+    mode: the weight-streaming variant when the rows are at most two a
+    group on average (a decode tick: nearly every group fits one m16 tile),
+    the MMA tiles otherwise, the first port's tiles where neither takes the
+    widths."""
+    if not takes(1, Din, Dout, aligned, f32):
         return 3
     return 2 if T <= STREAM_ROWS_PER_GROUP * G else 1
 
 
-def takes(variant: int, Din: int, Dout: int, aligned: bool = True) -> bool:
-    """Whether ``variant`` computes the integer modes at these widths
-    (variant 3 takes every shape; 1 and 2 any row count)."""
+def takes(variant: int, Din: int, Dout: int, aligned: bool = True, f32: bool = False) -> bool:
+    """Whether ``variant`` computes the integer modes (or, ``f32``, the f32
+    mode) at these widths: variant 3 takes every shape; 1 and 2 any row
+    count, Din a multiple of 16 (f32: of 8), Dout of 8, operands on the
+    16-byte grid."""
     if variant == 3:
         return True
-    return variant in VARIANTS and aligned and Din % 16 == 0 and Dout % 8 == 0
+    return (variant in VARIANTS and aligned and Din % (8 if f32 else 16) == 0
+            and Dout % 8 == 0)
 
 
 def _aligned(*tensors) -> bool:
@@ -93,9 +109,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     [G, ceil(Din/2), Dout]), group_sizes [G] (sum == T) -> f32 [T, Dout].
     int8 x with int8 or packed w: integer modes with optional ``w_scale``
     [G, Dout] and ``a_scale``; f32 x and w: fp32 mode, no scales. CUDA
-    tensors only. ``variant`` forces one of ``VARIANTS`` for the integer
-    modes (it must take the shape); by default ``choose_variant`` picks it.
-    One kernel launch a call (none when T == 0)."""
+    tensors only. ``variant`` forces one of ``VARIANTS`` (f32:
+    ``F32_VARIANTS``; it must take the shape); by default ``choose_variant``
+    picks it. One kernel launch a call (none when T == 0)."""
     _build.require_cuda("grouped_matmul", x, w, group_sizes, w_scale, a_scale)
     T, Din = x.shape
     G, w_rows, Dout = w.shape
@@ -108,8 +124,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     if not int8 and not (x.dtype == torch.float32 and w.dtype == torch.float32):
         raise TypeError(f"int8/int8, int8/packed-int4 or f32/f32 operands required, "
                         f"got {x.dtype}, {w.dtype}")
-    if not int8 and (w_scale is not None or a_scale is not None or variant is not None):
-        raise ValueError("scales and variants apply to integer operands only")
+    if not int8 and (w_scale is not None or a_scale is not None):
+        raise ValueError("scales apply to integer operands only")
     if not 0 < G <= MAX_GROUPS:
         raise ValueError(f"{G} groups: 1..{MAX_GROUPS} supported")
     out = torch.empty((T, Dout), dtype=torch.float32, device=x.device)
@@ -117,17 +133,17 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         return out
     sizes = group_sizes.to(torch.int32).contiguous()
     x, w = x.contiguous(), w.contiguous()
+    ws = None if w_scale is None else w_scale.to(torch.float32).contiguous()
+    aligned = _aligned(x, w, ws, out)
+    if variant is None:
+        variant = choose_variant(T, G, Din, Dout, aligned, f32=not int8)
+    elif not takes(variant, Din, Dout, aligned, f32=not int8):
+        raise ValueError(f"grouped_matmul variant {variant} cannot take "
+                         f"Din={Din}, Dout={Dout} (16-byte aligned: {aligned})")
     lib, stream = _build.library(), _build.stream(x)
     with torch.cuda.device(x.device):
         if int8:
-            ws = None if w_scale is None else w_scale.to(torch.float32).contiguous()
             as_ = None if a_scale is None else _build.scalar(a_scale, x)
-            aligned = _aligned(x, w, ws, out)
-            if variant is None:
-                variant = choose_variant(T, G, Din, Dout, aligned)
-            elif not takes(variant, Din, Dout, aligned):
-                raise ValueError(f"grouped_matmul variant {variant} cannot take "
-                                 f"Din={Din}, Dout={Dout} (16-byte aligned: {aligned})")
             err = lib.grouped_matmul_i8_launch(
                 x.data_ptr(), w.data_ptr(), int(packed), sizes.data_ptr(),
                 None if ws is None else ws.data_ptr(),
@@ -136,14 +152,13 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         else:
             err = lib.grouped_matmul_f32_launch(
                 x.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(),
-                T, G, Din, Dout, stream)
+                T, G, Din, Dout, variant, stream)
     mode = "w4a8" if packed else ("int8" if int8 else "f32")
-    _build.check(err, f"grouped_matmul ({mode}" + (f", {VARIANTS[variant]})" if int8 else ")"))
+    name = (VARIANTS if int8 else F32_VARIANTS)[variant]
+    _build.check(err, f"grouped_matmul ({mode}, {name})")
     grouped_matmul.launches += 1
     by_mode = grouped_matmul.launches_by_mode
-    by_mode[mode] = by_mode.get(mode, 0) + 1
-    if int8:
-        key = f"{mode}/{VARIANTS[variant]}"
+    for key in (mode, f"{mode}/{name}"):
         by_mode[key] = by_mode.get(key, 0) + 1
     return out
 

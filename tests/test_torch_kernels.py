@@ -304,6 +304,26 @@ def test_grouped_matmul_notes_cover_each_variant(variant):
         assert "weight bytes" in note
 
 
+@pytest.mark.parametrize("variant", sorted(gm.F32_VARIANTS))
+def test_grouped_matmul_f32_notes_cover_each_variant(variant):
+    """The head of grouped_matmul.cu gives each f32 variant its own bound
+    and design; the decode variant's bound is the active experts' weight
+    bytes, the MMA variant's names the tf32 rate it runs at."""
+    import repro_torch.kernels as K
+
+    text = (Path(K.__file__).parent / "csrc" / "grouped_matmul.cu").read_text()
+    head = text[:text.index("#include")]
+    start = head.index(f"// f32 variant {variant}, {gm.F32_VARIANTS[variant]}")
+    nxt = head.find("// f32 variant ", start + 1)
+    note = head[start:nxt if nxt > 0 else len(head)]
+    assert "Bound on the H100" in note and "Design:" in note
+    if gm.F32_VARIANTS[variant] == "stream":
+        assert "weight bytes" in note
+    if gm.F32_VARIANTS[variant] == "mma":
+        assert "tf32" in note and "3xTF32" in head
+    assert "not redesigned" not in head and "calibration only" not in head
+
+
 def _m3vit_int8_shapes(B):
     """(M, K, N) of every int8_matmul call of a full-width M3ViT-S int8
     forward at batch B: q/k/v/o, dense fc1/fc2, the router gate, the head
@@ -548,11 +568,12 @@ def _block_scan(values, threads):
     return list(incl - np.asarray(values)), int(incl[-1]) if threads else 0
 
 
-def _find_item(sizes, T, w, threads, block_m=64):
+def _find_item(sizes, T, w, threads, block_m=64, group_aligned=False):
     """grouped_matmul.cu's find_item for block w, step by step: chunks of
     ``threads`` groups, a scan of the sizes (first rows), a scan of the
     items each group holds (first items); the thread whose range holds w
-    publishes (g, m0, lo, hi)."""
+    publishes (g, m0, lo, hi). ``group_aligned`` (the f32 mma variant):
+    a group's tiles start at its first row."""
     G = len(sizes)
     found = (0, 0, 0, 0)
     rows_before = items_before = 0
@@ -563,13 +584,14 @@ def _find_item(sizes, T, w, threads, block_m=64):
         for i in range(threads):
             start = rows_before + starts[i]
             first = start // block_m
-            items.append((start + size[i] - 1) // block_m - first + 1 if size[i] > 0 else 0)
+            items.append(0 if size[i] <= 0 else -(-size[i] // block_m) if group_aligned
+                         else (start + size[i] - 1) // block_m - first + 1)
         i0s, items_total = _block_scan(items, threads)
         for i in range(threads):
             start, i0 = rows_before + starts[i], items_before + i0s[i]
             if i0 <= w < i0 + items[i]:
                 first = start // block_m
-                m0 = (first + w - i0) * block_m
+                m0 = (start if group_aligned else first * block_m) + (w - i0) * block_m
                 found = (c0 + i, m0, max(start, m0), min(start + size[i], m0 + block_m, T))
         rows_before += rows_total
         items_before += items_total
@@ -586,8 +608,8 @@ WORK_CASES = [
 @pytest.mark.parametrize("sizes", WORK_CASES)
 @pytest.mark.parametrize("threads", [128, 256])
 def test_grouped_work_derived_in_the_block_is_the_reference_table(sizes, threads):
-    """The work item each block of variants 1 and 3 (and the f32 mode)
-    derives from group_sizes is the reference's _route_metadata table,
+    """The work item each block of variants 1 and 3 (and the f32 mode's
+    variant 3) derives from group_sizes is the reference's _route_metadata table,
     item by item, with empty ranges past the last item; every output row is
     written by exactly one item."""
     gs = np.asarray(sizes, np.int32)
@@ -609,6 +631,31 @@ def test_grouped_work_derived_in_the_block_is_the_reference_table(sizes, threads
         assert (g, m0, lo, hi) == (g_ids[w], m_ids[w] * 64, ref_lo, ref_hi)
         written[lo:hi] += 1
     assert (written == 1).all()
+
+
+@pytest.mark.parametrize("sizes", WORK_CASES)
+@pytest.mark.parametrize("threads", [128, 256])
+def test_grouped_f32_mma_items_start_at_each_group(sizes, threads):
+    """The f32 mma variant's group-aligned table, derived in the block:
+    group g holds ceil(size / 64) items, the first at its first row, each
+    within the group; every row is written by exactly one item, and the
+    launch's grid (ceil(T / 64) + G blocks) holds every item."""
+    T, G = sum(sizes), len(sizes)
+    n_work = -(-T // 64) + G
+    written = np.zeros(T, np.int64)
+    items = []
+    for w in range(n_work):
+        g, m0, lo, hi = _find_item(sizes, T, w, threads, group_aligned=True)
+        if lo >= hi:
+            continue
+        start = sum(sizes[:g])
+        assert m0 == lo and (m0 - start) % 64 == 0 and start <= lo < hi <= start + sizes[g]
+        assert hi - lo == min(64, start + sizes[g] - lo)
+        items.append(g)
+        written[lo:hi] += 1
+    assert (written == 1).all()
+    assert items == sorted(items)  # the items walk the groups in order
+    assert len(items) == sum(-(-s // 64) for s in sizes if s > 0)
 
 
 @pytest.mark.parametrize("sizes", WORK_CASES + [[3, 0, 40, 1, 0, 16, 17, 0]])
