@@ -131,6 +131,35 @@ caught:
                  per-length prefill stays eager; ``retraces`` 0). One decode
                  tick, eager and as a graph replay, and one grouped prefill
                  of 8 x 256 tokens are profiled.
+  9. cluster  -- ``ServingCluster`` over the engines above, both replicas on
+                 the one card sharing one copy of the weights (``data_ptr``
+                 equal; each replica its own cache, graph pool and capture
+                 stream), run in two parts while the full-width trees are
+                 alive. Vision, after phase 6: two M3ViT-S int8
+                 ``VisionEngine`` replicas (buckets 1, 4, 8), warmed by
+                 ``cluster.warmup()`` (every program a captured graph),
+                 a burst of 48 seeded requests pumped with ``step()``
+                 while any is queued or in flight, then ``flush()``; gates: each request delivered once (``on_done``),
+                 completed, its top-5 classes equal to the phase-4 engine's
+                 on the same burst and its probabilities within
+                 ``CLUSTER_VISION_PROB_TOL``, both replicas served,
+                 ``retraces`` 0, launches per batch exact. LM, after phase 7:
+                 two OLMoE-1B-7B int8 ``ServeEngine`` replicas and one
+                 standby (8 slots, max_len 512) on phase 7's 16 requests,
+                 a clean run (tokens of every request identical to phase 7's
+                 engine, no eviction, both replicas served, launches per
+                 forward exact) and a chaos run (``FaultConfig(inject=True,
+                 kill_schedule=((1, CLUSTER_KILL_STEP, "dead"),))``, a kill
+                 mid-decode: exactly one ``replica_evicted``, the standby
+                 promoted, ``cluster_redispatched`` >= 1, every ``on_done``
+                 once with status ``completed``, every request's tokens,
+                 re-dispatched ones included, identical to phase 7's).
+                 Printed beside the card's name and power limit: capture
+                 time and graph pool per replica, the cluster's frames/s and
+                 tokens/s against the single engine's, the host time of a
+                 cluster ``step()`` outside the replicas, and the time from
+                 eviction to backfill and to the last re-dispatched
+                 completion.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before that
@@ -144,6 +173,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -251,6 +281,13 @@ SSM_TF_LIMIT = (1.6e-3, 1.2e-2)
 # (10-bit mantissa), and with its conv history rounded to bf16 (the
 # reference engine's cache layout)
 SSM_CONTROLS = ("tf32 matmuls", "bf16 conv history")
+# phase 9: the vision burst (48 requests: every batch on both sides is a full
+# 8, so each image's rows meet the same arithmetic and the probabilities are
+# expected bit-equal; the gate allows f32 rounding of a probability, 1e-6),
+# and the local step of replica 1 at which the chaos run kills it (its 8
+# requests are admitted at step 1 and decode 31 more ticks: 16 is mid-decode)
+CLUSTER_VISION_REQUESTS, CLUSTER_VISION_PROB_TOL = 48, 1e-6
+CLUSTER_KILL_STEP = 16
 
 
 def emit(obj) -> None:
@@ -1651,6 +1688,7 @@ def phase_lm(smi: str) -> dict:
     _check_combine_invariance(qcfg)
     for mat, tree in trees.items():
         out["runs"][mat] = _serve_lm(qcfg, tree, mat, smi)
+    out["cluster"] = phase_cluster_lm(qcfg, trees["int8"], out["runs"]["int8"], smi)
     return out
 
 
@@ -2049,6 +2087,7 @@ def _serve_lm(qcfg, params, mat: str, smi: str) -> dict:
     del eng, eager
     torch.cuda.empty_cache()
     return {"counts": counts, "counters": c, "tok_s": tokens / wall, "latency_ms": lat,
+            "tokens": [list(r.generated) for r in reqs],
             "tok_s_eager": tokens / wall_e, "warmup": warm, "programs": programs,
             "tf_median": float(np.median(errs)), "tf_max": float(errs.max()),
             "tf_hit": hit, "step0": step0, "step0_pack_vs_solo": solo0,
@@ -2404,12 +2443,325 @@ def phase_profile(qcfg, p_int8, smi: str, engines: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving cluster
+# ---------------------------------------------------------------------------
+
+def _inner(eng):
+    """A replica's engine (the chaos wrapper's inner engine, or itself)."""
+    return getattr(eng, "inner", eng)
+
+
+def _tensor_ptrs(tree) -> list:
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _tensor_ptrs(tree[k])]
+    return [tree.data_ptr()]
+
+
+def _check_shared_weights(tag: str, cluster, params) -> None:
+    """Gate: every replica's weights are the caller's tensors (``data_ptr``
+    equal leaf for leaf), so replicas on one card share one copy, while
+    each keeps its own cache (LM) and graph pool (``_cluster_warmup``)."""
+    engines = [_inner(e) for e in cluster.engines + cluster._standby]
+    want = _tensor_ptrs(params)
+    same = all(_tensor_ptrs(e.params) == want for e in engines)
+    own_caches = len({id(getattr(e, "cache", e)) for e in engines}) == len(engines)
+    print(f"[{tag}] {len(engines)} replicas on {[str(d) for d in cluster.devices]}: "
+          f"{len(want)} weight leaves with equal data_ptr in every replica: {same}, a cache "
+          f"each: {own_caches} (gate)", flush=True)
+    if not (same and own_caches):
+        raise AssertionError(f"[{tag}] the replicas do not share one copy of the weights")
+
+
+def _cluster_warmup(tag: str, cluster, per: dict, smi: str) -> dict:
+    """``cluster.warmup()`` with every replica's warmup timed, then each
+    replica's graph pool printed; gates: the pools are distinct, every
+    program of every replica a captured graph whose kernel nodes equal the
+    launches its capture counted and one forward's (``_check_programs``),
+    ``retraces`` 0."""
+    engines = cluster.engines + cluster._standby
+    seconds = {}
+    for e in engines:
+        def timed(_warmup=e.warmup, _label=cluster._labels[id(e)]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _warmup()
+            torch.cuda.synchronize()
+            seconds[_label] = time.perf_counter() - t0
+        e.warmup = timed
+    reserved = torch.cuda.memory_reserved()
+    cluster.warmup()
+    segments = torch.cuda.memory_snapshot()
+    out = {}
+    for e in engines:
+        del e.warmup
+        eng, label = _inner(e), cluster._labels[id(e)]
+        pool = sum(seg["total_size"] for seg in segments
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(eng._pool))
+        _check_programs(f"{tag} {label}", eng, per)
+        _check_retraces(f"{tag} {label}", eng)
+        out[label] = {"capture_s": seconds[label], "pool_bytes": pool,
+                      "programs": len(eng._programs)}
+    pools = {tuple(_inner(e)._pool) for e in engines}
+    print(f"[{tag}] warmup per replica ({smi}): "
+          + "; ".join(f"{k} {v['programs']} graphs captured in {v['capture_s']:.2f} s, pool "
+                      f"{v['pool_bytes'] / 1e6:.1f} MB" for k, v in out.items())
+          + f"; {len(pools)} distinct pools (gate); reserved memory {reserved / 1e9:.2f} -> "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB", flush=True)
+    if len(pools) != len(engines):
+        raise AssertionError(f"[{tag}] replicas share a graph pool")
+    return out
+
+
+class _StepTimer:
+    """Pumps a cluster with ``step()`` until no request is queued or in
+    flight, then ``flush()`` waits for the retirement threads; splits each
+    step's host time: the replicas' own ``step()`` calls (timed through
+    instance attributes over their methods) and the rest -- the cluster's
+    routing, watchdog and bookkeeping (``outside``, seconds a step)."""
+
+    def __init__(self, cluster) -> None:
+        self.cluster = cluster
+        self.outside: list = []
+        self._inside = 0.0
+        self._wrapped: set = set()
+
+    def _wrap(self, eng) -> None:
+        if id(eng) in self._wrapped:
+            return
+        self._wrapped.add(id(eng))
+
+        def step(_step=eng.step):
+            t0 = time.perf_counter()
+            try:
+                _step()
+            finally:
+                self._inside += time.perf_counter() - t0
+        eng.step = step
+
+    def run_until_idle(self, max_steps: int = 100_000) -> int:
+        c = self.cluster
+        for n in range(max_steps):
+            if not c.total_load:
+                c.flush()
+                if not c.idle:
+                    raise AssertionError("the cluster is not idle after its flush")
+                return n
+            for e in c.engines + c._draining:
+                self._wrap(e)
+            self._inside = 0.0
+            t0 = time.perf_counter()
+            c.step()
+            self.outside.append(time.perf_counter() - t0 - self._inside)
+        raise AssertionError(f"requests still queued or in flight after {max_steps} steps")
+
+    def summary(self) -> str:
+        us = 1e6 * np.asarray(self.outside)
+        return (f"median {np.median(us):.1f} us, p90 {np.quantile(us, 0.9):.1f} us, "
+                f"max {us.max():.1f} us over {us.size} steps")
+
+
+def _delivery(reqs):
+    """Give every request an ``on_done`` that counts its deliveries and
+    stamps the first on the host clock; returns (counts, stamps)."""
+    fired, at = {}, {}
+
+    def on_done(r):
+        fired[r.uid] = fired.get(r.uid, 0) + 1
+        at.setdefault(r.uid, time.monotonic())
+
+    for r in reqs:
+        r.on_done = on_done
+    return fired, at
+
+
+def _check_delivered_once(tag: str, reqs, fired: dict) -> None:
+    bad = {r.uid: (fired.get(r.uid, 0), r.status) for r in reqs
+           if fired.get(r.uid, 0) != 1 or r.status != "completed"}
+    print(f"[{tag}] {len(reqs)} requests, each on_done fired once with status completed: "
+          f"{not bad} (gate)", flush=True)
+    if bad:
+        raise AssertionError(f"[{tag}] deliveries (count, status): {bad}")
+
+
+def _check_cluster_launches(tag: str, counts: dict, forwards: int, per: dict) -> None:
+    """Gate: each kernel launched exactly its per-forward count times the
+    forwards every replica ran (retired replicas' included), and every
+    int8_matmul and integer grouped call on variant 1 or 2."""
+    for name, n in per.items():
+        if counts[name] != n * forwards:
+            raise AssertionError(f"[{tag}] {name}: {counts[name]} launches for {forwards} "
+                                 f"forwards, expected {n} per forward")
+    print(f"[{tag}] launches {[counts[k] for k in per]} = {list(per.values())} per forward x "
+          f"{forwards} forwards (gate)", flush=True)
+    _check_int8_variants(tag, counts)
+    _check_grouped_variants_used(tag, counts)
+
+
+def _release() -> None:
+    """Collect a dropped cluster's replicas (their caches and graph pools
+    sit in reference cycles) and return their memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_cluster_vision(qcfg, p_int8, single, smi: str) -> dict:
+    """Phase 9, vision part: two M3ViT-S int8 replicas on the card behind
+    one front-end, against phase 4's engine (``single``) on the same burst
+    of requests."""
+    from repro_torch.serving import ServingCluster, synth_requests
+
+    tag = "cluster vision"
+    cluster = ServingCluster(qcfg, p_int8, replicas=2, engine="vision",
+                             batch_buckets=(1, 4, 8), max_wait_s=2e-3)
+    _check_shared_weights(tag, cluster, p_int8)
+    warm = _cluster_warmup(tag, cluster, PER_FORWARD, smi)
+    # the single engine on the same burst: all submitted, then drained
+    ref = synth_requests(qcfg, CLUSTER_VISION_REQUESTS, seed=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in ref:
+        single.submit(r)
+    single.flush()
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    reqs = synth_requests(qcfg, CLUSTER_VISION_REQUESTS, seed=5)
+    fired, _ = _delivery(reqs)
+    timer = _StepTimer(cluster)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        cluster.submit(r)
+    steps = timer.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    snap = cluster.metrics.snapshot()
+    c = snap["aggregate"]["counters"]
+    _check_delivered_once(tag, reqs, fired)
+    same = all(np.array_equal(a.classes, b.classes) for a, b in zip(reqs, ref))
+    prob_err = max(float(np.abs(a.probs - b.probs).max()) for a, b in zip(reqs, ref))
+    print(f"[{tag}] {len(reqs)} requests vs phase 4's engine on the same burst: top-5 "
+          f"classes equal {same} (gate), probabilities max abs diff {prob_err:.3g} (gate: <= "
+          f"{CLUSTER_VISION_PROB_TOL})", flush=True)
+    if not same or prob_err > CLUSTER_VISION_PROB_TOL:
+        raise AssertionError(f"[{tag}] the cluster's classes or probabilities differ")
+    frames = [rep["counters"].get("frames", 0) for rep in snap["replicas"]]
+    print(f"[{tag}] frames by replica {frames} (gate: every replica served), batches "
+          f"{c['batches']}, padded frames {c.get('padded_frames', 0)}, retraces "
+          f"{c.get('retraces', 0)} (gate: 0)", flush=True)
+    if min(frames) == 0 or sum(frames) != len(reqs) or c.get("retraces", 0):
+        raise AssertionError(f"[{tag}] replicas served {frames}, counters {c}")
+    _check_cluster_launches(tag, counts, c["batches"], PER_FORWARD)
+    print(f"[{tag}] smoke figure, not a benchmark ({smi}): {len(reqs)} frames in {wall:.3f} s "
+          f"= {len(reqs) / wall:.1f} frames/s through 2 replicas time-sharing the card, vs "
+          f"{len(reqs) / single_s:.1f} frames/s through the single engine ({single_s:.3f} s); "
+          f"{steps} cluster steps, host time of a step outside the replicas: "
+          f"{timer.summary()}", flush=True)
+    del cluster, timer
+    _release()
+    return {"counts": counts, "warmup": warm, "fps": len(reqs) / wall,
+            "single_fps": len(reqs) / single_s, "prob_err": prob_err}
+
+
+def _cluster_lm_run(tag: str, qcfg, params, single: dict, smi: str, faults=None) -> dict:
+    """Phase 7's 16 requests, all at once, through two OLMoE-1B-7B int8
+    replicas and a standby, pumped by ``_StepTimer`` (``faults``: the chaos
+    run's fault model), against phase 7's single engine (``single``)."""
+    from repro_torch.serving import EventLog, ServingCluster
+
+    events = EventLog()
+    cluster = ServingCluster(qcfg, params, replicas=2, standby=1, engine="lm",
+                             batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, events=events,
+                             faults=faults)
+    _check_shared_weights(tag, cluster, params)
+    warm = _cluster_warmup(tag, cluster, LM_PER_FORWARD, smi)
+    reqs = _lm_requests(qcfg.vocab_size)
+    fired, done_at = _delivery(reqs)
+    timer = _StepTimer(cluster)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        cluster.submit(r)
+    steps = timer.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    snap = cluster.metrics.snapshot()
+    c = snap["aggregate"]["counters"]
+    _check_delivered_once(tag, reqs, fired)
+    differ = [r.uid for r, want in zip(reqs, single["tokens"]) if r.generated != want]
+    print(f"[{tag}] tokens of every request identical to phase 7's single engine: "
+          f"{not differ} (gate; differing requests {differ})", flush=True)
+    if differ:
+        raise AssertionError(f"[{tag}] requests {differ} got other tokens")
+    if c.get("retraces", 0):
+        raise AssertionError(f"[{tag}] {c['retraces']} programs built while serving")
+    _check_cluster_launches(tag, counts, c["prefill_batches"] + c["decode_ticks"],
+                            LM_PER_FORWARD)
+    served = {cluster._labels[id(e)]: rep["counters"].get("tokens", 0)
+              for e, rep in zip(cluster.engines, snap["replicas"])}
+    evicted = events.events("replica_evicted")
+    replaced = events.events("replica_replaced")
+    redispatched = sorted(r.uid for r in reqs if r.redispatched)
+    print(f"[{tag}] decode tokens by live replica {served}; events {events.counts()}; "
+          f"counters replicas_evicted {c.get('replicas_evicted', 0)}, replicas_replaced "
+          f"{c.get('replicas_replaced', 0)}, cluster_redispatched "
+          f"{c.get('cluster_redispatched', 0)}, replica_step_errors "
+          f"{c.get('replica_step_errors', 0)}; re-dispatched requests {redispatched}",
+          flush=True)
+    out = {"counts": counts, "warmup": warm, "tok_s": LM_REQUESTS * LM_NEW_TOKENS / wall,
+           "steps": steps}
+    if faults is None:
+        if evicted or c.get("replica_step_errors", 0) or min(served.values()) == 0:
+            raise AssertionError(f"[{tag}] an eviction or an idle replica in the clean run: "
+                                 f"{events.counts()}, {served}")
+        print(f"[{tag}] no eviction, no step error, every replica served (gate)", flush=True)
+    else:
+        ok = (len(evicted) == 1 and len(replaced) == 1 and evicted[0]["replica"] == "replica1"
+              and replaced[0]["replacement"] == "replica2"
+              and c.get("cluster_redispatched", 0) >= 1 and cluster.standby_replicas == 0
+              and cluster.num_replicas == 2 and not cluster.degraded)
+        print(f"[{tag}] one eviction, the standby promoted, >= 1 re-dispatched: {ok} (gate); "
+              f"the eviction record {evicted[0] if evicted else None}", flush=True)
+        if not ok:
+            raise AssertionError(f"[{tag}] eviction events {evicted}, {replaced}, counters {c}")
+        backfill = replaced[0]["t"] - evicted[0]["t"]
+        recovered = max(done_at[u] for u in redispatched) - evicted[0]["t"]
+        print(f"[{tag}] ({smi}) eviction to backfill (standby promoted) {1e6 * backfill:.1f} "
+              f"us; eviction to the last re-dispatched request's completion {recovered:.3f} s",
+              flush=True)
+        out.update(backfill_s=backfill, recovered_s=recovered, redispatched=redispatched)
+    print(f"[{tag}] smoke figure, not a benchmark ({smi}): {LM_REQUESTS} requests, "
+          f"{LM_REQUESTS * LM_NEW_TOKENS} tokens in {wall:.2f} s = {out['tok_s']:.1f} tok/s "
+          f"through 2 replicas time-sharing the card, vs {single['tok_s']:.1f} tok/s through "
+          f"phase 7's single engine; {steps} cluster steps, host time of a step outside the "
+          f"replicas: {timer.summary()}", flush=True)
+    del cluster, timer
+    _release()
+    return out
+
+
+def phase_cluster_lm(qcfg, params, single: dict, smi: str) -> dict:
+    """Phase 9, LM part: the clean run, then the chaos run (replica 1 killed
+    mid-decode), each on a fresh cluster."""
+    from repro_torch.configs import FaultConfig
+
+    chaos = FaultConfig(inject=True, kill_schedule=((1, CLUSTER_KILL_STEP, "dead"),))
+    return {"clean": _cluster_lm_run("cluster lm", qcfg, params, single, smi),
+            "chaos": _cluster_lm_run("cluster lm chaos", qcfg, params, single, smi, chaos)}
+
+
 def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) -> int:
-    """A row's launches on the main path: the vision serving run, and for
-    the modes the LM runs, the three OLMoE serving runs (fp, int8, W4A8;
-    the fp32 grouped row also the calibration forwards, the calibration
-    attention row those alone); the scan's, the falcon-mamba serving run."""
-    runs = [r["counts"] for r in lm["runs"].values()]
+    """A row's launches on the main path: the vision serving run and the
+    vision cluster's, and for the modes the LM runs, the three OLMoE serving
+    runs (fp, int8, W4A8) and the two LM cluster runs (the fp32 grouped row
+    also the calibration forwards, the calibration attention row those
+    alone); the scan's, the falcon-mamba serving run."""
+    runs = ([r["counts"] for r in lm["runs"].values()]
+            + [r["counts"] for r in lm["cluster"].values()])
     name = row["name"]
     if name.startswith("selective_scan"):
         return ssm["counts"]["selective_scan"]
@@ -2437,6 +2789,9 @@ def main() -> None:
     qcfg, p_int8, counts, calib_counts, engines = phase_serving(smi)
     phase_e2e(qcfg, p_int8)
     phase_profile(qcfg, p_int8, smi, engines)
+    vcluster = phase_cluster_vision(qcfg, p_int8, engines["graph"], smi)
+    counts = {k: counts.get(k, 0) + vcluster["counts"].get(k, 0)
+              for k in set(counts) | set(vcluster["counts"])}
     del p_int8, engines
     torch.cuda.empty_cache()
     lm = phase_lm(smi)

@@ -8,7 +8,9 @@ from typing import Dict
 from repro_torch.configs import moe_vit as _moe_vit
 from repro_torch.configs.base import (
     AttnConfig,
+    AutoscaleConfig,
     ContinuousBatchingConfig,
+    FaultConfig,
     ModelConfig,
     MoEConfig,
     QuantConfig,
@@ -65,7 +67,9 @@ def smoke_config(arch: str) -> ModelConfig:
 __all__ = [
     "REGISTRY",
     "AttnConfig",
+    "AutoscaleConfig",
     "ContinuousBatchingConfig",
+    "FaultConfig",
     "ModelConfig",
     "MoEConfig",
     "QuantConfig",

@@ -1,9 +1,9 @@
 """Config dataclasses of the PyTorch port.
 
 A copy of the fields of ``repro.configs.base`` that the ViT, LM and SSM
-serving paths read; the port keeps its own configs so that it never imports the JAX
-package. The names, defaults and meanings are the reference's, so a test can
-compare the two field by field.
+serving paths and the serving cluster read; the port keeps its own configs
+so that it never imports the JAX package. The names, defaults and meanings
+are the reference's, so a test can compare the two field by field.
 """
 from __future__ import annotations
 
@@ -94,6 +94,100 @@ class ContinuousBatchingConfig:
 
 
 @dataclass(frozen=True)
+class AutoscaleConfig:
+    """Target-range admission autoscaling of ``ServingCluster``
+    (``serving/autoscaler.py``).
+
+    The controller reacts to two pressure signals: front-end queue depth
+    per active replica and the *windowed* pooled p95 request latency vs the
+    SLO. Hysteresis comes from patience (consecutive breached evaluations
+    before acting) plus a post-action cooldown, so a bursty arrival process
+    does not flap the replica set."""
+
+    min_replicas: int = 1
+    max_replicas: int = 8
+    # pre-warmed standby pool size ServingCluster should hold (replicas
+    # beyond it are spawned + warmed on demand, which is much slower)
+    standby: int = 1
+    # scale-up triggers: front-end depth per active replica, or pooled
+    # windowed p95 over the SLO
+    depth_high: float = 4.0
+    slo_p95_ms: float = 250.0
+    up_patience: int = 2
+    # scale-down triggers: total load at/below depth_low AND p95 under
+    # down_margin * SLO, sustained for down_patience evaluations
+    depth_low: float = 0.0
+    down_margin: float = 0.5
+    down_patience: int = 16
+    # evaluations to wait after any scale action before the next one
+    cooldown: int = 8
+    # samples needed before the windowed p95 advances (below it the window
+    # keeps accumulating and the previous estimate holds)
+    min_window_samples: int = 8
+    # evaluations without a window close before the p95 estimate expires to
+    # NaN: a breach measured during a surge must not keep scaling (or pin
+    # the replica count) once traffic has stopped
+    p95_ttl: int = 32
+
+
+@dataclass(frozen=True)
+class FaultConfig:
+    """Serving fault model: chaos injection + watchdog/recovery knobs
+    (``serving/faults.py``).
+
+    **Injection** (``inject``, default off): the deterministic chaos
+    harness. With it on, every replica the cluster builds is wrapped in a
+    ``FaultyReplica`` whose seeded ``FaultInjector`` raises step exceptions
+    and OOM-shaped allocation failures, stalls steps (fake-clock
+    compatible), rejects submits and poisons ``on_done`` callbacks at the
+    configured rates and schedule. With it off nothing is wrapped.
+
+    **Watchdog / recovery** (``watchdog``, default on): the per-replica
+    health monitor and the quarantine/re-dispatch machinery of
+    ``ServingCluster``. The budgets decide when a replica is evicted and how
+    often one request may be re-dispatched before it fails terminally.
+    """
+
+    # -- chaos injection (every rate is a per-boundary Bernoulli draw from a
+    #    generator seeded by (seed, replica ordinal); 0.0 everywhere = no
+    #    faults even when inject=True) -----------------------------------
+    inject: bool = False
+    seed: int = 0
+    step_error_rate: float = 0.0  # step() raises InjectedFault
+    oom_rate: float = 0.0  # step() raises InjectedOOM (RESOURCE_EXHAUSTED)
+    step_stall_rate: float = 0.0  # step() stalls stall_s before running
+    stall_s: float = 0.25  # injected stall duration (clock seconds)
+    submit_reject_rate: float = 0.0  # replica submit() raises Backpressure
+    callback_poison_rate: float = 0.0  # wrap on_done to raise after running
+    # deterministic schedule: (replica_ordinal, local_step, kind) triples,
+    # kind in {"error", "oom", "stall", "dead"}. "dead" kills the replica
+    # for good: every later step raises too (a crashed process, not a
+    # transient fault). Scheduled entries override the random draws.
+    kill_schedule: Tuple[Tuple[int, int, str], ...] = ()
+
+    # -- watchdog / recovery ----------------------------------------------
+    watchdog: bool = True
+    # absolute step wall-time ceiling; one step slower than this counts as
+    # a stall regardless of history
+    step_timeout_s: float = 30.0
+    # relative stall detector: a step slower than stall_threshold x the EMA
+    # of healthy steps (StragglerMonitor), armed after warmup_steps. Steps
+    # under stall_floor_s never count as relative stalls: a serving pump
+    # spins through idle no-op ticks whose microsecond durations would
+    # otherwise make any real dispatch look like an 8x stall
+    stall_threshold: float = 8.0
+    warmup_steps: int = 5
+    stall_floor_s: float = 0.05
+    # consecutive-fault budgets before quarantine (an OOM-classified error
+    # evicts at once: retrying into a full allocator wedges the pump)
+    error_budget: int = 3
+    stall_budget: int = 2
+    # re-dispatches one request may consume across evictions before it
+    # fails terminally (its on_done fires once, with status "failed")
+    retry_budget: int = 2
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # moe | dense | ssm | vit | vit_moe (M3ViT: every other block is MoE)
@@ -117,6 +211,8 @@ class ModelConfig:
     # continuous-batching serving path (serving/engine.py)
     serve: ContinuousBatchingConfig = field(
         default_factory=ContinuousBatchingConfig)
+    # serving fault model: chaos injection + watchdog (serving/faults.py)
+    faults: FaultConfig = field(default_factory=FaultConfig)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

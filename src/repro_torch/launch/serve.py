@@ -1,35 +1,59 @@
-"""Serving launcher of the port: continuous-batching greedy generation of one
-LM replica on the card, ported from ``repro.launch.serve`` (single-engine
-path).
+"""Serving launcher of the port: continuous-batching greedy generation on the
+card, ported from ``repro.launch.serve``.
+
+One engine:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --quantized --requests 16 --prompt-len 64 --new-tokens 32 \\
       --slots 8 --max-len 512
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --requests 16 --prompt-len 64 --new-tokens 32 --slots 8 --max-len 512
+
+A cluster of LM replicas behind one front-end (``serving/cluster.py``:
+least-loaded routing, the watchdog, eviction and re-dispatch):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+      --quantized --replicas 2 --requests 16 --new-tokens 32 --slots 8 \\
+      --max-len 512 [--chaos --chaos-kill 1:20]
 
 The MoE LM admits through packed prefill; falcon-mamba (no packed prefill)
 through the grouped same-length path, its prefill through the selective-scan
-kernel. Weights are random, drawn on the device from ``--seed``. ``--quantized``
-turns on the serving quantization of the reference launcher: the int8 K/V
-cache and the 4-bit log-sqrt2 attention over the fp weights (a PTQ'd
-QuantizedParams tree is served through ``ServeEngine`` directly; see
-``chip_smoke.py``). ``--smoke`` takes the reduced config; ``--device cpu``
-runs the plain versions on the CPU. The report is one summary of the
-engine's metrics.
+kernel. Weights are random, drawn on the device from ``--seed``; the
+replicas of a cluster on one card share them. ``--quantized`` turns on the
+serving quantization of the reference launcher: the int8 K/V cache and the
+4-bit log-sqrt2 attention over the fp weights (a PTQ'd QuantizedParams tree
+is served through ``ServeEngine`` directly; see ``chip_smoke.py``).
+``--smoke`` takes the reduced config; ``--device cpu`` runs the plain
+versions on the CPU.
+
+``--replicas N`` (N >= 2) serves through ``ServingCluster(engine="lm")``,
+pumped with ``step()`` while requests are queued or in flight, so a
+scheduled kill fires at its step, then flushed.
+``--events-out`` streams the event journal (rejections, cancellations,
+retirement faults, evictions, re-dispatches) as JSONL. ``--chaos`` wraps the
+replicas in the seeded fault injector (``serving/faults.py``) with the
+``--chaos-*`` rates and ``--chaos-kill ORDINAL:STEP`` scheduled kills; the
+watchdog is on for the cluster regardless. SIGTERM/SIGINT stop admission,
+and what was accepted is served to the end. Both paths report through one
+``ClusterMetrics.snapshot()``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import signal
 import time
 
 import numpy as np
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.distributed.fault_tolerance import PreemptionGuard
 from repro_torch.models import init_model_params
+from repro_torch.serving.cluster import ServingCluster
 from repro_torch.serving.engine import Request, ServeEngine, serving_config
+from repro_torch.serving.events import EventLog
+from repro_torch.serving.metrics import ClusterMetrics
 
 
 def _fmt_ms(d: dict) -> str:
@@ -40,11 +64,14 @@ def _fmt_ms(d: dict) -> str:
 
 
 def print_report(snap: dict) -> None:
-    """Every counter the engine tracks, latencies, padding and occupancy."""
-    print(f"engine: tok/s={snap['fps']:.1f}")
-    print("  latency: " + _fmt_ms(snap["latency_ms"]))
-    print("  queue_wait: " + _fmt_ms(snap["queue_wait_ms"]))
-    counters = snap["counters"]
+    """One summary off a ``ClusterMetrics.snapshot()``: every counter the
+    engines and the cluster track, latencies, padding and occupancy."""
+    agg = snap["aggregate"]
+    print(f"aggregate: tok/s={agg['fps']:.1f} "
+          f"replicas_active={snap['replicas_active']}")
+    print("  latency: " + _fmt_ms(agg["latency_ms"]))
+    print("  queue_wait: " + _fmt_ms(agg["queue_wait_ms"]))
+    counters = agg["counters"]
     print("  counters: " + " ".join(f"{k}={v}" for k, v in sorted(counters.items())))
     real = counters.get("pack_real_tokens", 0)
     pad = counters.get("pack_pad_tokens", 0)
@@ -52,9 +79,29 @@ def print_report(snap: dict) -> None:
         print(f"  prefill padding: real={real} pad={pad} "
               f"({100.0 * real / (real + pad):.1f}% buffer utilization, "
               f"{counters.get('prefill_batches', 0)} dispatches)")
-    if snap["expert_tokens"]:
-        occ = ", ".join(f"{x:.3f}" for x in snap["expert_occupancy"])
+    print(f"  retraces after warmup: {counters.get('retraces', 0)}")
+    depth = agg["front_queue_depth"]
+    if depth["max"]:
+        print(f"  front_queue_depth: mean={depth['mean']:.2f} max={depth['max']}")
+    if agg["expert_tokens"]:
+        occ = ", ".join(f"{x:.3f}" for x in agg["expert_occupancy"])
         print(f"  expert occupancy: [{occ}]")
+    for i, rep in enumerate(snap["replicas"]):
+        print(f"  replica {i}: tokens={rep['counters'].get('tokens', 0)} "
+              f"completed={rep['counters'].get('completed', 0)} "
+              f"p50={rep['latency_ms']['p50']:.0f}ms")
+
+
+def _chaos_config(cfg, args):
+    kills = []
+    for spec in args.chaos_kill:
+        ordinal, step = spec.split(":")
+        kills.append((int(ordinal), int(step), "dead"))
+    return cfg.replace(faults=dataclasses.replace(
+        cfg.faults, inject=True, seed=args.chaos_seed,
+        step_error_rate=args.chaos_error_rate, oom_rate=args.chaos_oom_rate,
+        step_stall_rate=args.chaos_stall_rate,
+        submit_reject_rate=args.chaos_reject_rate, kill_schedule=tuple(kills)))
 
 
 def main(argv=None) -> None:
@@ -66,33 +113,95 @@ def main(argv=None) -> None:
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--replicas", type=int, default=0,
+                    help=">=2 serves through a ServingCluster of ServeEngine "
+                         "replicas (one front-end, least-loaded routing)")
     ap.add_argument("--quantized", action="store_true",
                     help="int8 K/V cache + 4-bit log-sqrt2 attention")
+    ap.add_argument("--events-out", default=None,
+                    help="stream structured serving events as JSONL here")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--chaos", action="store_true",
+                    help="wrap the cluster's replicas in seeded fault injectors")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--chaos-error-rate", type=float, default=0.0,
+                    help="per-step probability of an injected step error")
+    ap.add_argument("--chaos-oom-rate", type=float, default=0.0,
+                    help="per-step probability of an injected OOM")
+    ap.add_argument("--chaos-stall-rate", type=float, default=0.0,
+                    help="per-step probability of an injected stall")
+    ap.add_argument("--chaos-reject-rate", type=float, default=0.0,
+                    help="per-submit probability of an injected rejection")
+    ap.add_argument("--chaos-kill", action="append", default=[], metavar="ORDINAL:STEP",
+                    help="kill replica ORDINAL for good at its local step STEP "
+                         "(repeatable)")
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = serving_config(cfg)
     if args.quantized:
         cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, enable=True))
+    if args.chaos:
+        cfg = _chaos_config(cfg, args)
     params = init_model_params(cfg, args.seed, args.device)
+    events = EventLog(path=args.events_out) if args.events_out else None
     rng = np.random.default_rng(args.seed)
     reqs = [Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size, args.prompt_len)
                     .astype(np.int32), max_new_tokens=args.new_tokens)
             for uid in range(args.requests)]
-    engine = ServeEngine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
-                         device=args.device)
-    engine.warmup()
+    cluster = engine = None
+    if args.replicas >= 2:
+        cluster = ServingCluster(
+            cfg, params, replicas=args.replicas, engine="lm", batch_slots=args.slots,
+            max_len=args.max_len, events=events,
+            devices=None if args.device == "cuda" else [args.device])
+        cluster.warmup()
+        cm = cluster.metrics
+    else:
+        engine = ServeEngine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
+                             events=events, device=args.device)
+        engine.warmup()
+        # the single engine reports through the cluster's roll-up: one schema
+        cm = ClusterMetrics([engine.metrics])
+
+    # graceful preemption: SIGTERM/SIGINT stop admission; everything already
+    # accepted is served to the end and reported
+    guard = PreemptionGuard(signals=(signal.SIGTERM, signal.SIGINT))
+    accepted = []
     t0 = time.perf_counter()
     for r in reqs:
-        engine.submit(r)
-    engine.run_until_drained()
+        if guard.preempted:
+            break
+        (cluster or engine).submit(r)
+        accepted.append(r)
+        if cluster is not None:
+            cluster.step()
+    if cluster is not None:
+        while cluster.total_load:
+            cluster.step()
+        cluster.flush()  # waits for the replicas' retirement threads
+    else:
+        engine.run_until_drained()
     dt = time.perf_counter() - t0
-    total = sum(len(r.generated) for r in reqs)
-    print(f"generated {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s, "
+    if len(accepted) < len(reqs):
+        print(f"preempted: served {len(accepted)} accepted requests, shed "
+              f"{len(reqs) - len(accepted)} unsubmitted")
+    total = sum(len(r.generated or ()) for r in accepted)
+    extra = f"replicas={cluster.num_replicas}, " if cluster is not None else ""
+    print(f"generated {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s, {extra}"
           f"quantized={cfg.quant.enable}, device={args.device})")
-    print_report(engine.metrics.snapshot())
+    if cluster is not None:
+        health = cluster.health()
+        statuses = {}
+        for r in accepted:
+            statuses[r.status] = statuses.get(r.status, 0) + 1
+        print(f"cluster: status={health['status']} evicted={len(health['evicted'])} "
+              f"requests by status {statuses}")
+    print_report(cm.snapshot())
+    if events is not None:
+        events.close()
+        print(f"events: {args.events_out} ({events.total} events)")
 
 
 if __name__ == "__main__":

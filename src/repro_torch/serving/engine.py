@@ -38,9 +38,13 @@ decode tick (a program too) reads its tokens from the host, its argmax goes
 to the host, and it checks ``eos_id`` and retires inline; its per-length
 prefill runs eagerly.
 
-The reference's tracer, event log, introspection, expert-health monitor,
-mesh / expert-parallel placement, autotune warmup, eviction and ring
-cache are not ported.
+The engine is an ``EngineReplica`` (``serving/replica.py``): ``load``,
+``free_room`` (free decode slots plus queue room), ``reset_metrics`` and
+``evict``, which hands back every queued and decoding request for the
+cluster to re-dispatch. ``events=`` journals rejections, cancellations and
+retirement faults into an ``EventLog``. The reference's tracer,
+introspection, expert-health monitor, expert-parallel placement, autotune
+warmup and ring cache are not ported.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import module_for
 from repro_torch.models.param import require_device, tree_to
+from repro_torch.serving.events import EventLog
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.programs import EagerProgram, GraphProgram, PinnedRing, own
 from repro_torch.serving.scheduler import MicroBatcher
@@ -126,13 +131,24 @@ def _retire_loop(engine_ref, rq: "queue.Queue") -> None:
                 return
             try:
                 engine._consume(ev)
-            except Exception:
+            except Exception as e:
                 # a poisoned event must not kill the thread: later events
                 # would strand; the counter makes the loss visible
                 engine.metrics.inc("retire_errors")
+                if engine.events is not None:
+                    engine.events.emit("retire_error", error=repr(e))
         finally:
             del engine  # hold no reference while blocked on the queue
             rq.task_done()
+
+
+def _stop_retire(rq: "queue.Queue", thread: threading.Thread) -> None:
+    """End a retirement thread: the sentinel, then wait for it to return
+    (at interpreter exit too, where a thread still waking from the queue
+    while the interpreter tears down aborts the process)."""
+    rq.put(None)
+    if thread is not threading.current_thread():
+        thread.join(timeout=10.0)
 
 
 @dataclasses.dataclass
@@ -151,8 +167,18 @@ class Request:
     # set by the retirement path when eos_id is produced; the decode loop
     # frees the slot on its next tick
     eos_seen: bool = dataclasses.field(default=False, repr=False)
-    # "pending" until retirement makes it "completed" or "cancelled"
+    # cluster-wide identity, assigned by the cluster front-end at submit
+    trace_id: Optional[int] = None
+    # "pending" until the first terminal retirement makes it "completed" or
+    # "cancelled" ("failed" is cluster-assigned when the retry budget runs
+    # out); terminal is sticky, and duplicate retirements key on it
     status: str = dataclasses.field(default="pending", repr=False)
+    # times the cluster re-dispatched this request after an eviction
+    redispatched: int = dataclasses.field(default=0, repr=False)
+    # set by ``evict()`` while the request is stranded on a quarantined
+    # replica: retirement events still in flight for it are ignored (the
+    # cluster owns it until re-dispatch clears the flag)
+    evicted: bool = dataclasses.field(default=False, repr=False)
     # with ServeEngine(keep_logits=True): the device logits [V] behind each
     # generated token, in order (for teacher-forced checks)
     step_logits: Optional[list] = dataclasses.field(default=None, repr=False)
@@ -170,11 +196,14 @@ class ServeEngine:
     per-expert routed-token occupancy, and ``retraces`` the programs built
     after ``warmup()`` (0 once it has run). ``keep_logits=True`` keeps the
     logits behind every generated token on the request (device tensors,
-    no sync)."""
+    no sync). ``events=`` is the ``EventLog`` that rejections,
+    cancellations and retirement faults are journaled into; ``clock=``
+    injects a fake clock for deterministic tests."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
                  max_len: int = 512, max_pending: int = 0,
                  eos_id: Optional[int] = None,
+                 events: Optional[EventLog] = None,
                  clock: Callable[[], float] = time.monotonic,
                  device="cuda", keep_logits: bool = False) -> None:
         self.cfg = cfg = serving_config(cfg)
@@ -186,7 +215,10 @@ class ServeEngine:
         self._packed = bool(cfg.serve.packed_prefill
                             and hasattr(self.mod, "prefill_packed"))
         self.device = require_device(device)
+        # the same tensors when the tree is on this device already: replicas
+        # on one card share one copy of the weights
         self.params = tree_to(params, self.device)
+        self.events = events
         self.B = batch_slots
         self.max_len = max_len
         self._clock = clock
@@ -233,25 +265,83 @@ class ServeEngine:
         self._programs: Dict[str, Callable] = {}
         self._graphs = self.device.type == "cuda" and self._aot
         if self._graphs:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
+            # the replica's own pool and capture stream, made on its card
+            with torch.cuda.device(self.device):
+                self._pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream(self.device)
             self._ring = PinnedRing(4 * (3 * self.max_prefill + 4 * batch_slots))
         self._async = bool(cfg.serve.async_retire) and self._packed
         self._rq: "queue.Queue" = queue.Queue()
         self._rthread: Optional[threading.Thread] = None
         self._mlock = threading.Lock()
 
-    # -- surface ---------------------------------------------------------------
+    # -- replica surface (serving/replica.py) ----------------------------------
+
+    @property
+    def queue(self) -> List[Request]:
+        """Pending (not yet admitted) requests in FIFO order."""
+        return self.scheduler.pending_items()
 
     @property
     def free_slots(self) -> int:
         return self.B - len(self.active)
 
     @property
+    def inflight(self) -> int:
+        """Requests occupying decode slots."""
+        return len(self.active)
+
+    @property
+    def load(self) -> int:
+        """Queued + in-flight requests (least-loaded routing key)."""
+        return self.scheduler.depth + len(self.active)
+
+    @property
+    def free_room(self) -> float:
+        """Admission headroom: free decode slots plus queue room (inf when
+        the queue is unbounded). A replica with open slots admits even at
+        queue bound 0."""
+        room = self.scheduler.room
+        if room == float("inf"):
+            return float("inf")
+        return self.free_slots + room
+
+    @property
     def idle(self) -> bool:
         """Nothing queued, in flight, or pending retirement."""
         return (not self.active and self.scheduler.depth == 0
                 and self._pending_retire() == 0)
+
+    def reset_metrics(self) -> None:
+        """Fresh ``EngineMetrics`` (cluster replica leave: the old one was
+        folded into the cluster's retired accumulator)."""
+        self.metrics = EngineMetrics(
+            num_experts=self.metrics.expert_tokens.size, clock=self._clock)
+
+    def evict(self) -> List[Request]:
+        """Quarantine support (``serving/cluster.py``): strand and return
+        every request this replica holds -- queued and mid-decode, in FIFO
+        order -- without running any more device work.
+
+        The retirement thread is drained first, so a request whose terminal
+        event beat the eviction keeps its terminal status; everything
+        returned is marked ``evicted`` (events that still name it become
+        no-ops), and its slot, fill level and emission count are reset."""
+        if self._async:
+            self._rq.join()
+        stranded = list(self.scheduler.clear())
+        for slot in sorted(self.active):
+            stranded.append(self.active[slot])
+        self.active.clear()
+        self.pos[:] = 0
+        self._emitted[:] = 0
+        out = []
+        for req in stranded:
+            if req.status != "pending":
+                continue  # terminal before the eviction: nothing to redo
+            req.evicted = True
+            out.append(req)
+        return out
 
     def warmup(self) -> None:
         """Build the serving programs outside the measured path: the decode
@@ -390,7 +480,7 @@ class ServeEngine:
                 target=_retire_loop, args=(weakref.ref(self), self._rq),
                 daemon=True, name=f"retire-{id(self):x}")
             self._rthread.start()
-            weakref.finalize(self, self._rq.put, None)
+            weakref.finalize(self, _stop_retire, self._rq, self._rthread)
 
     def _emit(self, ev: dict) -> None:
         """Hand a retirement event to the thread (async) or consume it
@@ -409,7 +499,9 @@ class ServeEngine:
         tok = ev["tok"].cpu().numpy() if ev.get("tok") is not None else None
         with self._mlock:
             for req, i in ev.get("append", ()):
-                if req.eos_seen:
+                if req.eos_seen or req.evicted or req.generated is None:
+                    # the stream ended early, or the request was evicted and
+                    # restarts elsewhere (re-dispatch clears ``generated``)
                     continue
                 t = int(tok[i])
                 req.generated.append(t)
@@ -418,7 +510,12 @@ class ServeEngine:
             if ev.get("stats") is not None:
                 self.metrics.add_expert_tokens(ev["stats"].cpu().numpy())
             for req, latency, cancelled in ev.get("retired", ()):
+                if req.evicted:
+                    continue  # the cluster owns it until re-dispatch
                 if req.status != "pending":
+                    # already terminal: a duplicate retirement is counted
+                    # and delivers nothing
+                    self.metrics.inc("duplicate_retirements")
                     continue
                 req.status = "cancelled" if cancelled else "completed"
                 if cancelled:
@@ -429,8 +526,11 @@ class ServeEngine:
                 if req.on_done is not None:
                     try:
                         req.on_done(req)
-                    except Exception:
+                    except Exception as e:
                         self.metrics.inc("callback_errors")
+                        if self.events is not None:
+                            self.events.emit("callback_error", uid=req.uid,
+                                             error=repr(e))
 
     def _pending_retire(self) -> int:
         return self._rq.unfinished_tasks if self._async else 0
@@ -441,6 +541,10 @@ class ServeEngine:
         if len(req.prompt) > self._prompt_limit:
             # an unservable prompt at the queue head would wedge the planner
             self.metrics.inc("rejected")
+            if self.events is not None:
+                self.events.emit("reject", uid=req.uid, reason="unservable",
+                                 prompt_len=len(req.prompt),
+                                 limit=self._prompt_limit)
             raise ValueError(
                 f"prompt of {len(req.prompt)} tokens exceeds this engine's limit "
                 f"of {self._prompt_limit} (max_prefill={self.max_prefill}, "
@@ -456,6 +560,9 @@ class ServeEngine:
             self.scheduler.submit(req)  # raises Backpressure when full
         except Exception:
             self.metrics.inc("rejected")
+            if self.events is not None:
+                self.events.emit("reject", uid=req.uid, reason="backpressure",
+                                 depth=self.scheduler.depth)
             raise
         self.metrics.inc("submitted")
         self.metrics.observe_queue_depth(self.scheduler.depth)
@@ -474,8 +581,14 @@ class ServeEngine:
             expired = self._expired(req, now)
             if expired or req.eos_seen:
                 self.active.pop(slot)
+                cancelled = bool(expired and not req.eos_seen)
+                if self.events is not None and cancelled:
+                    self.events.emit("cancel", t=now, uid=req.uid,
+                                     where="mid_generation",
+                                     waited_s=now - req.submitted_at,
+                                     deadline_s=req.deadline)
                 self._emit({"now": now, "retired": [
-                    (req, now - req.submitted_at, bool(expired and not req.eos_seen))]})
+                    (req, now - req.submitted_at, cancelled)]})
 
     def _drop_expired(self, items, now: float) -> List[Request]:
         """The live requests of a poll; the expired ones retire as
@@ -483,6 +596,10 @@ class ServeEngine:
         live = []
         for req in items:
             if self._expired(req, now):
+                if self.events is not None:
+                    self.events.emit("cancel", t=now, uid=req.uid, where="queued",
+                                     waited_s=now - req.submitted_at,
+                                     deadline_s=req.deadline)
                 self._emit({"now": now,
                             "retired": [(req, now - req.submitted_at, True)]})
             else:

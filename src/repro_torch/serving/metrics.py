@@ -1,21 +1,26 @@
-"""Serving metrics of one engine, a framework-free copy of the engine half
-of ``repro.serving.metrics``: ``hist_percentile``, ``LatencyTracker`` and
-``EngineMetrics`` with the vision and LM counters, tokens/s and per-expert
-occupancy (the cluster roll-up, program roofline rows, expert-health monitor
-and the Prometheus export are not ported yet).
+"""Serving metrics shared by the engines and the cluster, a framework-free
+copy of ``repro.serving.metrics``: ``hist_percentile``, ``LatencyTracker``,
+``EngineMetrics`` (the vision and LM counters, tokens/s, per-expert
+occupancy) and the cluster roll-up ``ClusterMetrics``. The program roofline
+rows, the memory watermark, the expert-health monitor and the Prometheus
+export read the introspection layer, which is not ported yet.
 
 ``EngineMetrics`` is host-side instrumentation only -- counters, latency
 trackers, queue-depth samples and the per-expert routed-token occupancy --
-fed from values already on the host. ``LatencyTracker`` keeps an exact
-sample reservoir plus a fixed log-spaced histogram, so it stays correct past
-the reservoir.
+fed from values already on the host. ``LatencyTracker`` is merge-safe:
+besides the exact-sample reservoir it keeps a fixed log-spaced histogram
+that every ``record`` lands in, so trackers of N replicas combine by summing
+histograms (and pooling the samples while they are complete).
+``ClusterMetrics`` rolls replica metrics up that way: cluster percentiles
+come from the pooled distribution, never from averaging per-replica
+percentiles.
 """
 from __future__ import annotations
 
 import threading
 import time
 from collections import deque
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -71,10 +76,46 @@ class LatencyTracker:
             self._sum += s
             self._max = max(self._max, s)
 
+    def __len__(self) -> int:
+        return self._total
+
     @property
     def exact(self) -> bool:
         """Whether the reservoir still holds every recorded sample."""
         return self._total <= self._maxlen
+
+    def merge(self, other: "LatencyTracker") -> None:
+        """Fold another tracker's distribution into this one (cluster
+        roll-up). Histograms add; samples pool while both sides are
+        complete, after which the histogram carries the percentiles. The
+        source is copied under its own lock (a live replica keeps recording
+        during a roll-up), then folded in under ours: one after the other,
+        never nested, so two-way merges cannot deadlock."""
+        with other._lock:
+            hist = other._hist.copy()
+            total, ssum, smax = other._total, other._sum, other._max
+            samples = list(other._samples)
+        with self._lock:
+            self._hist += hist
+            self._total += total
+            self._sum += ssum
+            self._max = max(self._max, smax)
+            for s in samples:
+                self._samples.append(s)
+
+    @classmethod
+    def merged(cls, trackers: Sequence["LatencyTracker"],
+               maxlen: int = 65536) -> "LatencyTracker":
+        out = cls(maxlen=maxlen)
+        for t in trackers:
+            out.merge(t)
+        return out
+
+    def hist_data(self):
+        """(bin_edges, counts, total, sum, max) copied under the lock."""
+        with self._lock:
+            return (_BIN_EDGES, self._hist.copy(), int(self._total),
+                    float(self._sum), float(self._max))
 
     def percentile(self, p: float) -> float:
         """p-th percentile in seconds (0.0 when empty; a single sample
@@ -190,6 +231,12 @@ class EngineMetrics:
     # -- readout ------------------------------------------------------------
 
     @property
+    def window(self):
+        """(first_submission_t, last_completion_t), the FPS window bounds
+        (either may be None); ``ClusterMetrics`` unions replica windows."""
+        return self._first_t, self._last_t
+
+    @property
     def fps(self) -> float:
         """Completed frames (or tokens, for the LM engine) per wall second,
         from the first submission to the last completion."""
@@ -198,6 +245,13 @@ class EngineMetrics:
                 or self._last_t <= self._first_t:
             return float("nan")
         return n / (self._last_t - self._first_t)
+
+    def occupancy(self) -> np.ndarray:
+        """Per-expert fraction of all routed (token, slot) pairs."""
+        total = self.expert_tokens.sum()
+        if total == 0:
+            return np.zeros_like(self.expert_tokens, np.float64)
+        return self.expert_tokens / float(total)
 
     def snapshot(self) -> dict:
         """The metrics schema of the reference engine (without the
@@ -228,3 +282,255 @@ def _occupancy_of(tokens: np.ndarray) -> List[float]:
     if total == 0:
         return [0.0] * int(tokens.size)
     return [round(float(x), 6) for x in tokens / float(total)]
+
+
+def _occupancy_stats(tokens: np.ndarray) -> Optional[dict]:
+    """Entropy + hot/cold skew of a routed-token histogram (the whole run's
+    expert balance)."""
+    total = float(tokens.sum()) if tokens.size else 0.0
+    if total == 0:
+        return None
+    occ = tokens / total
+    nz = occ[occ > 0]
+    e = int(tokens.size)
+    entropy = (float(-(nz * np.log(nz)).sum() / np.log(e))
+               if e > 1 else 1.0)
+    hot, cold = float(occ.max()), float(occ.min())
+    return {
+        "entropy": round(entropy, 6),
+        "hot_cold_skew": round(hot / max(cold, 1.0 / (e * 1e3)), 3),
+        "hot_expert": int(occ.argmax()),
+        "cold_expert": int(occ.argmin()),
+    }
+
+
+class ClusterMetrics:
+    """Merge-safe roll-up over N replica ``EngineMetrics``.
+
+    Aggregation rules:
+      * counters -- summed;
+      * FPS -- total frames (tokens) over the *union* of replica windows
+        (earliest first submission to latest completion), not a sum of
+        replica FPS (replica windows overlap under shared load);
+      * latency percentiles -- ``LatencyTracker.merged`` over the pooled
+        distribution, never an average of per-replica percentiles;
+      * per-expert occupancy -- routed-token histograms summed across
+        replicas, then normalized.
+
+    Membership is dynamic: ``add_replica`` joins a replica's metrics to the
+    live set; ``remove_replica`` folds the leaving replica's whole
+    distribution into a *retired accumulator*, so cluster totals,
+    percentiles and the FPS window never lose a drained or evicted
+    replica's history. The cluster resets the engine's own ``EngineMetrics``
+    after the fold, so a replica that rejoins is never counted twice.
+    ``mark_replicas`` records the (t, active-count) timeline.
+    """
+
+    def __init__(self, replicas: Sequence[EngineMetrics],
+                 clock: Callable[[], float] = time.monotonic) -> None:
+        self._replicas = list(replicas)
+        self._clock = clock
+        self._first_t: Optional[float] = None
+        # front-end counters (admission rejections etc.). Guarded: replica
+        # retirement threads feed the at-most-once guard's duplicate
+        # counter (serving/cluster.py) off the pump thread.
+        self._counter_lock = threading.Lock()
+        self.counters: Dict[str, int] = {}
+        # front-end queue-depth samples (the autoscaler's pressure signal)
+        self._depth_sum = 0
+        self._depth_max = 0
+        self._depth_last = 0
+        self._depth_n = 0
+        # retired accumulator: drained and evicted replicas fold in here
+        self._ret_request = LatencyTracker(maxlen=65536)
+        self._ret_batch = LatencyTracker(maxlen=65536)
+        self._ret_queue_wait = LatencyTracker(maxlen=65536)
+        self._ret_steps: Dict[str, LatencyTracker] = {}
+        self._ret_counters: Dict[str, int] = {}
+        self._ret_tokens: Optional[np.ndarray] = None
+        self._ret_first: Optional[float] = None
+        self._ret_last: Optional[float] = None
+        # (t, active-replica-count), appended by mark_replicas on every
+        # scale event (and at cluster construction)
+        self._timeline: List[tuple] = []
+
+    # -- membership ---------------------------------------------------------
+
+    @property
+    def num_replicas(self) -> int:
+        return len(self._replicas)
+
+    def add_replica(self, m: EngineMetrics) -> None:
+        """Join a replica's metrics to the live set (replica scale-up)."""
+        if m not in self._replicas:
+            self._replicas.append(m)
+
+    def remove_replica(self, m: EngineMetrics) -> None:
+        """Fold a leaving replica's distribution into the retired
+        accumulator. The caller resets the engine's metrics afterwards
+        (``engine.reset_metrics()``), or a rejoin would count twice."""
+        if m in self._replicas:
+            self._replicas.remove(m)
+        self._ret_request.merge(m.request_latency)
+        self._ret_batch.merge(m.batch_latency)
+        self._ret_queue_wait.merge(m.queue_wait)
+        # per-program step histograms fold key by key
+        with m._lock:
+            step_items = list(m.step_latency.items())
+        for k, t in step_items:
+            acc = self._ret_steps.get(k)
+            if acc is None:
+                acc = self._ret_steps[k] = LatencyTracker(maxlen=65536)
+            acc.merge(t)
+        for k, v in m.counters.items():
+            self._ret_counters[k] = self._ret_counters.get(k, 0) + v
+        if m.expert_tokens.size:
+            if self._ret_tokens is None:
+                self._ret_tokens = m.expert_tokens.astype(np.int64).copy()
+            elif self._ret_tokens.size == m.expert_tokens.size:
+                self._ret_tokens += m.expert_tokens
+        f, l = m.window
+        if f is not None:
+            self._ret_first = f if self._ret_first is None \
+                else min(self._ret_first, f)
+        if l is not None:
+            self._ret_last = l if self._ret_last is None \
+                else max(self._ret_last, l)
+
+    def mark_replicas(self, n: int) -> None:
+        """Append (now, active-replica-count) to the scale timeline."""
+        self._timeline.append((self._clock(), int(n)))
+
+    @property
+    def replica_timeline(self) -> List[tuple]:
+        return list(self._timeline)
+
+    # -- feeding ------------------------------------------------------------
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._counter_lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+            if name == "cluster_submitted" and self._first_t is None:
+                self._first_t = self._clock()  # window opens at admission
+
+    def observe_queue_depth(self, depth: int) -> None:
+        """Sample the *front-end* queue depth (cluster route path)."""
+        with self._counter_lock:
+            self._depth_sum += depth
+            self._depth_max = max(self._depth_max, depth)
+            self._depth_last = depth
+            self._depth_n += 1
+
+    # -- readout ------------------------------------------------------------
+
+    @property
+    def fps(self) -> float:
+        frames = sum(
+            m.counters.get("frames", 0) or m.counters.get("tokens", 0)
+            for m in self._replicas
+        )
+        frames += (self._ret_counters.get("frames", 0)
+                   or self._ret_counters.get("tokens", 0))
+        firsts = [m.window[0] for m in self._replicas
+                  if m.window[0] is not None]
+        if self._first_t is not None:
+            firsts.append(self._first_t)  # front-end admission opens earlier
+        if self._ret_first is not None:
+            firsts.append(self._ret_first)
+        lasts = [m.window[1] for m in self._replicas
+                 if m.window[1] is not None]
+        if self._ret_last is not None:
+            lasts.append(self._ret_last)
+        if not firsts or not lasts or max(lasts) <= min(firsts):
+            return float("nan")
+        return frames / (max(lasts) - min(firsts))
+
+    def merged_request_latency(self) -> LatencyTracker:
+        t = LatencyTracker.merged(
+            [m.request_latency for m in self._replicas])
+        t.merge(self._ret_request)
+        return t
+
+    def pooled_request_hist(self) -> np.ndarray:
+        """Pooled request-latency histogram (live replicas + retired).
+
+        Monotone non-decreasing over time as long as the leave protocol is
+        followed (fold into retired, then reset), which is what lets the
+        autoscaler difference two snapshots into a *windowed* percentile."""
+        h = self._ret_request._hist.copy()
+        for m in self._replicas:
+            with m.request_latency._lock:
+                h = h + m.request_latency._hist
+        return h
+
+    def merged_step_latency(self) -> Dict[str, LatencyTracker]:
+        """Per-program step-latency trackers pooled over live replicas plus
+        the retired accumulator (the request latency's merge rule)."""
+        out: Dict[str, LatencyTracker] = {}
+        sources: List[Dict[str, LatencyTracker]] = [self._ret_steps]
+        for m in self._replicas:
+            with m._lock:
+                sources.append(dict(m.step_latency))
+        for src in sources:
+            for k, t in src.items():
+                acc = out.get(k)
+                if acc is None:
+                    acc = out[k] = LatencyTracker(maxlen=65536)
+                acc.merge(t)
+        return out
+
+    def snapshot(self) -> dict:
+        """The reference's cluster schema, without the ``program_perf`` and
+        ``memory`` rows of the introspection layer."""
+        counters: Dict[str, int] = dict(self.counters)
+        for k, v in self._ret_counters.items():
+            counters[k] = counters.get(k, 0) + v
+        for m in self._replicas:
+            for k, v in m.counters.items():
+                counters[k] = counters.get(k, 0) + v
+        sizes = {m.expert_tokens.size for m in self._replicas}
+        if self._ret_tokens is not None:
+            sizes.add(self._ret_tokens.size)
+        if len(sizes) == 1 and (self._replicas
+                                or self._ret_tokens is not None):
+            tokens = np.sum(
+                [m.expert_tokens for m in self._replicas]
+                + ([self._ret_tokens] if self._ret_tokens is not None
+                   else []),
+                axis=0)
+        else:
+            tokens = np.zeros(0, np.int64)
+        batch_lat = LatencyTracker.merged(
+            [m.batch_latency for m in self._replicas])
+        batch_lat.merge(self._ret_batch)
+        queue_wait = LatencyTracker.merged(
+            [m.queue_wait for m in self._replicas])
+        queue_wait.merge(self._ret_queue_wait)
+        health = _occupancy_stats(tokens)
+        if health is not None:
+            health["drift_events"] = counters.get("expert_drift", 0)
+        return {
+            "replicas": [m.snapshot() for m in self._replicas],
+            "aggregate": {
+                "counters": counters,
+                "fps": self.fps,
+                "latency_ms": self.merged_request_latency().snapshot(),
+                "batch_latency_ms": batch_lat.snapshot(),
+                "queue_wait_ms": queue_wait.snapshot(),
+                "step_latency_ms": {
+                    k: t.snapshot()
+                    for k, t in sorted(self.merged_step_latency().items())},
+                "expert_health": health,
+                "front_queue_depth": {
+                    "mean": (self._depth_sum / self._depth_n)
+                    if self._depth_n else 0.0,
+                    "max": self._depth_max,
+                    "last": self._depth_last,
+                },
+                "expert_tokens": tokens.tolist(),
+                "expert_occupancy": _occupancy_of(tokens),
+            },
+            "replicas_active": (self._timeline[-1][1] if self._timeline
+                                else len(self._replicas)),
+            "replica_timeline": [[t, n] for t, n in self._timeline],
+        }

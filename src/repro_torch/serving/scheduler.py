@@ -18,7 +18,8 @@ Semantics:
   * **backpressure** -- ``submit`` raises ``Backpressure`` once ``max_pending``
     requests are queued (0 = unbounded).
   * **drain** -- ``drain()`` releases partial batches immediately regardless
-    of deadline, for end-of-stream flush.
+    of deadline, for end-of-stream flush; ``clear()`` hands every queued
+    request back (eviction).
 
 Pure host-side bookkeeping; a ``clock`` can be injected for tests.
 """
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 
 class Backpressure(RuntimeError):
@@ -116,6 +117,21 @@ class MicroBatcher:
         if self.max_pending == 0:
             return float("inf")
         return max(0, self.max_pending - self._depth)
+
+    def pending_items(self) -> List[Any]:
+        """Queued requests in global FIFO (submission) order."""
+        entries = [e for q in self._buckets.values() for e in q]
+        entries.sort(key=lambda e: e[0])
+        return [e[2] for e in entries]
+
+    def clear(self) -> List[Any]:
+        """Remove and return every queued request in global FIFO order: the
+        eviction path (``ServingCluster.quarantine``) reclaims an evicted
+        replica's queued requests for re-dispatch."""
+        items = self.pending_items()
+        self._buckets.clear()
+        self._depth = 0
+        return items
 
     # -- batch formation ----------------------------------------------------
 

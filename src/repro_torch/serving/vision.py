@@ -17,16 +17,22 @@ reference's one jitted program a bucket): on the card with
 ``serve.aot_warmup`` a CUDA graph that ``warmup()`` captures
 (``serving/programs.py``), whose outputs each dispatch clones, so a replay
 never overwrites a batch still in flight; with ``aot_warmup=False``, and on
-the CPU, ``classify`` run eagerly. The reference's mesh/expert-parallel
-placement, tracer, event log, introspection and autotuning are not ported
-yet.
+the CPU, ``classify`` run eagerly.
+
+The engine is an ``EngineReplica`` (``serving/replica.py``): ``load``,
+``free_room``, ``reset_metrics`` and ``evict``, which hands back every queued
+and dispatched request for the cluster to re-dispatch; retirement skips an
+evicted or already-terminal request and fires ``on_done`` once. ``clock=``
+injects a fake clock and ``events=`` an ``EventLog``. The reference's
+expert-parallel placement, tracer, introspection and autotuning are not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import require_device, tree_to
 from repro_torch.models.vit import PATCH_DIM, classify
 from repro_torch.serving.engine import serving_config
+from repro_torch.serving.events import EventLog
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.programs import EagerProgram, GraphProgram, PinnedRing, own
 from repro_torch.serving.scheduler import MicroBatcher
@@ -50,7 +57,17 @@ class VisionRequest:
     classes: Optional[np.ndarray] = None  # [k] int32, most-probable first
     probs: Optional[np.ndarray] = None  # [k] f32, descending
     latency_s: Optional[float] = None
+    # None = not yet admitted; a 0.0 stamp from a fake clock is a real stamp
     submitted_at: Optional[float] = None
+    # cluster-wide identity, assigned by the cluster front-end at submit
+    trace_id: Optional[int] = None
+    # terminal-delivery callback (``Request.on_done``'s contract): fired
+    # once at retirement
+    on_done: Optional[Callable[["VisionRequest"], None]] = None
+    # lifecycle and eviction bookkeeping, as on ``engine.Request``
+    status: str = dataclasses.field(default="pending", repr=False)
+    redispatched: int = dataclasses.field(default=0, repr=False)
+    evicted: bool = dataclasses.field(default=False, repr=False)
 
     @property
     def done(self) -> bool:
@@ -80,20 +97,27 @@ class VisionEngine:
         top_k: int = 5,
         max_inflight: int = 2,
         device="cuda",
+        events: Optional[EventLog] = None,
+        clock: Callable[[], float] = time.monotonic,
     ) -> None:
         if cfg.family not in ("vit", "vit_moe"):
             raise ValueError(f"vision families only, got {cfg.family!r}")
         self.device = require_device(device)
         self.cfg = serving_config(cfg)
+        # the same tensors when the tree is on this device already: replicas
+        # on one card share one copy of the weights
         self.params = tree_to(params, self.device)
+        self.events = events
+        self._clock = clock
         self.top_k = min(top_k, cfg.num_classes)
         self.n_patches = cfg.image_tokens - 1
         self.scheduler = MicroBatcher(
             batch_sizes=batch_buckets, max_wait_s=max_wait_s,
-            max_pending=max_pending,
+            max_pending=max_pending, clock=clock,
         )
         self.metrics = EngineMetrics(
-            num_experts=cfg.moe.num_experts if cfg.moe is not None else 0)
+            num_experts=cfg.moe.num_experts if cfg.moe is not None else 0,
+            clock=clock)
         self.max_inflight = max(1, int(max_inflight))
         self._inflight: deque = deque()
         # one program a bucket; on the card with aot_warmup each is a CUDA
@@ -101,8 +125,10 @@ class VisionEngine:
         self._programs: dict = {}
         self._graphs = self.device.type == "cuda" and self.cfg.serve.aot_warmup
         if self._graphs:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
+            # the replica's own pool and capture stream, made on its card
+            with torch.cuda.device(self.device):
+                self._pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream(self.device)
             self._ring = PinnedRing(4 * max(self.scheduler.batch_sizes) * self.n_patches
                                     * PATCH_DIM, depth=self.max_inflight + 2)
 
@@ -145,18 +171,58 @@ class VisionEngine:
         return sum(len(f.reqs) for f in self._inflight)
 
     @property
+    def load(self) -> int:
+        """Queued + in-flight requests (least-loaded routing key)."""
+        return self.scheduler.depth + self.inflight
+
+    @property
     def idle(self) -> bool:
         return self.scheduler.depth == 0 and not self._inflight
 
+    @property
+    def free_room(self) -> float:
+        """Admission slots left before ``submit`` raises ``Backpressure``
+        (inf when unbounded)."""
+        return self.scheduler.room
+
+    def reset_metrics(self) -> None:
+        """Fresh ``EngineMetrics`` (cluster replica leave: the old one was
+        folded into the cluster's retired accumulator)."""
+        self.metrics = EngineMetrics(
+            num_experts=self.metrics.expert_tokens.size, clock=self._clock)
+
+    def evict(self) -> List[VisionRequest]:
+        """Quarantine support (``serving/cluster.py``): strand and return
+        every request this replica holds -- queued and in dispatched
+        batches -- without waiting on (possibly wedged) device work. The
+        batches are dropped unsynchronized; their requests are marked
+        ``evicted``, so a late retirement of one is a no-op."""
+        stranded = list(self.scheduler.clear())
+        for ent in self._inflight:
+            stranded.extend(ent.reqs)
+        self._inflight.clear()
+        out = []
+        for req in stranded:
+            if req.status != "pending":
+                continue  # terminal before the eviction: nothing to redo
+            req.evicted = True
+            out.append(req)
+        return out
+
     def submit(self, req: VisionRequest) -> None:
         """Enqueue one image; raises ``scheduler.Backpressure`` when the
-        pending queue is at ``max_pending``."""
+        pending queue is at ``max_pending``. A ``submitted_at`` stamped
+        upstream (the cluster front-end) is kept, so request latency
+        includes the front-end's queue."""
         if req.submitted_at is None:
-            req.submitted_at = time.monotonic()
+            req.submitted_at = self._clock()
         try:
             self.scheduler.submit(req)
         except Exception:
             self.metrics.inc("rejected")
+            if self.events is not None:
+                self.events.emit("reject", uid=req.uid, reason="backpressure",
+                                 depth=self.scheduler.depth)
             raise
         self.metrics.inc("submitted")
         self.metrics.observe_queue_depth(self.scheduler.depth)
@@ -183,6 +249,8 @@ class VisionEngine:
         finally:
             self.scheduler.drain(False)
 
+    run_until_drained = flush
+
     # -- internals ----------------------------------------------------------
 
     def _head_ready(self) -> bool:
@@ -200,7 +268,7 @@ class VisionEngine:
             x = np.zeros((batch.pad_to, self.n_patches, PATCH_DIM), np.float32)
             for i, r in enumerate(reqs):
                 x[i] = r.patches
-            t0 = time.monotonic()
+            t0 = self._clock()
             for r in reqs:
                 self.metrics.queue_wait.record(max(0.0, t0 - r.submitted_at))
             # the program copies x from pinned memory without waiting: the
@@ -225,7 +293,7 @@ class VisionEngine:
         classes = ent.out["classes"].cpu().numpy()  # synchronizes the batch
         probs = ent.out["probs"].cpu().numpy()
         expert_tokens = ent.out["expert_tokens"].cpu().numpy()
-        now = time.monotonic()
+        now = self._clock()
         self.metrics.batch_latency.record(now - ent.dispatched_at)
         self.metrics.record_step(f"classify|b={ent.pad_to}",
                                  now - ent.dispatched_at)
@@ -233,11 +301,26 @@ class VisionEngine:
             # includes the pad rows' routed tokens (see padded_frames)
             self.metrics.add_expert_tokens(expert_tokens)
         for i, req in enumerate(ent.reqs):
+            if req.evicted or req.status != "pending":
+                # evicted (the cluster owns it) or a duplicate retirement of
+                # an already-terminal request: delivered once only
+                if not req.evicted:
+                    self.metrics.inc("duplicate_retirements")
+                continue
             req.classes = classes[i]
             req.probs = probs[i]
             req.latency_s = now - req.submitted_at
+            req.status = "completed"
             self.metrics.request_latency.record(req.latency_s)
             self.metrics.inc("completed")
+            if req.on_done is not None:
+                try:
+                    req.on_done(req)
+                except Exception as e:
+                    self.metrics.inc("callback_errors")
+                    if self.events is not None:
+                        self.events.emit("callback_error", uid=req.uid,
+                                         error=repr(e))
         self.metrics.work_done(len(ent.reqs), "frames")
 
 

@@ -33,7 +33,10 @@ def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.serving.vision, "
             "repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.core.quant.ptq, repro_torch.bridge, "
-            "repro_torch.models.ssm_lm, repro_torch.kernels.selective_scan; "
+            "repro_torch.models.ssm_lm, repro_torch.kernels.selective_scan, "
+            "repro_torch.serving.cluster, repro_torch.serving.autoscaler, "
+            "repro_torch.serving.faults, repro_torch.serving.events, "
+            "repro_torch.serving.replica, repro_torch.distributed.fault_tolerance; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'repro' not in sys.modules, 'repro imported'")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -46,7 +49,7 @@ def _entry_points():
     from repro_torch.configs import smoke_config
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import ViTClassifier, init_model_params, ssm_lm, transformer
-    from repro_torch.serving import ServeEngine, VisionEngine
+    from repro_torch.serving import ServeEngine, ServingCluster, VisionEngine, replica_devices
 
     cfg = smoke_config("m3vit-small")
     lm = smoke_config("olmoe-1b-7b")
@@ -64,6 +67,13 @@ def _entry_points():
         "ServeEngine[ssm]": lambda: ServeEngine(ssm, init_model_params(ssm, device="cpu")),
         "init_cache[ssm]": lambda: ssm_lm.init_cache(ssm, 2, 8),
         "launch.serve[ssm]": lambda: serve_main(["--arch", "falcon-mamba-7b", "--smoke"]),
+        "ServingCluster": lambda: ServingCluster(lm, init_model_params(lm, device="cpu"),
+                                                 replicas=2, engine="lm"),
+        "ServingCluster[vision]": lambda: ServingCluster(
+            cfg, init_model_params(cfg, device="cpu"), replicas=2),
+        "replica_devices": lambda: replica_devices(2),
+        "launch.serve[replicas]": lambda: serve_main(["--arch", "olmoe-1b-7b", "--smoke",
+                                                      "--replicas", "2"]),
     }
 
 
@@ -71,7 +81,9 @@ def _entry_points():
                                   "init_model_params[lm]", "ServeEngine", "init_cache",
                                   "launch.serve", "init_model_params[ssm]",
                                   "ServeEngine[ssm]", "init_cache[ssm]",
-                                  "launch.serve[ssm]"])
+                                  "launch.serve[ssm]", "ServingCluster",
+                                  "ServingCluster[vision]", "replica_devices",
+                                  "launch.serve[replicas]"])
 def test_entry_points_default_to_the_card_and_refuse_without_one(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
