@@ -26,7 +26,13 @@ caught:
                  3xTF32 rates; each timed call alone one device kernel;
                  ``streaming_attention`` with ``lm_attention`` on the
                  same vision inputs; every LM mode of ``lm_attention`` at the
-                 OLMoE-1B-7B shapes, and at head dims 112 and 100
+                 OLMoE-1B-7B shapes, at head dims 112 and 100, and at hd 256
+                 (gemma2-2b's decode over bf16 and int8 caches of 512 rows
+                 and over a wrapped 4096-row ring, its f32 prefill with the
+                 window, of 4160 tokens where it masks, its int8 ring
+                 prefill; gemma-7b's decode and prefill beside SDPA) and 192
+                 (nemotron's), each hd <= 128 row's time printed beside
+                 ``PERF_MD_LM_ATTENTION_MS``
                  (exact-score inputs within 1e-5; with Gaussian q the
                  ``quant_bits=0`` rows within ``GAUSSIAN_QB0_TOL``, the
                  ``quant_bits=4`` rows no more rows over 1e-4 than
@@ -160,6 +166,32 @@ caught:
                  cluster ``step()`` outside the replicas, and the time from
                  eviction to backfill and to the last re-dispatched
                  completion.
+ 10. dense    -- the falcon-mamba tree freed, full-width gemma2-2b
+                 (``configs/gemma2_2b.py``: 26 layers in 13 local(4096) /
+                 global pairs, 8 heads of 256 over 4 KV heads, softcaps,
+                 sandwich norms, tied 256k embedding; seeded f32 init,
+                 10.46 GB), calibrated on 2 batches of 2 x 32 tokens and
+                 PTQ'd to the int8 tree. (a) The fp tree served as
+                 ``launch/serve.py`` serves it (bf16 K/V, the local layers'
+                 in a ring, ``quant_bits=0``; 8 slots, max_len 512, phase
+                 7's 16 requests) through the grouped admission path (a
+                 ring takes no packed prefill) and the captured tick:
+                 exactly 0 / 26 / 105 launches (int8_matmul / lm_attention
+                 / rmsnorm) a prefill and a tick, graph nodes equal,
+                 ``retraces`` 0, the ``aot_warmup=False`` engine's tokens
+                 and logits bit-equal, teacher-forced against ``prefill``
+                 within ``DENSE_FP_TF_LIMITS``, and an f32-cache control
+                 within ``DENSE_TF_TOL`` at every step. (b) The int8 tree
+                 (int8 ring cache, 4-bit attention): 156 / 26 / 105, every
+                 int8_matmul on variant 1 or 2, every token prefill's argmax
+                 over its prefix. (c) The ring wrapping: an f32-cache
+                 engine of 2 slots over 4608 rows (ring 4096), prompts of
+                 4100 (wraps in the prefill's roll) and 4060 (wraps in
+                 decode) tokens, 64 new each, every step within
+                 ``DENSE_TF_TOL`` of one teacher-forced pass over the whole
+                 sequence. (d) One fp and one int8 tick (8 slots at fill
+                 300) profiled as graph replays beside the fp tick's byte
+                 bound.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before that
@@ -288,6 +320,27 @@ SSM_CONTROLS = ("tf32 matmuls", "bf16 conv history")
 # requests are admitted at step 1 and decode 31 more ticks: 16 is mid-decode)
 CLUSTER_VISION_REQUESTS, CLUSTER_VISION_PROB_TOL = 48, 1e-6
 CLUSTER_KILL_STEP = 16
+# phase 10: full-width gemma2-2b. Per forward (a grouped prefill or a decode
+# tick): 26 attention layers; 26 x (ln1, post_ln1, ln2, post_ln2) +
+# final_norm RMSNorms; the int8 tree's 26 x (q, k, v, o, wi, wo) linears
+# (the tied LM head stays an f32 GEMM)
+DENSE_ARCH = "gemma2-2b"
+DENSE_FP_PER_FORWARD = {"int8_matmul": 0, "grouped_matmul": 0, "lm_attention": 26,
+                        "rmsnorm": 105}
+DENSE_INT8_PER_FORWARD = dict(DENSE_FP_PER_FORWARD, int8_matmul=156)
+# every step of the f32-cache control within this of prefill's logits (abs)
+DENSE_TF_TOL = 1e-3
+# the served fp engine (bf16 ring cache) against prefill: limits on the
+# median and the max over the 512 steps of max |logit error|. An H100 read
+# median 8.84e-3, max 1.23e-2 (every token at prefill's argmax); the
+# f32-cache control 7.97e-6 / 1.19e-5. The limits sit 3x above the bf16
+# reading; a fault (wrong slot, ring row or position) moves a step's logits
+# by their size (~1)
+DENSE_FP_TF_LIMITS = (2.7e-2, 3.7e-2)
+# the ring-wrap run: one engine of 2 slots over 4608 rows (the local layers'
+# ring 4096), a prompt that wraps the ring in its prefill and one that wraps
+# it in decode, 64 new tokens each
+DENSE_RING_MAX_LEN, DENSE_RING_PROMPTS, DENSE_RING_NEW = 4608, (4100, 4060), 64
 
 
 def emit(obj) -> None:
@@ -794,6 +847,15 @@ PARENT_GAUSSIAN_OVER = {"packed_prefill": 0, "decode_int8": 0}
 # inputs (its own chip_smoke.py:_check_attention, same seed and draws)
 PARENT_VISION_GAUSSIAN_OVER = 0
 GAUSSIAN_QB0_TOL = 1e-4  # atol = rtol for the quant_bits=0 rows with Gaussian q
+# PERF.md's call times of the hd <= 128 lm_attention rows (ms, graph
+# replays on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's: the hd-256 class must not move them
+PERF_MD_LM_ATTENTION_MS = {
+    "calibration": 0.00964, "packed_prefill": 0.1065, "decode_int8": 0.0292,
+    "decode_bf16": 0.0273, "packed_prefill_f32": 0.0914, "decode_gqa": 0.0301,
+    "prefill_gqa": 0.0145, "window": 0.00733, "window_qb4": 0.0105, "softcap": 0.00817,
+    "decode_hd112": 0.0786, "prefill_hd112": 0.0716, "prefill_hd100": 0.0351,
+    "prefill_hd100_f32": 0.0140}
 
 
 def _device_work(fn) -> int:
@@ -944,7 +1006,9 @@ def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) ->
     shape, the tile schedule (``schedule=1``) is held against the plain
     version too, and must equal the decode schedule bit for bit, on both
     inputs: the two run one arithmetic, so a served decode step computes
-    what a prefill computes for its row. Gate: one device kernel a call. Time the kernel (device time per call,
+    what a prefill computes for its row. A bf16 K/V row is also held
+    within 1e-5 of the plain version on f32 copies of its K/V, on the
+    exact-score inputs. Gate: one device kernel a call. Time the kernel (device time per call,
     ``graph_ms``, and eager), the plain version and, for ``quant_bits=0``,
     SDPA (``sdpa``, graph and eager), and bound it."""
     from repro_torch.kernels import ref
@@ -956,12 +1020,22 @@ def _lm_attention_row(name, mode, q, k, v, kw, tol, sdpa=None, gaussian=None) ->
     atol, rtol = tol
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
     err = max_err(got, want)
+    row = {}
+    if k.dtype == torch.bfloat16:
+        # the plain version on f32 copies of the bf16 K/V computes what the
+        # kernel does (it keeps P in f32): exact-score inputs within 1e-5
+        exact = ref.flash_attention_ref(q, k.float(), v.float(), **plain_kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, exact, atol=1e-5, rtol=1e-5)
+        row["f32_copy_max_abs_err"] = max_err(got, exact)
+        print(f"[kernels] lm_attention[{name}]: against the plain version on f32 copies of "
+              f"the bf16 K/V, max err {row['f32_copy_max_abs_err']:.3g} (gate 1e-5)",
+              flush=True)
     qb = kw.get("quant_bits", 0)
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     schedule = choose_schedule(Sq, Sk, H, KVH, hd, all(
         t.data_ptr() % 16 == 0 for t in (q, k, v)))
-    row = {}
     if schedule == 0:
         tile = lm_attention(q, k, v, schedule=1, **kw)
         torch.cuda.synchronize()
@@ -1190,6 +1264,93 @@ def _check_lm_attention(gen) -> list:
              kv_segment_ids=seg, segments=5),
         f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v), attn_mask=pmask),
         gaussian=gauss(1, P, H, hd)))
+    rows += _check_lm_attention_hd256(grid, randn, gauss, off, f32_tol, bf16_tol)
+    for row in rows:
+        was = PERF_MD_LM_ATTENTION_MS.get(row["name"].removeprefix("lm_attention["
+                                                                   ).removesuffix("]"))
+        if was is not None:
+            row["perf_md_ms"] = was
+            print(f"[kernels] {row['name']}: {row['ms']:.4f} ms against PERF.md's {was} "
+                  f"({row['ms'] / was:.3f}x)", flush=True)
+    return rows
+
+
+def _check_lm_attention_hd256(grid, randn, gauss, off, f32_tol, bf16_tol) -> list:
+    """The head dims above 128 (drawn after every hd <= 128 row, so those
+    keep their inputs): gemma2-2b (8 heads of 256 over 4 KV heads, softcap
+    50, local window 4096) in every mode its serving path runs -- decode
+    over a bf16 and an int8 cache of 512 rows, and over a 4096-row ring
+    (the local layers at max_len >= 4096) that has wrapped, q_offset in
+    4096..4200, no window; the f32 prefill of 2 x 256 with the window
+    argument, and of 4160 tokens, where it masks; the int8 ring prefill
+    over fresh K/V with scales and the window -- then gemma-7b's (16 heads
+    of 256, no softcap: SDPA computes the same function) decode and
+    prefill, and nemotron-4-340b's head dim of 192. Decode rows are held
+    bit-equal to the tile schedule (``_lm_attention_row``)."""
+    from repro_torch.models.layers import quantize_kv
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    H, KVH, hd, W, cap = 8, 4, 256, 4096, 50.0
+    rows = []
+    for ring in (False, True):
+        Sk = W if ring else LM_MAX_LEN
+        q_off = (torch.randint(W, W + 105, (8,), device="cuda", dtype=torch.int32)
+                 if ring else off)
+        valid = torch.clamp(q_off + 1, max=Sk)
+        where = "ring" if ring else "512"
+        kb, vb = grid(8, Sk, KVH, hd).bfloat16(), randn(8, Sk, KVH, hd).bfloat16()
+        rows.append(_lm_attention_row(
+            f"gemma2_decode_bf16_{where}", "causal/bfloat16/qb0/decode", grid(8, 1, H, hd),
+            kb, vb, dict(causal=True, q_offset=q_off, quant_bits=0, logit_softcap=cap,
+                         kv_valid_len=valid), bf16_tol, gaussian=gauss(8, 1, H, hd)))
+        k8, ks = quantize_kv(randn(8, Sk, KVH, hd))
+        v8, vs = quantize_kv(randn(8, Sk, KVH, hd))
+        rows.append(_lm_attention_row(
+            f"gemma2_decode_int8_{where}", "causal/int8/qb4/decode", grid(8, 1, H, hd),
+            k8, v8, dict(causal=True, q_offset=q_off, quant_bits=4, logit_softcap=cap,
+                         k_scale=ks, v_scale=vs, kv_valid_len=valid), f32_tol,
+            gaussian=gauss(8, 1, H, hd)))
+        del kb, vb, k8, v8, ks, vs
+    for name, S in (("gemma2_prefill_f32", 256), ("gemma2_prefill_f32_4160", 4160)):
+        B = 2 if S == 256 else 1
+        rows.append(_lm_attention_row(
+            name, "causal/float32/qb0", grid(B, S, H, hd), grid(B, S, KVH, hd),
+            randn(B, S, KVH, hd), dict(causal=True, quant_bits=0, logit_softcap=cap,
+                                       local_window=W), f32_tol,
+            gaussian=gauss(B, S, H, hd)))
+    k8, ks = quantize_kv(randn(2, 256, KVH, hd))
+    v8, vs = quantize_kv(randn(2, 256, KVH, hd))
+    rows.append(_lm_attention_row(
+        "gemma2_ring_prefill_int8", "causal/int8/qb4", grid(2, 256, H, hd), k8, v8,
+        dict(causal=True, quant_bits=4, logit_softcap=cap, local_window=W, k_scale=ks,
+             v_scale=vs), f32_tol, gaussian=gauss(2, 256, H, hd)))
+
+    # gemma-7b: 16 heads of 256, one a KV head
+    q = grid(8, 1, 16, hd)
+    kb, vb = grid(8, LM_MAX_LEN, 16, hd).bfloat16(), randn(8, LM_MAX_LEN, 16, hd).bfloat16()
+    mask = torch.arange(LM_MAX_LEN, device="cuda")[None, :] < (off + 1)[:, None]
+    rows.append(_lm_attention_row(
+        "gemma7b_decode_bf16", "causal/bfloat16/qb0/decode/gemma7b", q, kb, vb,
+        dict(causal=True, q_offset=off, quant_bits=0, kv_valid_len=off + 1), bf16_tol,
+        sdpa=lambda: sdpa(t(q.bfloat16()), t(kb), t(vb), attn_mask=mask[:, None, None, :]),
+        gaussian=gauss(8, 1, 16, hd)))
+    q, k, v = grid(1, LM_MAX_LEN, 16, hd), grid(1, LM_MAX_LEN, 16, hd), randn(
+        1, LM_MAX_LEN, 16, hd)
+    rows.append(_lm_attention_row(
+        "gemma7b_prefill_f32", "causal/float32/qb0/gemma7b", q, k, v,
+        dict(causal=True, quant_bits=0), f32_tol,
+        sdpa=lambda: sdpa(t(q), t(k), t(v), is_causal=True),
+        gaussian=gauss(1, LM_MAX_LEN, 16, hd)))
+
+    # nemotron-4-340b's head dim (96 heads of 192 over 8 KV heads there; 16
+    # over 2 here): the hd-256 class at a width that is not a power of two
+    q, k, v = grid(1, 256, 16, 192), grid(1, 256, 2, 192), randn(1, 256, 2, 192)
+    kg, vg = k.repeat_interleave(8, dim=2), v.repeat_interleave(8, dim=2)
+    rows.append(_lm_attention_row(
+        "prefill_hd192", "causal/float32/qb0/hd192", q, k, v, dict(causal=True, quant_bits=0),
+        f32_tol, sdpa=lambda: sdpa(t(q), t(kg), t(vg), is_causal=True),
+        gaussian=gauss(1, 256, 16, 192)))
     return rows
 
 
@@ -2754,20 +2915,244 @@ def phase_cluster_lm(qcfg, params, single: dict, smi: str) -> dict:
             "chaos": _cluster_lm_run("cluster lm chaos", qcfg, params, single, smi, chaos)}
 
 
-def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) -> int:
+def phase_dense(smi: str) -> dict:
+    """Phase 10: full-width gemma2-2b (``configs/gemma2_2b.py``, 26 layers in
+    13 local/global pairs, hd 256, the local layers' K/V in a ring), last, on
+    a card the earlier phases have left (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant.ptq import calibrate_model, ptq_model, quantized_config
+    from repro_torch.models import init_model_params, synth_batch, tree_bytes
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    if left > 1.0:  # the falcon-mamba tree and engines must be gone
+        raise AssertionError(f"[dense] {left:.2f} GB of earlier phases still allocated")
+    cfg = get_config(DENSE_ARCH)
+    t0 = time.perf_counter()
+    params = init_model_params(cfg, seed=0, device="cuda")
+    calib = [torch.from_numpy(synth_batch(cfg, 2, 32, seed=s)).cuda() for s in (1, 2)]
+    _reset_counts()
+    taps = calibrate_model(cfg, params, calib)
+    calib_counts = _read_counts()
+    want = {"lm_attention:causal/float32/qb0": 2 * 26, "rmsnorm": 2 * 105, "int8_matmul": 0}
+    if any(calib_counts.get(k, 0) != n for k, n in want.items()):
+        raise AssertionError(f"[dense] calibration launches {calib_counts}, expected {want}")
+    qcfg = quantized_config(cfg)
+    p_int8 = ptq_model(qcfg, params, taps, materialize="int8")
+    torch.cuda.synchronize()
+    fp_bytes = tree_bytes(params)
+    print(f"[dense] {cfg.name}: fp {fp_bytes / 1e9:.2f} GB -> int8 "
+          f"{tree_bytes(p_int8) / 1e9:.2f} GB (the tied 256k embedding stays f32); "
+          f"init+calibrate+PTQ {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    out = {"calib_counts": calib_counts, "runs": {}}
+    fp = _serve_dense(cfg, params, "fp", DENSE_FP_PER_FORWARD, smi)
+    out["runs"]["fp"] = fp
+    q8 = _serve_dense(qcfg, p_int8, "int8", DENSE_INT8_PER_FORWARD, smi)
+    out["runs"]["int8"] = q8
+    out["runs"]["ring"] = _dense_ring(cfg, params, smi)
+    tick_bound = 1e3 * fp_bytes / HBM_BYTES_PER_S
+    out["profile"] = {}
+    for mat, run, per in (("fp", fp, DENSE_FP_PER_FORWARD), ("int8", q8, DENSE_INT8_PER_FORWARD)):
+        prof = _profile_dense_tick(run.pop("engine"), mat, smi, per)
+        out["profile"][mat] = prof
+    print(f"[dense] fp tick byte bound {tick_bound:.3f} ms ({fp_bytes / 1e9:.2f} GB of f32 "
+          f"weights at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): graph replay "
+          f"{out['profile']['fp']['device_ms']:.3f} ms of device time "
+          f"({out['profile']['fp']['device_ms'] / tick_bound:.2f}x); lm_attention a call on "
+          f"the path: fp {out['profile']['fp']['lm_attention_ms'] / 26:.4f} ms, int8 "
+          f"{out['profile']['int8']['lm_attention_ms'] / 26:.4f} ms ({smi})", flush=True)
+    del params, p_int8, fp, q8
+    _release()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[dense] phase 10 in {out['seconds']:.1f} s ({smi})", flush=True)
+    return out
+
+
+def _dense_teacher_forced(params, cfg, reqs) -> tuple:
+    """``_teacher_forced`` at every step of every request: the max |engine
+    logit - prefill logit| of each step, and the steps whose token is
+    prefill's argmax."""
+    runs = [_teacher_forced(params, cfg, r, range(len(r.generated))) for r in reqs]
+    return np.concatenate([e for e, _ in runs]), sum(a for _, a in runs)
+
+
+def _serve_dense(cfg, params, mat: str, per: dict, smi: str) -> dict:
+    """Phase 10 (a) and (b): one tree served as ``_run_engine`` serves the
+    OLMoE trees (8 slots, max_len 512, the 16 seeded requests of 16-256
+    prompt tokens and 32 new), through the grouped admission path (the
+    ring cache takes no packed prefill) and the captured tick. Gates:
+    every program a graph whose kernel nodes equal its captured launches
+    and ``per``; launches exactly ``per`` a grouped prefill and a tick;
+    ``retraces`` 0; every request completes; the ``aot_warmup=False``
+    engine's tokens and logits bit-equal. fp (bf16 ring cache,
+    ``quant_bits=0``): teacher-forced against ``prefill``, the served
+    engine within ``DENSE_FP_TF_LIMITS`` and the same engine over an f32
+    cache (the control) within ``DENSE_TF_TOL`` at every step. int8 (int8 ring cache,
+    4-bit attention): every ``int8_matmul`` on variant 1 or 2, and every
+    token prefill's argmax over its prefix, the logits' reading printed."""
+    tag = f"dense {mat}"
+    eng, reqs, wall, counts, warm = _run_engine(cfg, params, tag=tag)
+    if eng._packed or eng.cache["local"]["k"].shape[2] != LM_MAX_LEN:
+        raise AssertionError(f"[{tag}] packed {eng._packed}, local ring "
+                             f"{tuple(eng.cache['local']['k'].shape)}")
+    programs = _check_programs(tag, eng, per)
+    _check_retraces(tag, eng)
+    c = eng.metrics.snapshot()["counters"]
+    forwards = c["prefill_batches"] + c["decode_ticks"]
+    for name in KERNEL_NAMES:
+        if counts.get(name, 0) != per.get(name, 0) * forwards:
+            raise AssertionError(f"[{tag}] {name}: {counts.get(name, 0)} launches for "
+                                 f"{c['prefill_batches']} prefills + {c['decode_ticks']} "
+                                 f"ticks, expected {per.get(name, 0)} a forward")
+    if mat == "int8":
+        _check_int8_variants(tag, counts)
+    for r in reqs:
+        if r.status != "completed" or len(r.generated) != LM_NEW_TOKENS:
+            raise AssertionError(f"[{tag}] request {r.uid}: {r.status}, "
+                                 f"{len(r.generated)} tokens")
+    tokens = sum(len(r.generated) for r in reqs)
+    print(f"[{tag}] smoke figure, not a benchmark ({smi}): {len(reqs)} requests, {tokens} "
+          f"tokens in {wall:.2f} s = {tokens / wall:.1f} tok/s; {c['prefill_batches']} "
+          f"grouped prefills, {c['decode_ticks']} ticks; launches {per} a forward (gate: "
+          f"exact), counts {counts}", flush=True)
+
+    eager, reqs_e, wall_e, _, _ = _run_engine(cfg, params, tag=f"{tag} eager", eager=True)
+    same = all(a.generated == b.generated and all(
+        torch.equal(x, y) for x, y in zip(a.step_logits, b.step_logits))
+        for a, b in zip(reqs, reqs_e))
+    print(f"[{tag}] graph vs aot_warmup=False engine: tokens and logits bit-equal: {same} "
+          f"(gate); {wall:.2f} s through the graph, {wall_e:.2f} s eager ({smi})", flush=True)
+    if not same:
+        raise AssertionError(f"[{tag}] graph vs aot_warmup=False engine differ")
+    del eager, reqs_e
+    err, agree = _dense_teacher_forced(params, cfg, reqs)
+    out = {"counts": counts, "counters": c, "tok_s": tokens / wall, "tok_s_eager": tokens / wall_e,
+           "warmup": warm, "programs": programs, "engine": eng,
+           "tf_max": float(err.max()), "tf_median": float(np.median(err)), "tf_agree": agree}
+    print(f"[{tag}] teacher-forced vs prefill, {err.size} steps: max |logit error| median "
+          f"{np.median(err):.3g}, p90 {np.quantile(err, 0.9):.3g}, max {err.max():.3g}; "
+          f"tokens equal to prefill's argmax {agree}/{err.size}", flush=True)
+    if mat == "int8":
+        print(f"[{tag}] gate: every token prefill's argmax (the logits' reading is not "
+              "gated: the tied LM head is an f32 cuBLAS GEMM at another M)", flush=True)
+        if agree != err.size:
+            raise AssertionError(f"[{tag}] {err.size - agree} tokens differ from the "
+                                 "teacher-forced loop")
+        return out
+    with _f32_kv_cache():
+        ctl_eng, ctl_reqs, _, _, _ = _run_engine(cfg, params, tag=f"{tag} f32 cache")
+    ctl_err, ctl_agree = _dense_teacher_forced(params, cfg, ctl_reqs)
+    del ctl_eng, ctl_reqs
+    out.update(ctl_max=float(ctl_err.max()), ctl_median=float(np.median(ctl_err)),
+               ctl_agree=ctl_agree)
+    print(f"[{tag}] f32-cache control vs prefill: max |logit error| median "
+          f"{np.median(ctl_err):.3g}, max {ctl_err.max():.3g}, tokens at the argmax "
+          f"{ctl_agree}/{ctl_err.size}; gates: every step within {DENSE_TF_TOL}; the served "
+          f"engine (bf16 cache) median {np.median(err):.3g} <= {DENSE_FP_TF_LIMITS[0]}, max "
+          f"{err.max():.3g} <= {DENSE_FP_TF_LIMITS[1]}", flush=True)
+    if ctl_err.max() > DENSE_TF_TOL:
+        raise AssertionError(f"[{tag}] f32-cache control: a step {ctl_err.max():.3g} from "
+                             "prefill's logits")
+    if np.median(err) > DENSE_FP_TF_LIMITS[0] or err.max() > DENSE_FP_TF_LIMITS[1]:
+        raise AssertionError(f"[{tag}] the served engine's logits disagree with prefill")
+    return out
+
+
+def _dense_ring(cfg, params, smi: str) -> dict:
+    """Phase 10 (c): the ring wrapping at full width. One f32-cache engine
+    of 2 slots over ``DENSE_RING_MAX_LEN`` rows (local ring 4096): a prompt
+    whose prefill wraps the ring (the roll) and one that wraps it in decode,
+    64 new tokens each. Gate: every step's logits within ``DENSE_TF_TOL``
+    of one teacher-forced pass over the whole sequence (hidden states of
+    every position, logits only at the decoded ones)."""
+    from repro_torch.models import transformer
+    from repro_torch.serving import Request, ServeEngine
+
+    tag = "dense ring"
+    with _f32_kv_cache():
+        eng = ServeEngine(cfg, params, batch_slots=2, max_len=DENSE_RING_MAX_LEN,
+                          device="cuda", keep_logits=True)
+    shapes = {k: tuple(v["k"].shape) for k, v in eng.cache.items()}
+    if shapes["local"][2] != 4096 or shapes["global"][2] != DENSE_RING_MAX_LEN:
+        raise AssertionError(f"[{tag}] cache shapes {shapes}")
+    _warm(tag, eng)
+    rng = np.random.default_rng(17)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=DENSE_RING_NEW) for i, n in enumerate(DENSE_RING_PROMPTS)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    errs = []
+    with torch.inference_mode():
+        for r in reqs:
+            P = len(r.prompt)
+            toks = torch.tensor([list(map(int, r.prompt)) + r.generated], device="cuda")
+            x = transformer._embed_inputs(params, cfg, toks)
+            pos = torch.arange(toks.shape[1], dtype=torch.int32, device="cuda")
+            x = transformer._run_layers(params, cfg, x, positions=pos)[0]
+            ref = transformer.logits_from_hidden(params, cfg, x[0, P - 1:P - 1 + len(r.generated)])
+            got = torch.stack(r.step_logits)
+            errs.append((got - ref).abs().amax(-1).cpu().numpy())
+            del x, ref, got
+    err = np.concatenate(errs)
+    print(f"[{tag}] cache {shapes}; prompts {DENSE_RING_PROMPTS} (the first wraps the 4096-row "
+          f"ring in its prefill, the second in decode), {DENSE_RING_NEW} new tokens each, "
+          f"{wall:.2f} s ({smi}); every step vs one teacher-forced pass: max |logit error| "
+          f"median {np.median(err):.3g}, max {err.max():.3g} by request "
+          f"{[float(f'{e.max():.3g}') for e in errs]} (gate: {DENSE_TF_TOL} at every step)",
+          flush=True)
+    if err.max() > DENSE_TF_TOL or any(len(r.generated) != DENSE_RING_NEW for r in reqs):
+        raise AssertionError(f"[{tag}] ring decode differs from the teacher-forced pass")
+    del eng
+    _release()
+    return {"counts": counts, "tf_max": float(err.max()), "tf_median": float(np.median(err)),
+            "wall_s": wall}
+
+
+def _profile_dense_tick(eng, mat: str, smi: str, per: dict) -> dict:
+    """One decode tick of 8 slots at fill 300 as a graph replay: wall,
+    device time, busy share, kernels a tick, ``lm_attention``'s device
+    time; one device kernel a call of each gated wrapper."""
+    from repro_torch.serving.programs import own
+
+    tick = eng._compiled(eng._program_key("decode"), eng._build_tick)
+    host_tok = np.zeros(LM_SLOTS, np.int32)
+    pos = np.full(LM_SLOTS, 300, np.int32)
+    with torch.inference_mode():
+        prof = _profile(f"profile dense {mat}", "decode tick, 8 slots at fill 300, graph", smi,
+                        3, lambda: own(tick, tick(host_tok, pos)), expect=per)
+    _check_kernels_per_call(f"profile dense {mat}", prof, per)
+    return prof
+
+
+def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
+              dense: dict) -> int:
     """A row's launches on the main path: the vision serving run and the
     vision cluster's, and for the modes the LM runs, the three OLMoE serving
     runs (fp, int8, W4A8) and the two LM cluster runs (the fp32 grouped row
     also the calibration forwards, the calibration attention row those
-    alone); the scan's, the falcon-mamba serving run."""
+    alone); the scan's, the falcon-mamba serving run; the gemma2 rows',
+    the gemma2-2b serving runs (fp, int8, ring wrap), which also add to
+    ``int8_matmul`` and ``rmsnorm``."""
     runs = ([r["counts"] for r in lm["runs"].values()]
             + [r["counts"] for r in lm["cluster"].values()])
+    dense_runs = [r["counts"] for r in dense["runs"].values()]
     name = row["name"]
+    if name.startswith("lm_attention[gemma2"):
+        return sum(c.get("lm_attention:" + row["mode"], 0) for c in dense_runs)
     if name.startswith("selective_scan"):
         return ssm["counts"]["selective_scan"]
     if name == "rmsnorm":
         return (vision["rmsnorm"] + sum(c["rmsnorm"] for c in runs)
-                + ssm["counts"]["rmsnorm"])
+                + ssm["counts"]["rmsnorm"] + sum(c["rmsnorm"] for c in dense_runs))
     if name == "grouped_matmul_f32":
         return (vision_calib["grouped_matmul"] + lm["calib_counts"]["grouped_matmul:f32"]
                 + sum(c.get("grouped_matmul:f32", 0) for c in runs))
@@ -2779,7 +3164,8 @@ def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict) 
         return lm["calib_counts"]["lm_attention:causal/float32/qb0"]
     if name.startswith("lm_attention["):
         return sum(c.get("lm_attention:" + row["mode"], 0) for c in runs)
-    return vision[name] + sum(c.get(name, 0) for c in runs)
+    return (vision[name] + sum(c.get(name, 0) for c in runs)
+            + sum(c.get(name, 0) for c in dense_runs))
 
 
 def main() -> None:
@@ -2796,11 +3182,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     lm = phase_lm(smi)
     ssm = phase_ssm(smi)
+    dense = phase_dense(smi)
     for row in rows:
-        row["launches"] = _launches(row, counts, calib_counts, lm, ssm)
+        row["launches"] = _launches(row, counts, calib_counts, lm, ssm, dense)
     for name in ("int8_matmul", "grouped_matmul", "grouped_matmul_w4a8", "grouped_matmul_f32",
                  "lm_attention[packed_prefill]", "lm_attention[decode_int8]",
                  "lm_attention[packed_prefill_f32]", "lm_attention[decode_bf16]",
+                 "lm_attention[gemma2_decode_bf16_512]", "lm_attention[gemma2_decode_int8_512]",
+                 "lm_attention[gemma2_prefill_f32]", "lm_attention[gemma2_ring_prefill_int8]",
                  "selective_scan", "rmsnorm"):
         row = next(r for r in rows if r["name"] == name)
         if row["launches"] == 0:
@@ -2808,7 +3197,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} | {"shape": row["shape"]}
-                      | {k: row[k] for k in ("variant", "schedule", "bf16_max_abs_err")
+                      | {k: row[k] for k in ("variant", "schedule", "bf16_max_abs_err",
+                                             "f32_copy_max_abs_err")
                          if k in row}
                       for row in rows]})
     print(smi, flush=True)

@@ -1,5 +1,6 @@
 """Architecture registry of the port: the paper's eight vision configs, the
-MoE LM it serves (OLMoE-1B-7B) and the Mamba-1 LM (falcon-mamba-7b)."""
+MoE LM it serves (OLMoE-1B-7B), the dense LMs (gemma2-2b, gemma-7b,
+llama3-8b) and the Mamba-1 LM (falcon-mamba-7b)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,11 +18,13 @@ from repro_torch.configs.base import (
     SSMConfig,
 )
 from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
+from repro_torch.configs.gemma2_2b import CONFIG as GEMMA2_2B
+from repro_torch.configs.gemma_7b import CONFIG as GEMMA_7B
+from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
 from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE_1B_7B
 
-REGISTRY: Dict[str, ModelConfig] = {OLMOE_1B_7B.name: OLMOE_1B_7B,
-                                    FALCON_MAMBA_7B.name: FALCON_MAMBA_7B,
-                                    **_moe_vit.ALL}
+REGISTRY: Dict[str, ModelConfig] = {cfg.name: cfg for cfg in (
+    OLMOE_1B_7B, FALCON_MAMBA_7B, GEMMA2_2B, GEMMA_7B, LLAMA3_8B)} | _moe_vit.ALL
 
 
 def get_config(arch: str) -> ModelConfig:

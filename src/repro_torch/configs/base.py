@@ -19,6 +19,7 @@ class AttnConfig:
     head_dim: int
     rope_theta: float = 10_000.0
     local_window: int = 0  # 0 = global attention
+    alternate_local_global: bool = False  # gemma2: layer pairs (local, global)
     logit_softcap: float = 0.0
     qk_norm: bool = False
 

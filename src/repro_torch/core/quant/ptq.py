@@ -262,7 +262,8 @@ def _layer_groups(cfg: ModelConfig, p) -> List[Tuple[str, str, list]]:
     if cfg.family == "ssm":
         return [("layers", "L", [_SSM_SITE])]
     return [(key, prefix, [_ATTN_SITE, _MOE_SITE if "moe" in p[key] else _MLP_SITE])
-            for key, prefix in (("layers", "L"), ("pairs_dense", "Ldense"),
+            for key, prefix in (("layers", "L"), ("layers_local", "Llocal"),
+                                ("layers_global", "Lglobal"), ("pairs_dense", "Ldense"),
                                 ("pairs_moe", "Lmoe"))
             if key in p]
 

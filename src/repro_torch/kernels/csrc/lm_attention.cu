@@ -1,6 +1,6 @@
 // Streaming attention of the LM path, f32 q [B, Sq, H, hd], GQA k/v
 // [B, Sk, KVH, hd] in f32, bf16 or int8 (with per-(position, head) f32
-// k_scale / v_scale [B, Sk, KVH]), out f32 [B, Sq, H, hd], any hd <= 128.
+// k_scale / v_scale [B, Sk, KVH]), out f32 [B, Sq, H, hd], any hd <= 256.
 // Masks: causal and local window on absolute positions (q row i sits at
 // q_offset[b] + i), kv_valid_len [B] fill levels (each a [B] tensor or one
 // value for every row), packed-prefill segment ids (q [B, Sq], kv [B, Sk]:
@@ -49,8 +49,12 @@
 // tile schedule walks the segment-keyed plan (below), so a packed prefill
 // gives each prompt's rows the bits of a prefill of that prompt alone.
 //
-// Schedule decode (hd = 128, 16-byte aligned operands, at most 4 query rows
-// per KV head: Sq x H/KVH):
+// Both schedules come in two head-dim classes, hd <= 128 and hd <= 256,
+// each its own instantiation (the output accumulators are 4 x hd / 8 f32
+// registers a lane), so the narrower heads keep their code and times.
+//
+// Schedule decode (hd = 128 or 256, 16-byte aligned operands, at most 4
+// query rows per KV head: Sq x H/KVH):
 //   Bound on the H100: the K/V bytes. An OLMoE-1B-7B decode tick (8 slots,
 //   16 heads of 128, int8 cache) reads each slot's live keys once: 6.9 MB at
 //   the fill levels chip_smoke.py times, ~2 us at 3.35 TB/s, for 14 MFLOP.
@@ -60,35 +64,37 @@
 //   blocks (8 x 16 = 128 blocks at OLMoE decode), so nothing relies on
 //   blocks running together. K, then V, stream in their stored dtype
 //   through one ring of 64-key tiles in shared memory by 16-byte cp.async
-//   (int8: 8 stages, 76 KB in flight a block; rows padded by 16 bytes so
-//   that the MMA's k reads hit 32 banks), with the scales and segment ids
+//   (int8: 8 stages, 76 KB in flight a block at hd 128; fewer stages at hd
+//   256, dec_stages; rows padded by 16 bytes so that the MMA's k reads hit
+//   32 banks), with the scales and segment ids
 //   beside each tile; the V tiles are in flight while the last K tiles are
 //   scored. Pass 1: warp w scores keys 8 w .. 8 w + 7 of each K tile for
 //   every row at once (the rows are the first rows of the MMA's 16; q's
 //   pieces sit in shared memory), writes every score to shared memory (rows
 //   x live keys floats) and keeps a running max; the warps' maxima meet
 //   once in shared memory. Pass 2 reads the scores back, not K, and runs
-//   P.V over each V tile as the tile schedule does (pv_step), into 16 x 128
+//   P.V over each V tile as the tile schedule does (pv_step), into 16 x hd
 //   output accumulators a warp of which the first rows live; the 8 warps
 //   meet at the end in shared memory (merge_row). K and V are each read
 //   from device memory once.
 //
 // Schedule tile (everything else: prefill, packed prefill, calibration,
-// head dims other than 128, unaligned operands):
+// head dims other than 128 and 256, unaligned operands):
 //   Bound on the H100: operations. A packed prefill of 512 tokens in four
 //   prompts is 2 x 2 x 16 heads x 128 x the visible pairs (~37,500 a head):
 //   0.31 GFLOP, ~4.6 us at the f32 rate of 67 TFLOP/s, on ~2.5 MB.
 //   Design: one block of 8 warps owns (b, head, 16 query rows); each warp
 //   takes 8 keys of every 64-key tile. It forms S = q K^T for the 16 rows x
 //   its 8 keys (the score function above: 8 chunks of 16 dims at hd =
-//   128, the q pieces staged once in shared memory, K fragments read from
+//   128, 16 at 256, the q pieces staged once in shared memory, K fragments read from
 //   the stored tile), scales, softcaps and masks S in its accumulators, reduces each
 //   row's max over the 4 lanes that hold it (2 shuffles a tile), writes P
 //   into its own rows of shared memory (a __syncwarp, no block barrier) and
 //   multiplies P V into 16 x hd output accumulators; the denominators stay
 //   per-lane partials. K/V tiles, in their stored dtype (rows padded so that
 //   the fragment reads hit 32 banks), double-buffer by 16-byte cp.async:
-//   tile t + 1 lands while tile t is multiplied, one __syncthreads a tile.
+//   tile t + 1 lands while tile t is multiplied, one __syncthreads a tile
+//   (f32 K/V above hd 128: one stage, loaded, then multiplied; tile_layout).
 //   A head dim that is not a multiple of 16 is zero-padded to one in shared
 //   memory (zero dims add exact zeros) and the output store is masked; rows
 //   whose bytes are not a multiple of 16, or operands off the 16-byte grid,
@@ -383,8 +389,11 @@ constexpr int TL_BK = 64;     // keys a tile (and a decode ring tile)
 constexpr int TL_WARPS = 8;   // each takes TL_KW keys of every tile
 constexpr int TL_KW = TL_BK / TL_WARPS;
 constexpr int TL_THREADS = 32 * TL_WARPS;
-constexpr int TL_MAX_HD = 128;
-constexpr int TL_NT = TL_MAX_HD / 8;  // n8 output tiles, at most
+constexpr int TL_MAX_HD = 256;
+// Head-dim classes: a lane holds NT n8 output tiles, 16 (hd <= 128) or 32
+// (hd <= 256), so the output accumulators take 4 NT f32 registers and the
+// hd <= 128 instantiations keep the 64 they had before the wider class.
+constexpr int NT_128 = 16, NT_256 = 32;
 constexpr int TL_PSTR = TL_KW + 4;  // floats a row of a warp's P: 4 g + t hits 32 banks
 
 // One tile's P.V for a warp's 8 keys. s: the masked scores (-inf: not
@@ -395,9 +404,9 @@ constexpr int TL_PSTR = TL_KW + 4;  // floats a row of a warp's P: 4 g + t hits 
 // [TL_PSTR]; vt: the V row of the warp's first key; vscale: its scales.
 // P goes in three tf32 pieces (exact against int8 and bf16 V) and each n8
 // tile's chunk is added with __fadd_rn.
-template <int KV, bool QUANT>
+template <int KV, bool QUANT, int NT>
 __device__ __forceinline__ void pv_step(const float (&s)[4], float (&m)[2], float (&l)[2],
-                                        float (&o)[TL_NT][4], float* pw, const int8_t* vt,
+                                        float (&o)[NT][4], float* pw, const int8_t* vt,
                                         int v_row, const float* vscale, bool scaled,
                                         float code_max, int hdp, int g, int t) {
   float corr[2] = {1.f, 1.f};
@@ -429,7 +438,7 @@ __device__ __forceinline__ void pv_step(const float (&s)[4], float (&m)[2], floa
   for (int i = 0; i < 2; ++i) l[i] = fmaf(l[i], corr[i], lsum[i]);
   if (!QUANT) {
 #pragma unroll
-    for (int n = 0; n < TL_NT; ++n) {
+    for (int n = 0; n < NT; ++n) {
       o[n][0] = __fmul_rn(o[n][0], corr[0]);
       o[n][1] = __fmul_rn(o[n][1], corr[0]);
       o[n][2] = __fmul_rn(o[n][2], corr[1]);
@@ -445,7 +454,7 @@ __device__ __forceinline__ void pv_step(const float (&s)[4], float (&m)[2], floa
   const int8_t* v0 = vt + t * v_row;
   const int8_t* v1 = v0 + 4 * v_row;
 #pragma unroll
-  for (int n = 0; n < TL_NT; ++n) {
+  for (int n = 0; n < NT; ++n) {
     if (8 * n >= hdp) break;
     float c[4];
     mma_chunk<KV>(c, ph, pm, pl, kv_at<KV>(v0, 8 * n + g), kv_at<KV>(v1, 8 * n + g));
@@ -459,8 +468,9 @@ __device__ __forceinline__ void pv_step(const float (&s)[4], float (&m)[2], floa
 // its quad, then (t == 0) the maxima and denominators of rows g, g + 8 into
 // red_m / red_l [warp], the outputs into part [warp][16][hdp + 8] (rows 8
 // banks apart: a half-warp's float2 stores and loads hit 32 banks).
+template <int NT>
 __device__ __forceinline__ void store_partials(const float (&m)[2], float (&l)[2],
-                                               const float (&o)[TL_NT][4], float* part,
+                                               const float (&o)[NT][4], float* part,
                                                float (*red_m)[16], float (*red_l)[16],
                                                int hdp, int warp, int g, int t) {
 #pragma unroll
@@ -476,7 +486,7 @@ __device__ __forceinline__ void store_partials(const float (&m)[2], float (&l)[2
     }
     float* pr = part + (warp * 16 + g + 8 * i) * (hdp + 8);
 #pragma unroll
-    for (int n = 0; n < TL_NT; ++n) {
+    for (int n = 0; n < NT; ++n) {
       if (8 * n >= hdp) break;
       *reinterpret_cast<float2*>(pr + 8 * n + 2 * t) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
     }
@@ -521,30 +531,34 @@ __device__ __forceinline__ void merge_row(const float* part, const float (*red_m
 // schedule decode
 // ---------------------------------------------------------------------------
 
-constexpr int DEC_HD = 128;
+// The decode schedule takes hd = HD, 128 or 256 (NT = HD / 8 output tiles).
 constexpr int DEC_RMAX = 4;   // query rows a block, at most
 constexpr int DEC_META = TL_BK * 8;  // a tile's scales and segment ids
-constexpr int DEC_QROW = DEC_HD + 4;  // floats a row of q's pieces
 
-template <int KV>
+template <int KV, int HD>
 __host__ __device__ constexpr int dec_row() {  // bytes a key's row in the ring
-  return DEC_HD * kv_bytes<KV>() + 16;
+  return HD * kv_bytes<KV>() + 16;
 }
 
-template <int KV>
+// Ring stages: at hd 128 int8 8 (77,824 bytes), bf16 6 (107,520), f32 3
+// (102,912); at hd 256 int8 8 (143,360), bf16 4 (137,216), f32 2 (134,144),
+// so that the ring, 64 KB of scores (DECODE_SCORE_BYTES) and the static
+// q pieces, P and maxima (19,648 bytes at hd 256) fit a block's 232,448.
+template <int KV, int HD>
 __host__ __device__ constexpr int dec_stages() {
-  return KV == KV_I8 ? 8 : (KV == KV_BF16 ? 6 : 3);
+  if (HD == 128) return KV == KV_I8 ? 8 : (KV == KV_BF16 ? 6 : 3);
+  return KV == KV_I8 ? 8 : (KV == KV_BF16 ? 4 : 2);
 }
 
-template <int KV>
+template <int KV, int HD>
 __host__ __device__ constexpr int dec_stage_bytes() {
-  return TL_BK * dec_row<KV>() + DEC_META;
+  return TL_BK * dec_row<KV, HD>() + DEC_META;
 }
 
-template <int KV, bool QUANT, int RMAX>
+template <int KV, bool QUANT, int RMAX, int HD>
 __global__ void __launch_bounds__(TL_THREADS) lm_decode_kernel(Args a) {
-  constexpr int ES = kv_bytes<KV>(), ROWP = dec_row<KV>(), STAGES = dec_stages<KV>();
-  constexpr int STAGE = dec_stage_bytes<KV>();
+  constexpr int ES = kv_bytes<KV>(), ROWP = dec_row<KV, HD>(), STAGES = dec_stages<KV, HD>();
+  constexpr int STAGE = dec_stage_bytes<KV, HD>(), NT = HD / 8, DEC_QROW = HD + 4;
   extern __shared__ __align__(128) int8_t smem[];
   __shared__ float red_m[TL_WARPS][16], red_l[TL_WARPS][16];
   __shared__ __align__(16) float qs[3 * RMAX * DEC_QROW];  // q's pieces; zero rows past R
@@ -566,12 +580,12 @@ __global__ void __launch_bounds__(TL_THREADS) lm_decode_kernel(Args a) {
 
   // row r: query qi = r / G of head kvh * G + r % G; its q as three
   // pieces (visible to every warp after the first barrier of the ring)
-  constexpr int QROW = q_piece_row<KV>(DEC_HD), QPIECE = RMAX * QROW;
-  for (int e = tid; e < RMAX * DEC_HD; e += TL_THREADS) {
-    const int r = e / DEC_HD, d = e % DEC_HD;
+  constexpr int QROW = q_piece_row<KV>(HD), QPIECE = RMAX * QROW;
+  for (int e = tid; e < RMAX * HD; e += TL_THREADS) {
+    const int r = e / HD, d = e % HD;
     float x = 0.f;
     if (r < R)
-      x = a.q[(((size_t)b * a.Sq + r / G) * a.H + kvh * G + r % G) * DEC_HD + d];
+      x = a.q[(((size_t)b * a.Sq + r / G) * a.H + kvh * G + r % G) * HD + d];
     put_q_pieces<KV>(qs, QPIECE, r * QROW + d, x);
   }
   // this lane's row g (live when g < R) holds keys 2 t, 2 t + 1 of its
@@ -588,13 +602,13 @@ __global__ void __launch_bounds__(TL_THREADS) lm_decode_kernel(Args a) {
     const int k0 = klo + TL_BK * (is_k ? step : step - ntiles);
     const uint32_t st = s0 + (step % STAGES) * STAGE;
     const int8_t* src = static_cast<const int8_t*>(is_k ? a.k : a.v);
-    constexpr int CHUNKS = TL_BK * DEC_HD * ES / 16, ROWC = DEC_HD * ES / 16;
+    constexpr int CHUNKS = TL_BK * HD * ES / 16, ROWC = HD * ES / 16;
 #pragma unroll
     for (int i = 0; i < CHUNKS / TL_THREADS; ++i) {
       const int e = tid + i * TL_THREADS;
       const int j = e / ROWC, c = e % ROWC, key = k0 + j;
       const bool ok = key < khi;
-      const int8_t* gp = src + ((((size_t)b * a.Sk + key) * a.KVH + kvh) * DEC_HD) * ES + 16 * c;
+      const int8_t* gp = src + ((((size_t)b * a.Sk + key) * a.KVH + kvh) * HD) * ES + 16 * c;
       cp_async<16>(st + j * ROWP + 16 * c, ok ? gp : src, ok);
     }
     if (tid < TL_BK) {
@@ -613,9 +627,9 @@ __global__ void __launch_bounds__(TL_THREADS) lm_decode_kernel(Args a) {
   };
 
   float mx = -1e30f, m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
-  float o[TL_NT][4];
+  float o[NT][4];
 #pragma unroll
-  for (int nn = 0; nn < TL_NT; ++nn) o[nn][0] = o[nn][1] = o[nn][2] = o[nn][3] = 0.f;
+  for (int nn = 0; nn < NT; ++nn) o[nn][0] = o[nn][1] = o[nn][2] = o[nn][3] = 0.f;
 
   const int steps = 2 * ntiles;
 #pragma unroll
@@ -644,7 +658,7 @@ __global__ void __launch_bounds__(TL_THREADS) lm_decode_kernel(Args a) {
     const int8_t* rows = st + TL_KW * warp * ROWP;
     if (is_k) {  // pass 1: the scores, into shared memory
       float s[4] = {0.f, 0.f, 0.f, 0.f};
-      score_mma<KV>(s, qs, QROW, QPIECE, g < RMAX, false, rows + g * ROWP, DEC_HD, g, t);
+      score_mma<KV>(s, qs, QROW, QPIECE, g < RMAX, false, rows + g * ROWP, HD, g, t);
       if (my_row) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -669,18 +683,18 @@ __global__ void __launch_bounds__(TL_THREADS) lm_decode_kernel(Args a) {
         if (key < khi) s[e] = scores[g * a.Sk + key - klo];
       }
     }
-    pv_step<KV, QUANT>(s, m, l, o, pbuf[warp], rows, ROWP, meta_s, scaled, code_max, DEC_HD,
-                       g, t);
+    pv_step<KV, QUANT, NT>(s, m, l, o, pbuf[warp], rows, ROWP, meta_s, scaled, code_max, HD,
+                           g, t);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it holds the warps' partial outputs
 
   float* part = reinterpret_cast<float*>(smem);
-  store_partials(m, l, o, part, red_m, red_l, DEC_HD, warp, g, t);
+  store_partials<NT>(m, l, o, part, red_m, red_l, HD, warp, g, t);
   __syncthreads();
   if (my_row)
-    merge_row(part, red_m, red_l, g, DEC_HD, DEC_HD, true, warp, t,
-              a.out + (((size_t)b * a.Sq + g / G) * a.H + kvh * G + g % G) * DEC_HD);
+    merge_row(part, red_m, red_l, g, HD, HD, true, warp, t,
+              a.out + (((size_t)b * a.Sq + g / G) * a.H + kvh * G + g % G) * HD);
 }
 
 // ---------------------------------------------------------------------------
@@ -688,22 +702,26 @@ __global__ void __launch_bounds__(TL_THREADS) lm_decode_kernel(Args a) {
 // ---------------------------------------------------------------------------
 
 constexpr int TL_BQ = 16;     // query rows a block
-constexpr int TL_STAGES = 2;  // K/V tiles in flight: double buffering
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 struct TileLayout {
-  int hdp, q_row, k_row, v_row, stage, stages_off, p_off, list_off, bytes;
+  int hdp, q_row, k_row, v_row, stage, stages, stages_off, p_off, list_off, bytes;
 };
 
 // Shared memory of the tile schedule: q's three tf32 pieces, each [16]
-// [hdp + 4] floats (the f32 q lands in the first); two stages of one tile
-// {K [64][k_row], V [64][v_row], k scales, v scales, kv segment ids}, rows
-// of hdp stored elements (hd padded to a multiple of 16) and padding that
-// makes the fragment reads hit 32 banks (k_row = 16 mod 32 bytes; v_row =
-// 16, f32 32, mod 128); each warp's P [16][TL_PSTR] f32; the live-tile
-// list. At the end the same memory, from its start, holds the warps'
-// partial outputs.
+// [hdp + 4] floats (the f32 q lands in the first); `stages` stages of one
+// tile {K [64][k_row], V [64][v_row], k scales, v scales, kv segment ids},
+// rows of hdp stored elements (hd padded to a multiple of 16) and padding
+// that makes the fragment reads hit 32 banks (k_row = 16 mod 32 bytes;
+// v_row = 16, f32 32, mod 128); each warp's P [16][TL_PSTR] f32; the
+// live-tile list. At the end the same memory, from its start, holds the
+// warps' partial outputs. Two stages (tile t + 1 lands while tile t is
+// multiplied), except f32 K/V at hd > 128: at hd 256 a stage is 134,912
+// bytes and two (269,824) exceed a block's 232,448 on their own, so that
+// class streams one tile at a time (49,920 of q pieces + 134,912 + 6,144
+// of P: 190,976 bytes and the list); bf16 (193 KB) and int8 (127 KB) keep
+// two.
 __host__ __device__ inline TileLayout tile_layout(int hd, int es, int Sk) {
   TileLayout t;
   t.hdp = round_up(hd, 16);
@@ -711,8 +729,9 @@ __host__ __device__ inline TileLayout tile_layout(int hd, int es, int Sk) {
   t.k_row = round_up(t.hdp * es, 32) + 16;
   t.v_row = round_up(t.hdp * es, 128) + (es == 4 ? 32 : 16);
   t.stage = TL_BK * (t.k_row + t.v_row) + 3 * TL_BK * 4;
+  t.stages = (es == 4 && t.hdp > 128) ? 1 : 2;
   t.stages_off = 3 * TL_BQ * t.q_row * 4;
-  t.p_off = t.stages_off + TL_STAGES * t.stage;
+  t.p_off = t.stages_off + t.stages * t.stage;
   t.list_off = t.p_off + TL_WARPS * 16 * TL_PSTR * 4;
   t.bytes = t.list_off + 4 * ((Sk + TL_BK - 1) / TL_BK + 1);
   const int part = TL_WARPS * 16 * (t.hdp + 8) * 4;  // the warps' partial outputs
@@ -787,8 +806,9 @@ __device__ int2 plan_block(const Args& a, int b, int pb) {
 }
 
 // One block of the tile schedule: rows [q0, q0 + n_rows) of (b, head h),
-// all of one q segment id when segment ids are given.
-template <int KV, bool QUANT>
+// all of one q segment id when segment ids are given. NT: the head-dim
+// class; STAGES: tile_layout's stages (1 or 2).
+template <int KV, bool QUANT, int NT, int STAGES>
 __device__ __forceinline__ void tile_block(const Args& a, int8_t* smem, int b, int h, int q0,
                                            int n_rows) {
   constexpr int ES = kv_bytes<KV>();
@@ -893,7 +913,7 @@ __device__ __forceinline__ void tile_block(const Args& a, int8_t* smem, int b, i
     const bool need_v = !QUANT || st >= spp;
     const int li = st % spp;
     const int k0 = klo + (segs ? live[li] : li) * TL_BK;
-    const int off_k = L.stages_off + (st % TL_STAGES) * L.stage, off_v = off_k + TL_BK * L.k_row;
+    const int off_k = L.stages_off + (st % STAGES) * L.stage, off_v = off_k + TL_BK * L.k_row;
     const int8_t* kp = static_cast<const int8_t*>(a.k);
     const int8_t* vp = static_cast<const int8_t*>(a.v);
     if (a.vec) {  // 16-byte chunks; those past hd are zero-filled
@@ -930,17 +950,25 @@ __device__ __forceinline__ void tile_block(const Args& a, int8_t* smem, int b, i
   };
 
   float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
-  float o[TL_NT][4];
+  float o[NT][4];
 #pragma unroll
-  for (int n = 0; n < TL_NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 
 #pragma unroll
-  for (int st = 0; st < TL_STAGES - 1; ++st) {
+  for (int st = 0; st < STAGES - 1; ++st) {
     if (st < steps) issue(st);
     cp_async_commit();
   }
+  if constexpr (STAGES == 1) cp_async_commit();  // q's group, before any tile's
   for (int st = 0; st < steps; ++st) {
-    cp_async_wait<TL_STAGES - 2>();
+    if constexpr (STAGES == 1) {  // one stage: tile st - 1 is done with, then st lands
+      if (st > 0) __syncthreads();
+      issue(st);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<STAGES - 2>();
+    }
     __syncthreads();  // step st (and q) landed; the stage of step st - 1 is free
     if (st == 0) {    // q -> its three pieces, once
       for (int e = tid; e < TL_BQ * hdp; e += TL_THREADS) {
@@ -961,12 +989,14 @@ __device__ __forceinline__ void tile_block(const Args& a, int8_t* smem, int b, i
       for (int i = 0; i < 2; ++i)
         for (int w = 0; w < TL_WARPS; ++w) m[i] = fmaxf(m[i], red_m[w][g + 8 * i]);
     }
-    if (st + TL_STAGES - 1 < steps) issue(st + TL_STAGES - 1);
-    cp_async_commit();
+    if constexpr (STAGES > 1) {
+      if (st + STAGES - 1 < steps) issue(st + STAGES - 1);
+      cp_async_commit();
+    }
     const int li = st % spp;
     const bool max_pass = QUANT && st < spp;
     const int k0 = klo + (segs ? live[li] : li) * TL_BK + warp * TL_KW;  // the warp's keys
-    const int8_t* kt = smem + L.stages_off + (st % TL_STAGES) * L.stage;
+    const int8_t* kt = smem + L.stages_off + (st % STAGES) * L.stage;
     const int8_t* vt = kt + TL_BK * L.k_row;
     const float* kscale = reinterpret_cast<const float*>(vt + TL_BK * L.v_row) + warp * TL_KW;
     const float* vscale = kscale + TL_BK;
@@ -992,13 +1022,13 @@ __device__ __forceinline__ void tile_block(const Args& a, int8_t* smem, int b, i
       for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[e]);
       continue;
     }
-    pv_step<KV, QUANT>(s, m, l, o, pw, vt, L.v_row, vscale, scaled, code_max, hdp, g, t);
+    pv_step<KV, QUANT, NT>(s, m, l, o, pw, vt, L.v_row, vscale, scaled, code_max, hdp, g, t);
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with q and the stages
 
   float* part = reinterpret_cast<float*>(smem);
-  store_partials(m, l, o, part, red_m, red_l, hdp, warp, g, t);
+  store_partials<NT>(m, l, o, part, red_m, red_l, hdp, warp, g, t);
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -1012,19 +1042,19 @@ __device__ __forceinline__ void tile_block(const Args& a, int8_t* smem, int b, i
 // it takes plan blocks x, x + gridDim.x, ... until the plan ends (one each
 // when the grid covers the plan; a row's bits do not depend on which block
 // computes it).
-template <int KV, bool QUANT>
+template <int KV, bool QUANT, int NT, int STAGES>
 __global__ void __launch_bounds__(TL_THREADS) lm_tile_kernel(Args a) {
   extern __shared__ __align__(128) int8_t smem[];
   const int b = blockIdx.z, h = blockIdx.y;
   if (a.q_seg == nullptr) {
     const int q0 = blockIdx.x * TL_BQ;
-    tile_block<KV, QUANT>(a, smem, b, h, q0, min(TL_BQ, a.Sq - q0));
+    tile_block<KV, QUANT, NT, STAGES>(a, smem, b, h, q0, min(TL_BQ, a.Sq - q0));
     return;
   }
   for (int pb = blockIdx.x;; pb += gridDim.x) {
     const int2 blk = plan_block(a, b, pb);
     if (blk.x < 0) return;
-    tile_block<KV, QUANT>(a, smem, b, h, blk.x, blk.y);
+    tile_block<KV, QUANT, NT, STAGES>(a, smem, b, h, blk.x, blk.y);
     __syncthreads();  // the next plan block restages shared memory
   }
 }
@@ -1035,16 +1065,27 @@ __global__ void __launch_bounds__(TL_THREADS) lm_tile_kernel(Args a) {
 
 int es_of(int kv_type) { return kv_type == KV_F32 ? 4 : (kv_type == KV_BF16 ? 2 : 1); }
 
-template <int KV>
+template <int KV, int HD>
 size_t decode_ring_bytes() {
-  return (size_t)dec_stages<KV>() * dec_stage_bytes<KV>();
+  return (size_t)dec_stages<KV, HD>() * dec_stage_bytes<KV, HD>();
 }
 
-size_t decode_bytes(int kv_type, int R, int Sk) {
-  const size_t ring = kv_type == KV_F32    ? decode_ring_bytes<KV_F32>()
-                      : kv_type == KV_BF16 ? decode_ring_bytes<KV_BF16>()
-                                           : decode_ring_bytes<KV_I8>();
-  return ring + 4 * (size_t)R * Sk;
+// The ring and R rows of Sk scores; at the end the same memory holds the
+// warps' partial outputs (8 x 16 x (hd + 8) floats), which at hd 256 may
+// outgrow an f32 ring over few keys.
+size_t decode_bytes(int kv_type, int hd, int R, int Sk) {
+  size_t ring;
+  if (hd == 128)
+    ring = kv_type == KV_F32    ? decode_ring_bytes<KV_F32, 128>()
+           : kv_type == KV_BF16 ? decode_ring_bytes<KV_BF16, 128>()
+                                : decode_ring_bytes<KV_I8, 128>();
+  else
+    ring = kv_type == KV_F32    ? decode_ring_bytes<KV_F32, 256>()
+           : kv_type == KV_BF16 ? decode_ring_bytes<KV_BF16, 256>()
+                                : decode_ring_bytes<KV_I8, 256>();
+  const size_t part = (size_t)TL_WARPS * 16 * (hd + 8) * 4;
+  const size_t need = ring + 4 * (size_t)R * Sk;
+  return need > part ? need : part;
 }
 
 template <typename Kernel>
@@ -1059,19 +1100,32 @@ cudaError_t launch_with(Kernel* kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int KV, bool QUANT>
-cudaError_t launch_kv(const Args& a, int schedule, int segments, cudaStream_t stream) {
+// One head-dim class NT (16: hd <= 128, 32: hd <= 256); the decode
+// schedule takes hd = 8 NT exactly.
+template <int KV, bool QUANT, int NT>
+cudaError_t launch_class(const Args& a, int schedule, int segments, cudaStream_t stream) {
+  constexpr int HD = 8 * NT;
   if (schedule == 0) {
     const int R = a.Sq * (a.H / a.KVH);
-    const size_t smem = decode_bytes(KV, R, a.Sk);
-    return R == 1 ? launch_with(lm_decode_kernel<KV, QUANT, 1>, dim3(a.KVH, a.B),
+    const size_t smem = decode_bytes(KV, HD, R, a.Sk);
+    return R == 1 ? launch_with(lm_decode_kernel<KV, QUANT, 1, HD>, dim3(a.KVH, a.B),
                                 TL_THREADS, smem, a, stream)
-                  : launch_with(lm_decode_kernel<KV, QUANT, DEC_RMAX>, dim3(a.KVH, a.B),
+                  : launch_with(lm_decode_kernel<KV, QUANT, DEC_RMAX, HD>, dim3(a.KVH, a.B),
                                 TL_THREADS, smem, a, stream);
   }
-  const size_t smem = tile_layout(a.hd, kv_bytes<KV>(), a.Sk).bytes;
+  const TileLayout L = tile_layout(a.hd, kv_bytes<KV>(), a.Sk);
   const dim3 grid((a.Sq + TL_BQ - 1) / TL_BQ + (a.q_seg != nullptr ? segments : 0), a.H, a.B);
-  return launch_with(lm_tile_kernel<KV, QUANT>, grid, TL_THREADS, smem, a, stream);
+  if constexpr (KV == KV_F32 && NT == NT_256) {
+    if (L.stages == 1)
+      return launch_with(lm_tile_kernel<KV, QUANT, NT, 1>, grid, TL_THREADS, L.bytes, a, stream);
+  }
+  return launch_with(lm_tile_kernel<KV, QUANT, NT, 2>, grid, TL_THREADS, L.bytes, a, stream);
+}
+
+template <int KV, bool QUANT>
+cudaError_t launch_kv(const Args& a, int schedule, int segments, cudaStream_t stream) {
+  return a.hd <= 8 * NT_128 ? launch_class<KV, QUANT, NT_128>(a, schedule, segments, stream)
+                            : launch_class<KV, QUANT, NT_256>(a, schedule, segments, stream);
 }
 
 template <int KV>
@@ -1088,7 +1142,7 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // holds R = Sq x H/KVH rows of Sk scores; 1: tile).
 extern "C" size_t lm_attention_smem_bytes(int kv_type, int hd, int Sq, int G, int Sk,
                                           int schedule) {
-  if (schedule == 0) return decode_bytes(kv_type, Sq * G, Sk);
+  if (schedule == 0) return decode_bytes(kv_type, hd, Sq * G, Sk);
   return tile_layout(hd, es_of(kv_type), Sk).bytes;
 }
 
@@ -1096,9 +1150,9 @@ extern "C" size_t lm_attention_smem_bytes(int kv_type, int hd, int Sq, int G, in
 // then q_off0 / valid0 hold for every row. segments (with q_seg): the tile
 // grid's blocks beyond ceil(Sq / 16), at least the runs of equal q ids a
 // row holds for one block a plan block (any value >= 0 is correct). schedule 1 (tile) takes any hd in
-// 1..128 and any alignment; schedule 0 (decode) needs hd = 128, Sq x H/KVH
-// <= 4 and 16-byte aligned q, k, v, out. Anything else is refused with
-// cudaErrorInvalidValue.
+// 1..256 and any alignment; schedule 0 (decode) needs hd = 128 or 256, Sq x
+// H/KVH <= 4 and 16-byte aligned q, k, v, out. Anything else is refused
+// with cudaErrorInvalidValue.
 extern "C" int lm_attention_launch(
     const float* q, const void* k, const void* v, int kv_type, const float* k_scale,
     const float* v_scale, const int* q_offset, const int* kv_valid, const int* q_seg,
@@ -1110,7 +1164,8 @@ extern "C" int lm_attention_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
                    hd % 4 == 0 && (hd * es_of(kv_type)) % 16 == 0;
-  if (schedule == 0 && (hd != DEC_HD || Sq * (H / KVH) > DEC_RMAX || !vec))
+  if (schedule == 0 && ((hd != 8 * NT_128 && hd != 8 * NT_256) || Sq * (H / KVH) > DEC_RMAX ||
+                        !vec))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Sq <= 0) return static_cast<int>(cudaSuccess);
   const Args a{q, k, v, k_scale, v_scale, q_offset, kv_valid, q_seg, kv_seg, out,

@@ -13,11 +13,14 @@ Two CUDA kernels replace the Pallas kernel
     causal and window masks on absolute positions, per-row ``q_offset`` and
     ``kv_valid_len`` (a [B] tensor, or a Python int passed as a scalar),
     packed-prefill segment ids, f32/bf16/int8 K/V with per-position scales,
-    ``quant_bits`` 0 or 1..8, any head dim up to 128. One launch a call, of
-    one of two schedules that ``choose_schedule`` picks: ``decode`` (a
-    block a KV head and all its <= 4 query rows; K and V read once, the
-    scores held in shared memory) and ``tile`` (16 query rows a block, K/V
-    tiles double-buffered, dead tiles skipped by position and by segment).
+    ``quant_bits`` 0 or 1..8, any head dim up to 256 (two head-dim
+    classes, <= 128 and <= 256, each its own instantiation). One launch a
+    call, of one of two schedules that ``choose_schedule`` picks:
+    ``decode`` (hd 128 or 256: a block a KV head and all its <= 4 query
+    rows; K and V read once, the scores held in shared memory) and ``tile``
+    (16 query rows a block, K/V tiles double-buffered -- one tile at a time
+    for f32 K/V above hd 128, whose two stages would not fit -- dead tiles
+    skipped by position and by segment).
     With segment ids the tile schedule is keyed to the segment: its blocks
     are cut at every change of q id and start their key tiles at the
     segment's first key (``tests/test_torch_attention.py`` models the
@@ -41,11 +44,12 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_SMEM = 232_448  # dynamic shared memory one H100 block may use
-MAX_HEAD_DIM = 128  # the widest head of lm_attention and of the vision tile kernel
+MAX_HEAD_DIM = 128  # the widest head of the vision tile kernel
+LM_MAX_HEAD_DIM = 256  # the widest head of lm_attention
 # lm_attention's schedules: 0 decode (K/V streamed once, scores kept in
 # shared memory), 1 tile (16 query rows a block)
 SCHEDULES = {0: "decode", 1: "tile"}
-DECODE_HEAD_DIM = 128
+DECODE_HEAD_DIMS = (128, 256)  # one decode instantiation each
 DECODE_MAX_ROWS = 4  # query rows a decode block: Sq x H/KVH
 DECODE_SCORE_BYTES = 64 * 1024  # the decode block's f32 scores, rows x Sk
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -115,10 +119,11 @@ def choose_schedule(Sq: int, Sk: int, H: int, KVH: int, hd: int,
                     aligned: bool = True) -> int:
     """``lm_attention``'s schedule: 0 (decode: one block a KV head holds
     the scores of its <= 4 query rows, so K and V are each read once) when
-    hd is 128, the operands are 16-byte aligned, Sq x H/KVH <= 4 and those
-    scores fit ``DECODE_SCORE_BYTES``; else 1 (tile)."""
+    hd is one of ``DECODE_HEAD_DIMS``, the operands are 16-byte aligned, Sq
+    x H/KVH <= 4 and those scores fit ``DECODE_SCORE_BYTES``; else 1
+    (tile)."""
     rows = Sq * (H // KVH)
-    if (hd == DECODE_HEAD_DIM and aligned and rows <= DECODE_MAX_ROWS
+    if (hd in DECODE_HEAD_DIMS and aligned and rows <= DECODE_MAX_ROWS
             and 4 * rows * Sk <= DECODE_SCORE_BYTES):
         return 0
     return 1
@@ -153,7 +158,7 @@ def lm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q f32 [B, Sq, H, hd], k/v [B, Sk, KVH, hd] f32, bf16 or int8 (int8
     with f32 ``k_scale``/``v_scale`` [B, Sk, KVH]) -> f32 [B, Sq, H, hd]:
     ``ref.flash_attention_ref``'s contract. CUDA tensors only; hd at most
-    ``MAX_HEAD_DIM``. ``schedule`` forces one of ``SCHEDULES`` (the decode
+    ``LM_MAX_HEAD_DIM``. ``schedule`` forces one of ``SCHEDULES`` (the decode
     schedule only where ``choose_schedule`` picks it; ``chip_smoke.py``
     holds the tile schedule at the decode shapes against it); by default
     ``choose_schedule`` picks it. ``segments`` (with segment ids): the most
@@ -169,8 +174,8 @@ def lm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (B, Sk, KVH, hd) or v.shape != k.shape or H % KVH:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if not 0 < hd <= MAX_HEAD_DIM:
-        raise NotImplementedError(f"head dim {hd}: lm_attention takes 1..{MAX_HEAD_DIM}")
+    if not 0 < hd <= LM_MAX_HEAD_DIM:
+        raise NotImplementedError(f"head dim {hd}: lm_attention takes 1..{LM_MAX_HEAD_DIM}")
     if q.dtype != torch.float32 or k.dtype != v.dtype or k.dtype not in _KV_TYPES:
         raise TypeError(f"f32 q and f32/bf16/int8 k, v required, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")

@@ -10,6 +10,9 @@ One engine:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
       --requests 16 --prompt-len 64 --new-tokens 32 --slots 8 --max-len 512
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+      [--quantized] --requests 16 --new-tokens 32 --slots 8 --max-len 512
+
 A cluster of LM replicas behind one front-end (``serving/cluster.py``:
 least-loaded routing, the watchdog, eviction and re-dispatch):
 
@@ -17,9 +20,11 @@ least-loaded routing, the watchdog, eviction and re-dispatch):
       --quantized --replicas 2 --requests 16 --new-tokens 32 --slots 8 \\
       --max-len 512 [--chaos --chaos-kill 1:20]
 
-The MoE LM admits through packed prefill; falcon-mamba (no packed prefill)
-through the grouped same-length path, its prefill through the selective-scan
-kernel. Weights are random, drawn on the device from ``--seed``; the
+The MoE LM and the dense LMs (llama3-8b, gemma-7b) admit through packed
+prefill; gemma2-2b (alternating local/global layers, the local layers' K/V
+in a ring of min(max_len, 4096) rows) and falcon-mamba (no packed prefill)
+through the grouped same-length path, falcon-mamba's prefill through the
+selective-scan kernel. Weights are random, drawn on the device from ``--seed``; the
 replicas of a cluster on one card share them. ``--quantized`` turns on the
 serving quantization of the reference launcher: the int8 K/V cache and the
 4-bit log-sqrt2 attention over the fp weights (a PTQ'd QuantizedParams tree

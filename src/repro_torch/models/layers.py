@@ -143,7 +143,8 @@ def quantize_kv(x: torch.Tensor):
 def _cache_put(buf: torch.Tensor, new: torch.Tensor, idx) -> None:
     """Write ``new`` [B, S, ...] into ``buf`` [B, Smax, ...] at row ``idx``
     (an int, or a [B] tensor: one fill position per slot), in place. The
-    start clamps so the rows fit, as ``lax.dynamic_update_slice`` does."""
+    start clamps so the rows fit, as ``lax.dynamic_update_slice`` does (a
+    ring cache passes ``idx % Smax`` with S = 1, which always fits)."""
     S, smax = new.shape[1], buf.shape[1]
     if isinstance(idx, int):
         start = min(max(idx, 0), smax - S)
@@ -153,6 +154,16 @@ def _cache_put(buf: torch.Tensor, new: torch.Tensor, idx) -> None:
     rows = start[:, None] + torch.arange(S, device=buf.device)  # [B, S]
     batch = torch.arange(buf.shape[0], device=buf.device)[:, None].expand_as(rows)
     buf[batch, rows] = new.to(buf.dtype)
+
+
+def _ring_fill(buf: torch.Tensor, new: torch.Tensor) -> None:
+    """A prefill of S rows into a ring of ``smax`` rows, in place: the last
+    ``smax`` rows, rolled so that position p lands in slot p % smax (rows
+    from 0 when S < smax)."""
+    S, smax = new.shape[1], buf.shape[1]
+    if S >= smax:
+        new = torch.roll(new[:, -smax:], (S - smax) % smax, dims=1)
+    buf[:, :new.shape[1]] = new.to(buf.dtype)
 
 
 def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *,
@@ -169,6 +180,15 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *
     fill positions) -- the reference returns a new cache; the port updates
     the one it is given and returns it -- and attention runs over the whole
     buffer with ``kv_valid_len = cache_index + S``.
+
+    A sliding-window layer whose cache holds no more rows than its window
+    (``0 < local_window`` and ``Smax <= local_window``) keeps a ring: a
+    prefill (S > 1, from position ``cache_index`` = 0) writes its last Smax
+    rows so that position p sits in slot p % Smax and attends over its own
+    fresh K/V with the window; a decode step writes slot ``cache_index %
+    Smax`` and attends over the ``min(cache_index + S, Smax)`` filled slots
+    with no window mask (the ring holds exactly the window). RoPE is applied
+    at the absolute position before caching, so slot order does not matter.
 
     segment_ids [B, S] (packed prefill): attention is confined to equal
     ids; RoPE uses ``positions`` (within-segment) while causal masking runs
@@ -203,24 +223,39 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *
                            else segment_ids.to(torch.int32)), segments=segments)
     else:
         smax = cache["k"].shape[1]
-        if 0 < local_window and smax <= local_window:
+        ring = 0 < local_window and smax <= local_window
+        if ring and segment_ids is not None:
             raise NotImplementedError(
-                "sliding-window ring caches (smax <= local_window) are not ported")
+                "packed prefill cannot take a ring (sliding-window) cache: the "
+                "engine keeps the grouped admission path for alternating "
+                "local/global archs")
         idx = cache_index
         if isinstance(idx, torch.Tensor):
             idx = idx.to(device=x.device, dtype=torch.int32).expand(B)
+        new = {"k": k, "v": v}
         if cache["k"].dtype == torch.int8:
-            k_q, k_s = quantize_kv(k)
-            v_q, v_s = quantize_kv(v)
-            for name, new in (("k", k_q), ("v", v_q), ("k_scale", k_s), ("v_scale", v_s)):
-                _cache_put(cache[name], new, idx)
-            ks, vs = cache["k_scale"], cache["v_scale"]
+            new["k"], new["k_scale"] = quantize_kv(k)
+            new["v"], new["v_scale"] = quantize_kv(v)
+        if ring and S > 1:
+            if not isinstance(idx, int) or idx != 0:
+                raise ValueError("a prefill into a ring cache starts at position 0")
+            for name, rows in new.items():
+                _ring_fill(cache[name], rows)
+            out = ops.attention(
+                q, new["k"], new["v"], causal=causal, q_offset=idx,
+                quant_bits=quant_bits, logit_softcap=a.logit_softcap,
+                local_window=local_window, k_scale=new.get("k_scale"),
+                v_scale=new.get("v_scale"))
+            return _attention_out(out, p, cfg, a, taps), cache
+        write = idx % smax if ring else idx
+        for name, rows in new.items():
+            _cache_put(cache[name], rows, write)
+        ks, vs = cache.get("k_scale"), cache.get("v_scale")
+        if isinstance(idx, torch.Tensor):
+            valid = torch.clamp(idx + S, max=smax) if ring else idx + S
         else:
-            _cache_put(cache["k"], k, idx)
-            _cache_put(cache["v"], v, idx)
-            ks = vs = None
-        valid = (idx + S if isinstance(idx, torch.Tensor)
-                 else torch.full((B,), idx + S, dtype=torch.int32, device=x.device))
+            valid = torch.full((B,), min(idx + S, smax) if ring else idx + S,
+                               dtype=torch.int32, device=x.device)
         kv_segs = None
         if segment_ids is not None:
             kv_segs = torch.nn.functional.pad(
@@ -228,10 +263,18 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *
         out = ops.attention(
             q, cache["k"], cache["v"], causal=causal, q_offset=idx,
             quant_bits=quant_bits, logit_softcap=a.logit_softcap,
-            local_window=local_window, k_scale=ks, v_scale=vs, kv_valid_len=valid,
+            local_window=0 if ring else local_window, k_scale=ks, v_scale=vs,
+            kv_valid_len=valid,
             q_segment_ids=(None if segment_ids is None
                            else segment_ids.to(torch.int32)),
             kv_segment_ids=kv_segs, segments=segments)
+    return _attention_out(out, p, cfg, a, taps), cache
+
+
+def _attention_out(out: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig,
+                   taps) -> torch.Tensor:
+    """The attention heads [B, S, H, hd] through the out projection."""
+    B, S = out.shape[:2]
     out = out.reshape(B, S, a.num_heads * a.head_dim)
     maybe_record(taps, "attn_out", out)
     if p["wo"].dtype != torch.int8:
@@ -239,4 +282,4 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *
     y = quant_linear(out, p, "wo", cfg)
     if "bo" in p:
         y = y + p["bo"]
-    return y, cache
+    return y

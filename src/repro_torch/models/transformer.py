@@ -5,6 +5,12 @@ Layers are stacked (a leading layer dim on every leaf under ``layers``) and
 walked by a Python loop, where the reference scans. The K/V cache is one
 stacked buffer per tensor, [layers, B, max_len, KVH, hd]; each layer writes
 its rows into its slice in place (``layers.attention_block``).
+
+gemma2's alternating local/global attention (``attn.alternate_local_global``)
+keeps two stacks of L/2 layers, ``layers_local`` and ``layers_global``,
+walked in (local, global) pairs, and a nested cache ``{"local": ...,
+"global": ...}``: the local layers' cache is a ring of min(max_len,
+local_window) rows, the global layers' max_len rows.
 """
 from __future__ import annotations
 
@@ -90,15 +96,27 @@ def _layer_pdefs(cfg: ModelConfig) -> dict:
     return p
 
 
+def _alternating(cfg: ModelConfig) -> bool:
+    return cfg.attn is not None and cfg.attn.alternate_local_global
+
+
 def abstract_params(cfg: ModelConfig) -> dict:
-    """The LM's parameter tree: embedding, stacked layers, final norm and
+    """The LM's parameter tree: embedding, stacked layers (alternating
+    archs: ``layers_local`` and ``layers_global``, L/2 each), final norm and
     (untied) LM head."""
     d = cfg.d_model
     tree: dict = {
         "embed": PDef((cfg.vocab_size, d), init="small_normal"),
         "final_norm": _norm_pdefs(cfg),
-        "layers": stack_tree(_layer_pdefs(cfg), cfg.num_layers),
     }
+    if _alternating(cfg):
+        if cfg.num_layers % 2:
+            raise ValueError(f"alternating local/global needs an even layer count, "
+                             f"got {cfg.num_layers}")
+        tree["layers_local"] = stack_tree(_layer_pdefs(cfg), cfg.num_layers // 2)
+        tree["layers_global"] = stack_tree(_layer_pdefs(cfg), cfg.num_layers // 2)
+    else:
+        tree["layers"] = stack_tree(_layer_pdefs(cfg), cfg.num_layers)
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense(d, cfg.vocab_size, scale=0.02)
     return tree
@@ -181,8 +199,23 @@ def _block(x, p, cfg, *, positions, local_window=0, causal=True, cache=None,
 def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens.long()]  # [B, S, D]
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+        # a fill on the device, not a copy from the host: capture-safe
+        x = x * torch.full((), cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     return x
+
+
+def _layer_walk(cfg: ModelConfig):
+    """The layers in order as (params key, cache key or None, index in the
+    stack, local window, tap scope): alternating archs walk the (local,
+    global) pairs, windows ``local_window`` then 0, scopes ``Llocal{i:03d}``
+    and ``Lglobal{i:03d}``; every other arch its one stack, ``L{i:03d}``."""
+    if _alternating(cfg):
+        for i in range(cfg.num_layers // 2):
+            yield "layers_local", "local", i, cfg.attn.local_window, f"Llocal{i:03d}"
+            yield "layers_global", "global", i, 0, f"Lglobal{i:03d}"
+    else:
+        for i in range(cfg.num_layers):
+            yield "layers", None, i, cfg.attn.local_window, f"L{i:03d}"
 
 
 def _run_layers(params, cfg: ModelConfig, x, *, positions, caches=None,
@@ -193,10 +226,12 @@ def _run_layers(params, cfg: ModelConfig, x, *, positions, caches=None,
         return _run_layers_eager(params, cfg, x, positions=positions, taps=taps)
     aux_total = torch.zeros((), device=x.device)
     ec_total = _expert_count_zeros(cfg, x.device)
-    for i in range(cfg.num_layers):
-        cache = None if caches is None else layer(caches, i)
-        x, aux, ec, _ = _block(x, layer(params["layers"], i), cfg,
-                               positions=positions, local_window=cfg.attn.local_window,
+    for key, ckey, i, window, _ in _layer_walk(cfg):
+        cache = None
+        if caches is not None:
+            cache = layer(caches if ckey is None else caches[ckey], i)
+        x, aux, ec, _ = _block(x, layer(params[key], i), cfg,
+                               positions=positions, local_window=window,
                                cache=cache, cache_index=cache_index,
                                segment_ids=segment_ids, segments=segments)
         aux_total = aux_total + aux
@@ -205,13 +240,14 @@ def _run_layers(params, cfg: ModelConfig, x, *, positions, caches=None,
 
 
 def _run_layers_eager(params, cfg: ModelConfig, x, *, positions, taps):
-    """The calibration loop: records activation taps under ``L{i:03d}``."""
+    """The calibration loop: records activation taps under each layer's
+    scope (``_layer_walk``)."""
     aux_total = torch.zeros((), device=x.device)
     ec_total = _expert_count_zeros(cfg, x.device)
-    for i in range(cfg.num_layers):
-        x, aux, ec, _ = _block(x, layer(params["layers"], i), cfg,
-                               positions=positions, local_window=cfg.attn.local_window,
-                               taps=taps.scoped(f"L{i:03d}"))
+    for key, _, i, window, scope in _layer_walk(cfg):
+        x, aux, ec, _ = _block(x, layer(params[key], i), cfg,
+                               positions=positions, local_window=window,
+                               taps=taps.scoped(scope))
         aux_total = aux_total + aux
         ec_total = ec_total + ec
     return x, aux_total, ec_total, None
@@ -244,18 +280,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
     """Zeroed K/V cache [layers, batch, max_len, KVH, hd]: int8 with f32
     per-(position, head) scales when ``cfg.quant.enable`` and
-    ``kv_cache_int8``, else ``dtype``."""
+    ``kv_cache_int8``, else ``dtype``. Alternating archs: ``{"local": ring
+    of min(max_len, local_window) rows, "global": max_len rows}``, L/2
+    layers each."""
     a = cfg.attn
     device = require_device(device)
     int8 = cfg.quant.enable and cfg.quant.kv_cache_int8
-    shape = (cfg.num_layers, batch, max_len, a.num_kv_heads, a.head_dim)
     kv_dtype = torch.int8 if int8 else dtype
-    c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
-         "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
-    if int8:
-        c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-        c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-    return c
+
+    def one(n: int, length: int) -> dict:
+        shape = (n, batch, length, a.num_kv_heads, a.head_dim)
+        c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+        if int8:
+            c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+            c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        return c
+
+    if _alternating(cfg):
+        n = cfg.num_layers // 2
+        local = min(max_len, a.local_window) if a.local_window else max_len
+        return {"local": one(n, local), "global": one(n, max_len)}
+    return one(cfg.num_layers, max_len)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
+    """The cache's tree of tensors on the ``meta`` device: shapes and
+    dtypes, nothing allocated (the reference's ``jax.eval_shape`` form)."""
+    return init_cache(cfg, batch, max_len, dtype=dtype, device="meta")
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -6,7 +6,8 @@ prefill (ssm).
 
 A fixed batch of ``batch_slots`` decode slots shares one K/V cache
 [layers, slots, max_len, ...] (int8 with per-position scales under
-``cfg.quant``, else bf16). Queued prompts are admitted greedily from the
+``cfg.quant``, else bf16; for alternating local/global archs a nested
+``{"local": ring, "global": ...}`` tree, which the engine walks as a tree). Queued prompts are admitted greedily from the
 shared ``MicroBatcher``: the pack planner takes the longest FIFO prefix
 that fits the ``max_prefill`` token budget and the free slots, concatenates
 it into one ``[1, bucket]`` buffer (bucket on a power-of-two ladder, prompt
@@ -29,22 +30,24 @@ program is a CUDA graph that ``warmup()`` captures (``serving/programs.py``),
 so serving replays graphs and builds nothing; with ``aot_warmup=False``,
 and on the CPU, each runs eagerly through the same code.
 
-A family without ``prefill_packed`` (or ``serve.packed_prefill=False``)
+A family without ``prefill_packed``, an alternating local/global arch (its
+ring cache cannot take a packed prefill) or ``serve.packed_prefill=False``
 takes the grouped path instead, as the reference decides it: the polled
 prompts of one length prefill as one ``[n, S]`` batch, each row of the
 prefilled state (SSM: ``h`` and the conv history, kept in f32, the dtype
-``prefill`` and ``decode_step`` produce) is copied into its slot, and the
-decode tick (a program too) reads its tokens from the host, its argmax goes
-to the host, and it checks ``eos_id`` and retires inline; its per-length
-prefill runs eagerly.
+``prefill`` and ``decode_step`` produce; a ring keeps slot p % rows for
+position p, as ``prefill`` lays it out) is copied into its slot, and the
+decode tick (a program too, the ring's ``index % rows`` inside it) reads its
+tokens from the host, its argmax goes to the host, and it checks ``eos_id``
+and retires inline; its per-length prefill runs eagerly.
 
 The engine is an ``EngineReplica`` (``serving/replica.py``): ``load``,
 ``free_room`` (free decode slots plus queue room), ``reset_metrics`` and
 ``evict``, which hands back every queued and decoding request for the
 cluster to re-dispatch. ``events=`` journals rejections, cancellations and
 retirement faults into an ``EventLog``. The reference's tracer,
-introspection, expert-health monitor, expert-parallel placement, autotune
-warmup and ring cache are not ported.
+introspection, expert-health monitor, expert-parallel placement and
+autotune warmup are not ported.
 """
 from __future__ import annotations
 
@@ -84,6 +87,14 @@ def _pow2_ladder(lo: int, hi: int) -> Tuple[int, ...]:
         b *= 2
     out.append(hi)
     return tuple(sorted(set(out)))
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict (a cache: flat, or ``{"local": ...,
+    "global": ...}``), in key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [tree]
 
 
 def _as_rows(t: torch.Tensor) -> torch.Tensor:
@@ -210,9 +221,12 @@ class ServeEngine:
         self.mod = module_for(cfg)
         if not hasattr(self.mod, "decode_step"):
             raise ValueError(f"decoder families only, got {cfg.family!r}")
-        # packed prefill needs the transformer's prefill_packed; every other
-        # family keeps the grouped same-length admission path
+        # packed prefill needs the transformer's prefill_packed and a cache
+        # without a ring; every other family, and the alternating
+        # local/global archs, keep the grouped same-length admission path
         self._packed = bool(cfg.serve.packed_prefill
+                            and cfg.attn is not None
+                            and not cfg.attn.alternate_local_global
                             and hasattr(self.mod, "prefill_packed"))
         self.device = require_device(device)
         # the same tensors when the tree is on this device already: replicas
@@ -439,11 +453,11 @@ class ServeEngine:
         if not self._graphs:
             return self._program(tick)
         # the capture's warm-up call decodes one step: put the state back
-        saved = {k: v.clone() for k, v in cache.items()}, self._feed.clone()
+        state = _leaves(cache) + [self._feed]
+        saved = [t.clone() for t in state]
         prog = self._program(tick, *self._tick_inputs(np.zeros(self.B, np.int32)))
-        for k, v in saved[0].items():
-            cache[k].copy_(v)
-        self._feed.copy_(saved[1])
+        for t, v in zip(state, saved):
+            t.copy_(v)
         return prog
 
     def _build_admit(self, bucket: int, nb: int):
@@ -697,8 +711,8 @@ class ServeEngine:
                                                     max_len=self.max_len)
                     logits = logits[:, -1, :]
                     for i, slot in enumerate(slots):
-                        for name, buf in self.cache.items():
-                            buf[:, slot] = part[name][:, i]
+                        for buf, rows in zip(_leaves(self.cache), _leaves(part)):
+                            buf[:, slot] = rows[:, i]
                 self.metrics.inc("prefill_batches")
                 first = torch.argmax(logits, dim=-1).cpu().numpy()
                 for i, (slot, req) in enumerate(zip(slots, reqs)):

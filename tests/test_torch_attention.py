@@ -500,6 +500,11 @@ def test_decode_split_scores_every_live_key_once(klo, khi):
     ((512, 512, 16, 16, 128), True, 1),  # packed prefill
     ((32, 32, 16, 16, 128), True, 1),  # calibration
     ((256, 256, 32, 32, 112), True, 1),  # zamba2-7b prefill
+    ((1, 512, 8, 4, 256), True, 0),  # gemma2-2b decode, 2 heads a KV head
+    ((1, 4096, 8, 4, 256), True, 0),  # gemma2-2b decode over its 4096-row ring
+    ((1, 512, 16, 16, 256), True, 0),  # gemma-7b decode
+    ((1, 512, 16, 2, 192), True, 1),  # hd 192: the tile schedule
+    ((256, 256, 8, 4, 256), True, 1),  # gemma2-2b prefill
 ])
 def test_attention_schedule_choice(shape, aligned, want):
     Sq, Sk, H, KVH, hd = shape
@@ -585,7 +590,7 @@ def _conflicts(words):
 
 
 @pytest.mark.parametrize("es", [1, 2, 4])
-@pytest.mark.parametrize("hd", [32, 64, 100, 112, 128])
+@pytest.mark.parametrize("hd", [32, 64, 100, 112, 128, 192, 256])
 def test_tile_fragment_reads_hit_32_banks(hd, es):
     """The tile schedule's fragment reads from shared memory, lane (g, t) =
     (lane // 4, lane % 4), are conflict-free for every chunk and n8 tile at
@@ -614,6 +619,47 @@ def test_tile_fragment_reads_hit_32_banks(hd, es):
                   for n in range(hdp // 8) for dk in (0, 4))
     assert worst_v == 1
     assert k_row % 16 == 0 and v_row % 16 == 0  # 16-byte cp.async destinations
+
+
+TILE_STATIC = 2 * 4 + 2 * 8 * 16 * 4 + 256 * 4 + 3 * 4  # tile_block's and plan_block's
+DECODE_STATIC = {128: 13_504, 256: 19_648}  # red_m/l, q pieces (4 rows), each warp's P
+
+
+def test_tile_layout_fits_a_block_at_every_head_dim():
+    """lm_attention.cu tile_layout at hd 1..256, each K/V width, Sk up to
+    8192 keys: q pieces, one or two stages, P and the live-tile list (and
+    the partial outputs, which reuse the same memory) fit a block's
+    232,448 bytes with the static shared memory; one stage only for f32 K/V
+    above hd 128, the class whose two stages at hd 256 alone exceed a
+    block."""
+    from repro_torch.kernels.quant_attention import LM_MAX_HEAD_DIM, MAX_SMEM
+
+    two_f32_256 = 2 * (64 * sum(_tile_layout(256, 4)[2:]) + 3 * 64 * 4)
+    assert two_f32_256 > MAX_SMEM
+    for hd in range(1, LM_MAX_HEAD_DIM + 1):
+        for es in (1, 2, 4):
+            hdp, q_row, k_row, v_row = _tile_layout(hd, es)
+            stage = 64 * (k_row + v_row) + 3 * 64 * 4
+            stages = 1 if (es == 4 and hdp > 128) else 2
+            body = 3 * 16 * (hdp + 4) * 4 + stages * stage + 8 * 16 * 12 * 4
+            size = max(body + 4 * (8192 // 64 + 1), 8 * 16 * (hdp + 8) * 4)
+            assert size + TILE_STATIC <= MAX_SMEM, (hd, es, size)
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_decode_ring_fits_a_block_with_its_scores(hd):
+    """lm_attention.cu dec_stages: the ring of each K/V width, the most
+    scores ``choose_schedule`` admits (``DECODE_SCORE_BYTES``) and the
+    static q pieces, P and maxima fit a block; the partial outputs fit the
+    ring and scores at every admitted shape."""
+    from repro_torch.kernels.quant_attention import DECODE_SCORE_BYTES, MAX_SMEM
+
+    stages = {128: {1: 8, 2: 6, 4: 3}, 256: {1: 8, 2: 4, 4: 2}}[hd]
+    for es, n in stages.items():
+        ring = n * (64 * (hd * es + 16) + 64 * 8)
+        assert ring + DECODE_SCORE_BYTES + DECODE_STATIC[hd] <= MAX_SMEM, (hd, es)
+        assert max(ring, 8 * 16 * (hd + 8) * 4) + DECODE_SCORE_BYTES + DECODE_STATIC[hd] \
+            <= MAX_SMEM, (hd, es)
 
 
 # ---------------------------------------------------------------------------

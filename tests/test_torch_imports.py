@@ -36,7 +36,9 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.models.ssm_lm, repro_torch.kernels.selective_scan, "
             "repro_torch.serving.cluster, repro_torch.serving.autoscaler, "
             "repro_torch.serving.faults, repro_torch.serving.events, "
-            "repro_torch.serving.replica, repro_torch.distributed.fault_tolerance; "
+            "repro_torch.serving.replica, repro_torch.distributed.fault_tolerance, "
+            "repro_torch.configs.gemma2_2b, repro_torch.configs.gemma_7b, "
+            "repro_torch.configs.llama3_8b; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'repro' not in sys.modules, 'repro imported'")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -54,6 +56,7 @@ def _entry_points():
     cfg = smoke_config("m3vit-small")
     lm = smoke_config("olmoe-1b-7b")
     ssm = smoke_config("falcon-mamba-7b")
+    dense = smoke_config("gemma2-2b")
     return {
         "init_model_params": lambda: init_model_params(cfg),
         "ViTClassifier": lambda: ViTClassifier(cfg),
@@ -74,6 +77,10 @@ def _entry_points():
         "replica_devices": lambda: replica_devices(2),
         "launch.serve[replicas]": lambda: serve_main(["--arch", "olmoe-1b-7b", "--smoke",
                                                       "--replicas", "2"]),
+        "ServeEngine[dense]": lambda: ServeEngine(dense, init_model_params(dense,
+                                                                           device="cpu")),
+        "init_cache[dense]": lambda: transformer.init_cache(dense, 2, 8),
+        "launch.serve[dense]": lambda: serve_main(["--arch", "gemma2-2b", "--smoke"]),
     }
 
 
@@ -83,7 +90,8 @@ def _entry_points():
                                   "ServeEngine[ssm]", "init_cache[ssm]",
                                   "launch.serve[ssm]", "ServingCluster",
                                   "ServingCluster[vision]", "replica_devices",
-                                  "launch.serve[replicas]"])
+                                  "launch.serve[replicas]", "ServeEngine[dense]",
+                                  "init_cache[dense]", "launch.serve[dense]"])
 def test_entry_points_default_to_the_card_and_refuse_without_one(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
