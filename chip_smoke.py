@@ -166,6 +166,34 @@ caught:
                  cluster ``step()`` outside the replicas, and the time from
                  eviction to backfill and to the last re-dispatched
                  completion.
+ obs.  observe -- serving observability, at full width on the trees above
+                 (``phase_observe_vision`` after phase 9's vision part,
+                 ``phase_observe_lm`` after its LM part). A second engine
+                 with ``trace.enable`` (graphs on, annotations off): on
+                 phase 4's M3ViT-S int8 tree, 29 requests in batches of 8,
+                 8, 8, 4 and 1 beside phase 4's engine on the same batches
+                 (classes and probabilities bit-equal); on phase 7's
+                 OLMoE-1B-7B int8 tree, phase 7's 16 requests (tokens
+                 identical to phase 7's untraced engine). Each: launches per
+                 forward exact, ``retraces`` 0, every request's timeline
+                 valid with its service phases summing to its latency,
+                 nothing dropped, the Chrome trace written to
+                 ``build/observe/`` and valid, a cost row for every program
+                 and every served program's ``mfu``, ``hbm_util`` and
+                 ``roofline_frac`` in (0, ``OBSERVE_RATIO_MAX``] against
+                 the H100's peaks, the memory row read from the device
+                 (params <= watermark <= limit), ``/metrics`` on
+                 127.0.0.1 with every program's step histogram and
+                 ``/healthz`` ok; the OLMoE decode tick's and M3ViT-S
+                 ``classify|b=8``'s step p50 (CUDA events the graph
+                 records at its first and last node) at least 0.98x a
+                 profiled replay's kernel time and at most 1.15x its
+                 device span (``OBSERVE_TICK_RATIO``,
+                 ``_check_step_time``). Then one eager
+                 OLMoE step with ``annotate_kernels``: its
+                 ``record_function`` ranges per wrapper equal the
+                 wrapper's launches. Printed: traced vs untraced tok/s and
+                 the program rows;
  10. dense    -- the falcon-mamba tree freed, full-width gemma2-2b
                  (``configs/gemma2_2b.py``: 26 layers in 13 local(4096) /
                  global pairs, 8 heads of 256 over 4 KV heads, softcaps,
@@ -320,6 +348,18 @@ SSM_CONTROLS = ("tf32 matmuls", "bf16 conv history")
 # requests are admitted at step 1 and decode 31 more ticks: 16 is mid-decode)
 CLUSTER_VISION_REQUESTS, CLUSTER_VISION_PROB_TOL = 48, 1e-6
 CLUSTER_KILL_STEP = 16
+# observability: every program_perf ratio of a served program in (0, this];
+# a served program's step p50 (CUDA events the graph records at its first
+# and last node) at least the first multiple of a replay's kernel time in a
+# torch.profiler trace, and at most the second of the replay's device span
+# there (first kernel start to last kernel end: the gaps between kernels,
+# which the events see too, were 12-18% of a replay's kernel time on
+# H100s, and served ticks ran 1.12-1.29x it depending on the card)
+OBSERVE_RATIO_MAX = 1.05
+OBSERVE_TICK_RATIO = (0.98, 1.15)
+# fill level of every slot in the profiled tick: the served ticks' fill
+# runs from 16 to 288, about 150 on average
+OBSERVE_TICK_FILL = 150
 # phase 10: full-width gemma2-2b. Per forward (a grouped prefill or a decode
 # tick): 26 attention layers; 26 x (ln1, post_ln1, ln2, post_ln2) +
 # final_norm RMSNorms; the int8 tree's 26 x (q, k, v, o, wi, wo) linears
@@ -1850,6 +1890,7 @@ def phase_lm(smi: str) -> dict:
     for mat, tree in trees.items():
         out["runs"][mat] = _serve_lm(qcfg, tree, mat, smi)
     out["cluster"] = phase_cluster_lm(qcfg, trees["int8"], out["runs"]["int8"], smi)
+    out["observe"] = _timed(phase_observe_lm, qcfg, trees["int8"], out["runs"]["int8"], smi)
     return out
 
 
@@ -2915,6 +2956,298 @@ def phase_cluster_lm(qcfg, params, single: dict, smi: str) -> dict:
             "chaos": _cluster_lm_run("cluster lm chaos", qcfg, params, single, smi, chaos)}
 
 
+# ---------------------------------------------------------------------------
+# observability: tracing, the program rows, memory, /metrics
+# ---------------------------------------------------------------------------
+
+def _traced_config(cfg, annotate: bool = False):
+    import dataclasses
+
+    return cfg.replace(trace=dataclasses.replace(cfg.trace, enable=True,
+                                                 annotate_kernels=annotate))
+
+
+def _get(url: str):
+    """GET a local URL, never through a proxy."""
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(url, timeout=10) as r:
+        return r.status, r.read().decode()
+
+
+def _check_observed(tag: str, eng, n_requests: int, smi: str) -> dict:
+    """The gates a traced, served engine holds: every request's timeline
+    valid and its service phases summing to its latency (within 1e-6 s),
+    nothing open, nothing dropped; the exported Chrome trace valid (written
+    to ``build/observe/``); a cost row for every program; every served
+    program's ``mfu``, ``hbm_util`` and ``roofline_frac`` in (0,
+    ``OBSERVE_RATIO_MAX``]; memory read from the device, param bytes <=
+    watermark <= limit; ``/metrics`` on 127.0.0.1 with every program's step
+    histogram and ``/healthz`` ok. Prints the program rows."""
+    from repro_torch.serving import (
+        ClusterMetrics,
+        MetricsServer,
+        validate_chrome_trace,
+        validate_request_timelines,
+        write_chrome_trace,
+    )
+    from repro_torch.serving.trace import request_timelines
+
+    tr = eng.tracer
+    spans = tr.recorder.spans()
+    n = validate_request_timelines(spans)
+    gap = max(abs(sum(s.dur for s in tl if s.name != "retire") - tl[-1].attrs["latency_s"])
+              for tl in request_timelines(spans).values())
+    out_dir = ROOT / "build" / "observe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{tag.replace(' ', '_')}.json"
+    doc = write_chrome_trace(str(path), {tr.label: tr.recorder})
+    events = validate_chrome_trace(json.loads(path.read_text()))
+    print(f"[{tag}] trace: {n} request timelines valid (gate: {n_requests}), service phases "
+          f"vs recorded latency max gap {gap:.3g} s (gate: 1e-6), {tr.open_count()} spans "
+          f"open, {tr.recorder.total} recorded, {tr.recorder.dropped} dropped (gate: 0); "
+          f"{path.relative_to(ROOT)}: {events} duration events, valid (gate)", flush=True)
+    if (n != n_requests or gap > 1e-6 or tr.open_count() or tr.recorder.dropped
+            or events != len(spans) or events != len(doc["traceEvents"]) - sum(
+                e["ph"] == "M" for e in doc["traceEvents"])):
+        raise AssertionError(f"[{tag}] the trace fails its gates")
+    m = eng.metrics
+    snap = m.snapshot()
+    missing = set(eng._programs) - set(m.program_costs)
+    perf = snap["program_perf"]
+    served = {k: r for k, r in perf.items() if r.get("steps")}
+    print(f"[{tag}] {len(eng._programs)} programs, cost rows for all: {not missing} (gate); "
+          f"peaks {m.peaks['device_kind']} ({m.peaks['peak_kind']} "
+          f"{m.peaks['peak_flops'] / 1e12:.0f} TFLOP/s, HBM {m.peaks['hbm_bw'] / 1e12:.2f} "
+          f"TB/s, assumed {m.peaks['assumed']}); program_perf of the {len(served)} served "
+          f"programs ({smi}, device time from CUDA events):", flush=True)
+    for key, r in served.items():
+        print(f"[{tag}]   {key}: {r['steps']} steps, p50 {r['step_p50_ms']:.4f} ms, flops "
+              f"{r['flops']:.4g}, hbm bytes {r['hbm_bytes']:.4g}, mfu {r.get('mfu')}, "
+              f"hbm_util {r.get('hbm_util')}, achieved {r.get('achieved_hbm_gbps')} GB/s, "
+              f"roofline_frac {r.get('roofline_frac')}, bound {r.get('bound')}", flush=True)
+    bad = {k: r for k, r in served.items()
+           if not all(0 < r.get(f, 0) <= OBSERVE_RATIO_MAX
+                      for f in ("mfu", "hbm_util", "roofline_frac"))}
+    if missing or not served or bad or m.peaks["assumed"]:
+        raise AssertionError(f"[{tag}] program rows fail: missing costs {missing}, out of "
+                             f"(0, {OBSERVE_RATIO_MAX}] {bad}, peaks {m.peaks}")
+    mem = snap["memory"]
+    if not mem or mem.get("source") != "device":
+        raise AssertionError(f"[{tag}] memory row {mem}: not read from the device")
+    print(f"[{tag}] memory ({mem['source']}): params {mem['param_bytes'] / 1e9:.3f} GB, "
+          f"K/V cache {mem['kv_cache_bytes'] / 1e9:.3f} GB, in use "
+          f"{mem['bytes_in_use'] / 1e9:.3f} GB, watermark {mem['watermark_bytes'] / 1e9:.3f} "
+          f"GB, limit {mem['bytes_limit'] / 1e9:.2f} GB (gate: source device, params <= "
+          f"watermark <= limit)", flush=True)
+    if not (mem["source"] == "device"
+            and mem["param_bytes"] <= mem["watermark_bytes"] <= mem["bytes_limit"]):
+        raise AssertionError(f"[{tag}] memory row {mem}")
+    cm = ClusterMetrics([m])
+    with MetricsServer(cm.export_prometheus, snapshot_fn=cm.snapshot) as srv:
+        status, text = _get(srv.url + "/metrics")
+        hz_status, hz = _get(srv.url + "/healthz")
+    keys = set(snap["step_latency_ms"])
+    scraped = {line.split('"')[1] for line in text.splitlines()
+               if line.startswith("repro_step_latency_seconds_count{")}
+    print(f"[{tag}] /metrics on {srv.url}: HTTP {status}, {len(text.splitlines())} lines, step "
+          f"histograms of {len(scraped)} programs (gate: all {len(keys)}); /healthz HTTP "
+          f"{hz_status} {hz}", flush=True)
+    if status != 200 or scraped != keys or hz_status != 200 or json.loads(hz)["status"] != "ok":
+        raise AssertionError(f"[{tag}] the metrics endpoint fails its gates")
+    return {"perf": served, "memory": mem, "spans": len(spans)}
+
+
+def _replay_span(tag: str, label: str, smi: str, fn, n: int = 5) -> dict:
+    """A graph replay's device time in a ``torch.profiler`` trace: ``n``
+    calls of ``fn``, each synchronised; the replay's device operations are
+    those that share its launch's correlation id (the largest such groups,
+    one a call). Per replay its span (first start to last end) and its
+    kernel time (the summed durations); medians over the calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+                torch.cuda.synchronize()
+    groups: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()
+                and not e.name().startswith("Memcpy HtoD")):
+            groups.setdefault(e.correlation_id(), []).append((e.start_ns(), e.end_ns()))
+    replays = sorted(groups.values(), key=len)[-n:]
+    if len(replays) != n or len(replays[0]) < len(replays[-1]) // 2:
+        raise AssertionError(f"[{tag}] {label}: launch sizes {sorted(map(len, groups.values()))}"
+                             f" for {n} replays")
+    span = float(np.median([max(e for _, e in g) - min(b for b, _ in g) for g in replays])) / 1e6
+    busy = float(np.median([sum(e - b for b, e in g) for g in replays])) / 1e6
+    print(f"[{tag}] {label} ({smi}): in a profiler trace a replay's kernels take {busy:.4f} ms "
+          f"of its device span {span:.4f} ms (busy share {busy / span:.3f}), {len(replays[-1])} "
+          f"device operations", flush=True)
+    return {"span_ms": span, "kernel_ms": busy}
+
+
+def _check_step_time(tag: str, key: str, obs: dict, prof: dict) -> dict:
+    """Gate: the served program's step p50 (CUDA events its graph records
+    at its first and last node) is its device time: at least
+    ``OBSERVE_TICK_RATIO[0]`` x the profiled replay's kernel time (not an
+    enqueue time) and at most ``OBSERVE_TICK_RATIO[1]`` x its profiled
+    device span (no host time inside)."""
+    row = obs["perf"][key]
+    p50 = row["step_p50_ms"]
+    lo, hi = OBSERVE_TICK_RATIO
+    out = {"p50_ms": p50, "vs_kernels": p50 / prof["kernel_ms"], "vs_span": p50 / prof["span_ms"],
+           **prof}
+    print(f"[{tag}] {key}: event-timed step p50 {p50:.4f} ms over {row['steps']} steps = "
+          f"{out['vs_kernels']:.3f}x the profiled replay's kernel time (gate: >= {lo}) and "
+          f"{out['vs_span']:.3f}x its device span (gate: <= {hi})", flush=True)
+    if not (out["vs_kernels"] >= lo and out["vs_span"] <= hi):
+        raise AssertionError(f"[{tag}] {key}: step p50 outside its device time: {out}")
+    return out
+
+
+def phase_observe_lm(qcfg, params, single: dict, smi: str) -> dict:
+    """Observability on phase 7's OLMoE-1B-7B int8 tree: a second engine
+    with ``trace.enable`` (graphs on, annotations off) serves phase 7's 16
+    requests; gates: every token equal to phase 7's untraced engine's,
+    ``retraces`` 0, launches per forward unchanged, ``_check_observed``,
+    and the decode tick's step p50 (device time from CUDA events the graph
+    records) against a profiled replay of the tick (``_check_step_time``).
+    Then
+    one eager step with ``annotate_kernels`` profiled: its
+    ``record_function`` ranges per wrapper equal the wrapper's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.programs import own
+
+    tag = "observe lm"
+    eng = ServeEngine(_traced_config(qcfg), params, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                      device="cuda")
+    warm = _warm(tag, eng)
+    reqs = _lm_requests(qcfg.vocab_size)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    c = eng.metrics.counters
+    forwards = c["prefill_batches"] + c["decode_ticks"]
+    same = [list(r.generated) for r in reqs] == single["tokens"]
+    tokens = sum(len(r.generated) for r in reqs)
+    print(f"[{tag}] traced engine, phase 7's {len(reqs)} requests: tokens identical to the "
+          f"untraced engine's: {same} (gate); smoke figure ({smi}): {tokens / wall:.1f} tok/s "
+          f"traced vs {single['tok_s']:.1f} untraced (phase 7, same requests); launches "
+          f"{counts}", flush=True)
+    if not same:
+        raise AssertionError(f"[{tag}] tracing changed the served tokens")
+    for name, per in LM_PER_FORWARD.items():
+        if counts[name] != per * forwards:
+            raise AssertionError(f"[{tag}] {name}: {counts[name]} launches for {forwards} "
+                                 f"forwards, expected {per} per forward")
+    _check_retraces(tag, eng)
+    obs = _check_observed(tag, eng, len(reqs), smi)
+    # the decode tick's event-timed p50 against a profiled replay
+    key = eng._program_key("decode")
+    tick = eng._programs[key]
+    pos = np.full(LM_SLOTS, OBSERVE_TICK_FILL, np.int32)
+    prof = _replay_span(tag, f"decode tick at fill {OBSERVE_TICK_FILL}, graph", smi,
+                        lambda: own(tick, tick(eng._tok, pos)))
+    step = _check_step_time(tag, key, obs, prof)
+    del eng, tick
+    _release()
+    # kernel annotations on an eager step: ranges per wrapper = launches
+    from torch.profiler import ProfilerActivity, profile
+
+    eager = ServeEngine(_eager(_traced_config(qcfg, annotate=True)), params,
+                        batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, device="cuda")
+    try:
+        if not ops.kernel_annotations_enabled():
+            raise AssertionError(f"[{tag}] annotate_kernels did not turn the ranges on")
+        _warm(f"{tag} eager", eager)
+        for r in _lm_requests(qcfg.vocab_size)[:LM_SLOTS]:
+            eager.submit(r)
+        torch.cuda.synchronize()
+        _reset_counts()
+        with profile(activities=[ProfilerActivity.CPU]) as p:
+            eager.step()  # one packed admission and one decode tick
+            torch.cuda.synchronize()
+        launched = _read_counts()
+    finally:
+        ops.set_kernel_annotations(False)
+    ranges = {}
+    for ev in p.events():
+        name = ev.name.split("[", 1)[0]
+        if "[" in ev.name and name in ("int8_matmul", "grouped_matmul", "attention", "rmsnorm"):
+            ranges[name] = ranges.get(name, 0) + 1
+    want = {"int8_matmul": launched["int8_matmul"], "grouped_matmul": launched["grouped_matmul"],
+            "attention": launched["lm_attention"], "rmsnorm": launched["rmsnorm"]}
+    fwd = eager.metrics.counters["prefill_batches"] + eager.metrics.counters["decode_ticks"]
+    print(f"[{tag}] eager step ({fwd} forwards) with annotate_kernels: record_function ranges "
+          f"{ranges} vs wrapper launches {want} (gate: equal, {LM_PER_FORWARD} a forward)",
+          flush=True)
+    if ranges != want or any(launched[k] != v * fwd for k, v in LM_PER_FORWARD.items()):
+        raise AssertionError(f"[{tag}] annotation ranges {ranges}, launches {launched}")
+    eager.evict()  # drains the retirement thread; the rest is not served
+    del eager
+    _release()
+    return {"counts": counts, "tok_s": tokens / wall, "warmup": warm, "tick": step, **obs}
+
+
+def phase_observe_vision(qcfg, p_int8, single, smi: str) -> dict:
+    """Observability on phase 4's M3ViT-S int8 tree: a traced graph engine
+    and phase 4's engine (``single``) serve the same requests in the same
+    batches (24 queued then flushed: three of 8; then 4; then 1, so each
+    bucket 1, 4, 8 runs); gates: classes and probabilities bit-equal,
+    ``retraces`` 0, launches per batch exact, ``_check_observed``, and the
+    ``classify|b=8`` step p50 against a profiled replay of a dispatch of 8
+    (``_check_step_time``)."""
+    from repro_torch.models.vit import PATCH_DIM
+    from repro_torch.serving import VisionEngine, synth_requests
+    from repro_torch.serving.programs import own
+
+    tag = "observe vision"
+    eng = VisionEngine(_traced_config(qcfg), p_int8, batch_buckets=(1, 4, 8), max_wait_s=2e-3,
+                       device="cuda")
+    warm = _warm(tag, eng)
+    served = {}
+    for label, e in (("untraced", single), ("traced", eng)):
+        served[label] = synth_requests(qcfg, 29, seed=7)
+        if e is eng:
+            _reset_counts()
+        for lo, hi in ((0, 24), (24, 28), (28, 29)):
+            for r in served[label][lo:hi]:
+                e.submit(r)
+            e.flush()
+    counts = _read_counts()
+    same = all(np.array_equal(a.classes, b.classes) and np.array_equal(a.probs, b.probs)
+               for a, b in zip(served["untraced"], served["traced"]))
+    batches = eng.metrics.counters["batches"]
+    print(f"[{tag}] traced vs phase 4's engine, 29 requests in batches of 8, 8, 8, 4, 1: "
+          f"classes and probabilities bit-equal {same} (gate); launches {counts}", flush=True)
+    if not same:
+        raise AssertionError(f"[{tag}] tracing changed the classes or probabilities")
+    for name, per in PER_FORWARD.items():
+        if counts[name] != per * batches:
+            raise AssertionError(f"[{tag}] {name}: {counts[name]} launches for {batches} batches")
+    _check_retraces(tag, eng)
+    obs = _check_observed(tag, eng, 29, smi)
+    prog = eng._programs["classify|b=8"]
+    xs = np.zeros((8, qcfg.image_tokens - 1, PATCH_DIM), np.float32)
+    prof = _replay_span(tag, "dispatch of 8, graph", smi, lambda: own(prog, prog(xs)))
+    step = _check_step_time(tag, "classify|b=8", obs, prof)
+    del eng, prog
+    _release()
+    return {"counts": counts, "warmup": warm, "b8": step, **obs}
+
+
 def phase_dense(smi: str) -> dict:
     """Phase 10: full-width gemma2-2b (``configs/gemma2_2b.py``, 26 layers in
     13 local/global pairs, hd 256, the local layers' K/V in a ring), last, on
@@ -3168,21 +3501,30 @@ def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
             + sum(c.get(name, 0) for c in dense_runs))
 
 
+def _timed(fn, *args):
+    """``fn(*args)``, its wall time printed (the run's time budget)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
-    smi = phase_device()
-    phase_build()
-    rows = phase_kernels()
-    qcfg, p_int8, counts, calib_counts, engines = phase_serving(smi)
-    phase_e2e(qcfg, p_int8)
-    phase_profile(qcfg, p_int8, smi, engines)
-    vcluster = phase_cluster_vision(qcfg, p_int8, engines["graph"], smi)
+    smi = _timed(phase_device)
+    _timed(phase_build)
+    rows = _timed(phase_kernels)
+    qcfg, p_int8, counts, calib_counts, engines = _timed(phase_serving, smi)
+    _timed(phase_e2e, qcfg, p_int8)
+    _timed(phase_profile, qcfg, p_int8, smi, engines)
+    vcluster = _timed(phase_cluster_vision, qcfg, p_int8, engines["graph"], smi)
+    _timed(phase_observe_vision, qcfg, p_int8, engines["graph"], smi)
     counts = {k: counts.get(k, 0) + vcluster["counts"].get(k, 0)
               for k in set(counts) | set(vcluster["counts"])}
     del p_int8, engines
     torch.cuda.empty_cache()
-    lm = phase_lm(smi)
-    ssm = phase_ssm(smi)
-    dense = phase_dense(smi)
+    lm = _timed(phase_lm, smi)
+    ssm = _timed(phase_ssm, smi)
+    dense = _timed(phase_dense, smi)
     for row in rows:
         row["launches"] = _launches(row, counts, calib_counts, lm, ssm, dense)
     for name in ("int8_matmul", "grouped_matmul", "grouped_matmul_w4a8", "grouped_matmul_f32",

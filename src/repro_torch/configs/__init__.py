@@ -12,10 +12,12 @@ from repro_torch.configs.base import (
     AutoscaleConfig,
     ContinuousBatchingConfig,
     FaultConfig,
+    IntrospectConfig,
     ModelConfig,
     MoEConfig,
     QuantConfig,
     SSMConfig,
+    TraceConfig,
 )
 from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
 from repro_torch.configs.gemma2_2b import CONFIG as GEMMA2_2B
@@ -73,10 +75,12 @@ __all__ = [
     "AutoscaleConfig",
     "ContinuousBatchingConfig",
     "FaultConfig",
+    "IntrospectConfig",
     "ModelConfig",
     "MoEConfig",
     "QuantConfig",
     "SSMConfig",
+    "TraceConfig",
     "get_config",
     "smoke_config",
 ]

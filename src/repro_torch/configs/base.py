@@ -132,6 +132,55 @@ class AutoscaleConfig:
 
 
 @dataclass(frozen=True)
+class TraceConfig:
+    """Serving tracing knobs (``serving/trace.py``).
+
+    With ``enable`` off (the default) engines hold the no-op ``NULL_TRACER``
+    and every instrumentation site reduces to one attribute read. With it
+    on, every request gets a typed span timeline (queue/pack/prefill/decode/
+    retire; vision: queue/infer/retire) in a bounded flight recorder, and the
+    engines record per-program step times keyed by the program key into
+    ``EngineMetrics`` histograms."""
+
+    enable: bool = False
+    # flight-recorder ring capacity in spans; the oldest spans evict first
+    # (recorder.dropped counts them)
+    capacity: int = 65536
+    # per-program step-time histograms (decode tick, packed-prefill
+    # dispatch, classify bucket), keyed serve/<prog>|B=..|S=..|...
+    step_times: bool = True
+    # wrap the kernel wrappers of kernels/ops.py in
+    # torch.profiler.record_function ranges named by their shapes, so
+    # device profiles carry kernel-level names (eager steps only: a range is
+    # host-side and absent when a captured graph replays)
+    annotate_kernels: bool = False
+
+
+@dataclass(frozen=True)
+class IntrospectConfig:
+    """Live performance-introspection knobs (``serving/introspect.py``).
+
+    With ``enable`` on (the default), ``warmup()`` attaches a per-program
+    cost row (the analytic model: a CUDA graph has no cost analysis) for
+    every serving program, the device's roofline peaks and a
+    memory-watermark probe, the engines time every step (device time on a
+    card) for the MFU join, and MoE configs run the windowed expert-routing
+    health monitor that emits ``expert_drift`` events into the engine's
+    ``EventLog``."""
+
+    enable: bool = True
+    # routed tokens per drift-monitor window; a window closes (and drift is
+    # evaluated) once this many (token, expert) routings accumulate
+    drift_window_tokens: int = 4096
+    # total-variation distance (L1/2) between a closed window's occupancy
+    # and the reference occupancy above which an expert_drift event fires
+    drift_threshold: float = 0.25
+    # EMA weight folding each non-drifting window into the reference
+    # occupancy (slow tracking, so gradual shift is not repeatedly flagged)
+    baseline_alpha: float = 0.1
+
+
+@dataclass(frozen=True)
 class FaultConfig:
     """Serving fault model: chaos injection + watchdog/recovery knobs
     (``serving/faults.py``).
@@ -212,8 +261,65 @@ class ModelConfig:
     # continuous-batching serving path (serving/engine.py)
     serve: ContinuousBatchingConfig = field(
         default_factory=ContinuousBatchingConfig)
+    # serving tracing (serving/trace.py)
+    trace: TraceConfig = field(default_factory=TraceConfig)
+    # live performance introspection (serving/introspect.py)
+    introspect: IntrospectConfig = field(default_factory=IntrospectConfig)
     # serving fault model: chaos injection + watchdog (serving/faults.py)
     faults: FaultConfig = field(default_factory=FaultConfig)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ---- derived sizes (the reference's formulas, for the port's families) ----
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks + head)."""
+        d = self.d_model
+        n = self.vocab_size * d  # embedding
+        if not self.tie_embeddings and self.family not in ("vit", "vit_moe"):
+            n += self.vocab_size * d  # lm head
+        layers = self.num_layers
+        per_layer = 0
+        if self.attn is not None:
+            a = self.attn
+            per_layer += d * (a.q_dim + 2 * a.kv_dim)  # qkv
+            per_layer += a.q_dim * d  # out proj
+        if self.ssm is not None:
+            s = self.ssm
+            di = s.d_inner(d)
+            per_layer += d * 2 * di  # in_proj (x, z)
+            per_layer += di * s.conv_width  # conv
+            if s.version == 1:
+                dtr = s.dt_rank or -(-d // 16)
+                per_layer += di * (dtr + 2 * s.state_dim)  # x_proj
+                per_layer += dtr * di  # dt_proj
+                per_layer += di * s.state_dim  # A
+            else:
+                nh = s.num_ssm_heads(d)
+                per_layer += d * (2 * s.state_dim + nh)  # B, C, dt proj
+                per_layer += nh  # A
+            per_layer += di * d  # out_proj
+        mlp_mult = 3 if self.glu else 2
+        if self.moe is not None:
+            moe_layers = layers // self.moe.moe_every
+            n += moe_layers * (self.moe.num_experts * mlp_mult * d * self.moe.d_ff
+                               + d * self.moe.num_experts)
+            if self.d_ff:
+                n += (layers - moe_layers) * mlp_mult * d * self.d_ff
+            n += layers * per_layer
+        else:
+            if self.d_ff:
+                per_layer += mlp_mult * d * self.d_ff
+            n += layers * per_layer
+        if self.num_classes:
+            n += d * self.num_classes
+        return n
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: top_k of num_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        moe_layers = self.num_layers // self.moe.moe_every
+        per_expert = (3 if self.glu else 2) * self.d_model * self.moe.d_ff
+        return (self.param_count() - moe_layers * self.moe.num_experts * per_expert
+                + moe_layers * self.moe.top_k * per_expert)

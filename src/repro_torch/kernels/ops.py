@@ -3,12 +3,25 @@
 The device of the tensors chooses, and nothing else: a CUDA tensor goes to
 the CUDA kernel (which launches or raises), a CPU tensor to the kernel's
 plain version in ``kernels/ref.py``.
+
+Kernel annotations: with ``set_kernel_annotations(True)`` (what
+``TraceConfig.annotate_kernels`` turns on through ``serving/trace.py:
+make_tracer``) each wrapper below runs inside a
+``torch.profiler.record_function`` range named by the wrapper and its shapes
+(``int8_matmul[M=8,K=2048,N=2048]``), so a profile of an eager step names
+each kernel call. With the flag off (the default) a wrapper pays one
+module-global read and builds no name. A range is host-side: it is recorded
+while a step is captured into a CUDA graph and is absent when the graph
+replays, so the ranges name kernels in eager steps (``aot_warmup=False``)
+only; under replay the hand kernels' own device names say which ran.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.quant.calibrate import maybe_record
 from repro_torch.core.quant.linear_quant import fake_quant_activation
@@ -23,6 +36,26 @@ from repro_torch.kernels.quant_attention import (
     streaming_attention,
 )
 from repro_torch.kernels.selective_scan import selective_scan as _scan_kernel
+
+_ANNOTATE = False
+
+
+def set_kernel_annotations(on: bool = True) -> None:
+    """Turn the wrappers' ``record_function`` ranges on or off."""
+    global _ANNOTATE
+    _ANNOTATE = bool(on)
+
+
+def kernel_annotations_enabled() -> bool:
+    return _ANNOTATE
+
+
+def _scope(name_fn):
+    """A ``record_function`` range named by a lazy thunk: the name is built
+    only when annotations are on."""
+    if not _ANNOTATE:
+        return contextlib.nullcontext()
+    return record_function(name_fn())
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,16 +77,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               logit_softcap=logit_softcap, local_window=local_window,
               k_scale=k_scale, v_scale=v_scale, kv_valid_len=kv_valid_len,
               q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
-    if not q.is_cuda:
-        return _ref.flash_attention_ref(q, k, v, **kw)
-    vision = (not causal and quant_bits > 0 and not logit_softcap
-              and not local_window and isinstance(q_offset, int) and q_offset == 0
-              and k_scale is None and kv_valid_len is None and q_segment_ids is None
-              and q.dtype == k.dtype == v.dtype == torch.float32
-              and fits_in_shared_memory(k.shape[1], q.shape[-1]))
-    if vision:
-        return streaming_attention(q, k, v, quant_bits=quant_bits)
-    return lm_attention(q, k, v, segments=segments, **kw)
+    with _scope(lambda: (f"attention[B={q.shape[0]},Sq={q.shape[1]},H={q.shape[2]},"
+                         f"Sk={k.shape[1]},q{quant_bits}]")):
+        if not q.is_cuda:
+            return _ref.flash_attention_ref(q, k, v, **kw)
+        vision = (not causal and quant_bits > 0 and not logit_softcap
+                  and not local_window and isinstance(q_offset, int) and q_offset == 0
+                  and k_scale is None and kv_valid_len is None and q_segment_ids is None
+                  and q.dtype == k.dtype == v.dtype == torch.float32
+                  and fits_in_shared_memory(k.shape[1], q.shape[-1]))
+        if vision:
+            return streaming_attention(q, k, v, quant_bits=quant_bits)
+        return lm_attention(q, k, v, segments=segments, **kw)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
@@ -74,13 +109,15 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                 "need the folded activation scale (a PTQ QuantizedParams tree "
                 "carries it as the `wi_as` / `wo_a_scale` leaf)")
         x = quantize_sym(x.float(), a_scale, a_bits)
-    if x.is_cuda:
-        return _gmm_kernel(x, w, group_sizes, w_scale=w_scale, a_scale=a_scale)
-    if w.dtype == torch.uint8:
-        return _ref.grouped_matmul_q4_ref(x, w, group_sizes, w_scale, a_scale)
-    if w.dtype == torch.int8:
-        return _ref.grouped_matmul_q_ref(x, w, group_sizes, w_scale, a_scale)
-    return _ref.grouped_matmul_ref(x, w, group_sizes)
+    with _scope(lambda: (f"grouped_matmul[T={x.shape[0]},G={w.shape[0]},"
+                         f"Din={w.shape[1]},Dout={w.shape[2]},{w.dtype}]")):
+        if x.is_cuda:
+            return _gmm_kernel(x, w, group_sizes, w_scale=w_scale, a_scale=a_scale)
+        if w.dtype == torch.uint8:
+            return _ref.grouped_matmul_q4_ref(x, w, group_sizes, w_scale, a_scale)
+        if w.dtype == torch.int8:
+            return _ref.grouped_matmul_q_ref(x, w, group_sizes, w_scale, a_scale)
+        return _ref.grouped_matmul_ref(x, w, group_sizes)
 
 
 def row_groups(group_sizes: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -130,17 +167,20 @@ def grouped_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """W8A8 matmul with the Eq. 9 rescale at the flush."""
-    if x_q.is_cuda:
-        return _int8_kernel(x_q, w_q, x_scale, w_scale, bias)
-    return _ref.int8_matmul_ref(x_q, w_q, x_scale, w_scale, bias)
+    with _scope(lambda: (f"int8_matmul[M={x_q.numel() // x_q.shape[-1]},"
+                         f"K={w_q.shape[0]},N={w_q.shape[1]}]")):
+        if x_q.is_cuda:
+            return _int8_kernel(x_q, w_q, x_scale, w_scale, bias)
+        return _ref.int8_matmul_ref(x_q, w_q, x_scale, w_scale, bias)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim, (1 + gamma) scale; on the card one launch
     whose row sums do not depend on the number of rows."""
-    if x.is_cuda:
-        return _rmsnorm_kernel(x, gamma, eps)
-    return _ref.rmsnorm_ref(x, gamma, eps)
+    with _scope(lambda: f"rmsnorm[R={x.numel() // x.shape[-1]},D={x.shape[-1]}]"):
+        if x.is_cuda:
+            return _rmsnorm_kernel(x, gamma, eps)
+        return _ref.rmsnorm_ref(x, gamma, eps)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -148,6 +188,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     """Mamba-1 selective scan, the state on-chip for the whole sequence
     (O(S d) device-memory traffic). Returns (y [B, S, di], h_last
     [B, di, N] f32)."""
-    if x.is_cuda:
-        return _scan_kernel(x, dt, b, c, a, d)
-    return _ref.selective_scan_ref(x, dt, b, c, a, d)
+    with _scope(lambda: (f"selective_scan[B={x.shape[0]},S={x.shape[1]},"
+                         f"di={x.shape[2]},N={a.shape[-1]}]")):
+        if x.is_cuda:
+            return _scan_kernel(x, dt, b, c, a, d)
+        return _ref.selective_scan_ref(x, dt, b, c, a, d)

@@ -42,12 +42,24 @@ replicas in the seeded fault injector (``serving/faults.py``) with the
 watchdog is on for the cluster regardless. SIGTERM/SIGINT stop admission,
 and what was accepted is served to the end. Both paths report through one
 ``ClusterMetrics.snapshot()``.
+
+Observability: ``--trace-out t.json`` turns tracing on and writes the run's
+span timelines as Chrome-trace/Perfetto JSON (one process per replica);
+``--metrics-out m.prom`` writes the final Prometheus text (counters,
+latency and per-program step histograms, the programs' MFU / HBM share /
+roofline rows, memory), rewritten every ``--metrics-interval`` seconds
+during the run when given; ``--metrics-port N`` serves ``/metrics``,
+``/healthz`` and ``/snapshot`` over HTTP on 127.0.0.1 for the duration of
+the run (0 picks a free port). On the card the step histograms hold device
+time.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import signal
+import threading
 import time
 
 import numpy as np
@@ -59,6 +71,40 @@ from repro_torch.serving.cluster import ServingCluster
 from repro_torch.serving.engine import Request, ServeEngine, serving_config
 from repro_torch.serving.events import EventLog
 from repro_torch.serving.metrics import ClusterMetrics
+from repro_torch.serving.metrics_server import MetricsServer, cluster_healthz
+from repro_torch.serving.trace import write_chrome_trace
+
+
+class _PeriodicMetricsWriter(threading.Thread):
+    """Rewrite ``--metrics-out`` every ``interval`` seconds during the run
+    (tmp file + rename), so a crashed or killed run still leaves its last
+    metrics behind."""
+
+    def __init__(self, cm, path: str, interval: float) -> None:
+        super().__init__(daemon=True, name="metrics-writer")
+        self._cm = cm
+        self._path = path
+        self._interval = interval
+        self._halt = threading.Event()
+        self.writes = 0
+
+    def write_once(self) -> None:
+        try:
+            tmp = self._path + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(self._cm.export_prometheus())
+            os.replace(tmp, self._path)
+            self.writes += 1
+        except Exception:
+            pass  # a failed periodic write must not kill the run
+
+    def run(self) -> None:
+        while not self._halt.wait(self._interval):
+            self.write_once()
+
+    def stop(self) -> None:
+        self._halt.set()
+        self.join()
 
 
 def _fmt_ms(d: dict) -> str:
@@ -76,6 +122,8 @@ def print_report(snap: dict) -> None:
           f"replicas_active={snap['replicas_active']}")
     print("  latency: " + _fmt_ms(agg["latency_ms"]))
     print("  queue_wait: " + _fmt_ms(agg["queue_wait_ms"]))
+    if agg["batch_latency_ms"]["n"]:
+        print("  batch_latency: " + _fmt_ms(agg["batch_latency_ms"]))
     counters = agg["counters"]
     print("  counters: " + " ".join(f"{k}={v}" for k, v in sorted(counters.items())))
     real = counters.get("pack_real_tokens", 0)
@@ -85,6 +133,8 @@ def print_report(snap: dict) -> None:
               f"({100.0 * real / (real + pad):.1f}% buffer utilization, "
               f"{counters.get('prefill_batches', 0)} dispatches)")
     print(f"  retraces after warmup: {counters.get('retraces', 0)}")
+    for key, d in agg["step_latency_ms"].items():
+        print(f"  step {key}: " + _fmt_ms(d))
     depth = agg["front_queue_depth"]
     if depth["max"]:
         print(f"  front_queue_depth: mean={depth['mean']:.2f} max={depth['max']}")
@@ -125,6 +175,17 @@ def main(argv=None) -> None:
                     help="int8 K/V cache + 4-bit log-sqrt2 attention")
     ap.add_argument("--events-out", default=None,
                     help="stream structured serving events as JSONL here")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace/Perfetto JSON of the run's span "
+                         "timelines here (turns tracing on)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the final metrics as Prometheus text here")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve /metrics, /healthz and /snapshot over HTTP on "
+                         "this port during the run (0 picks a free port)")
+    ap.add_argument("--metrics-interval", type=float, default=None,
+                    help="with --metrics-out, rewrite the file every N seconds "
+                         "during the run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--chaos", action="store_true",
@@ -149,6 +210,8 @@ def main(argv=None) -> None:
         cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, enable=True))
     if args.chaos:
         cfg = _chaos_config(cfg, args)
+    if args.trace_out:
+        cfg = cfg.replace(trace=dataclasses.replace(cfg.trace, enable=True))
     params = init_model_params(cfg, args.seed, args.device)
     events = EventLog(path=args.events_out) if args.events_out else None
     rng = np.random.default_rng(args.seed)
@@ -163,32 +226,50 @@ def main(argv=None) -> None:
             devices=None if args.device == "cuda" else [args.device])
         cluster.warmup()
         cm = cluster.metrics
+        healthz = lambda: cluster_healthz(cluster)  # noqa: E731
     else:
         engine = ServeEngine(cfg, params, batch_slots=args.slots, max_len=args.max_len,
                              events=events, device=args.device)
         engine.warmup()
         # the single engine reports through the cluster's roll-up: one schema
         cm = ClusterMetrics([engine.metrics])
+        healthz = None
+    server = None
+    if args.metrics_port is not None:
+        server = MetricsServer(cm.export_prometheus, healthz_fn=healthz,
+                               snapshot_fn=cm.snapshot, port=args.metrics_port).start()
+        print(f"metrics endpoint: {server.url}/metrics")
+    writer = None
+    if args.metrics_interval and args.metrics_out:
+        writer = _PeriodicMetricsWriter(cm, args.metrics_out, args.metrics_interval)
+        writer.write_once()  # the file exists before the first period ends
+        writer.start()
 
     # graceful preemption: SIGTERM/SIGINT stop admission; everything already
     # accepted is served to the end and reported
     guard = PreemptionGuard(signals=(signal.SIGTERM, signal.SIGINT))
     accepted = []
-    t0 = time.perf_counter()
-    for r in reqs:
-        if guard.preempted:
-            break
-        (cluster or engine).submit(r)
-        accepted.append(r)
+    try:
+        t0 = time.perf_counter()
+        for r in reqs:
+            if guard.preempted:
+                break
+            (cluster or engine).submit(r)
+            accepted.append(r)
+            if cluster is not None:
+                cluster.step()
         if cluster is not None:
-            cluster.step()
-    if cluster is not None:
-        while cluster.total_load:
-            cluster.step()
-        cluster.flush()  # waits for the replicas' retirement threads
-    else:
-        engine.run_until_drained()
-    dt = time.perf_counter() - t0
+            while cluster.total_load:
+                cluster.step()
+            cluster.flush()  # waits for the replicas' retirement threads
+        else:
+            engine.run_until_drained()
+        dt = time.perf_counter() - t0
+    finally:
+        if writer is not None:
+            writer.stop()
+        if server is not None:
+            server.close()
     if len(accepted) < len(reqs):
         print(f"preempted: served {len(accepted)} accepted requests, shed "
               f"{len(reqs) - len(accepted)} unsubmitted")
@@ -204,6 +285,18 @@ def main(argv=None) -> None:
         print(f"cluster: status={health['status']} evicted={len(health['evicted'])} "
               f"requests by status {statuses}")
     print_report(cm.snapshot())
+    if args.trace_out:
+        if cluster is not None:
+            recorders = cluster.flight_recorders()
+        else:
+            recorders = {engine.tracer.label: engine.tracer.recorder}
+        doc = write_chrome_trace(args.trace_out, recorders)
+        print(f"trace: {args.trace_out} "
+              f"({sum(1 for e in doc['traceEvents'] if e['ph'] == 'X')} spans)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(cm.export_prometheus())
+        print(f"metrics: {args.metrics_out}")
     if events is not None:
         events.close()
         print(f"events: {args.events_out} ({events.total} events)")

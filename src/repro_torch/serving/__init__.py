@@ -1,6 +1,7 @@
-"""Serving stack of the port: micro-batcher, metrics, event log, the vision
-engine, the continuous-batching LM engine, and the multi-replica cluster
-with its fault model and autoscaler."""
+"""Serving stack of the port: micro-batcher, metrics, event log, tracing and
+introspection, the vision engine, the continuous-batching LM engine, the
+multi-replica cluster with its fault model and autoscaler, and the live
+metrics endpoint."""
 from repro_torch.serving.autoscaler import Autoscaler
 from repro_torch.serving.cluster import ServingCluster, replica_devices
 from repro_torch.serving.engine import Request, ServeEngine, serving_config
@@ -13,14 +14,36 @@ from repro_torch.serving.faults import (
     ReplicaWatchdog,
     is_oom_error,
 )
+from repro_torch.serving.introspect import (
+    ExpertHealthMonitor,
+    capture_cost,
+    memory_watermark,
+    parse_program_key,
+)
 from repro_torch.serving.metrics import (
     ClusterMetrics,
     EngineMetrics,
     LatencyTracker,
     hist_percentile,
+    program_perf,
+)
+from repro_torch.serving.metrics_server import (
+    MetricsServer,
+    cluster_healthz,
+    serve_cluster_metrics,
 )
 from repro_torch.serving.replica import EngineReplica
 from repro_torch.serving.scheduler import Backpressure, MicroBatcher, PackPlan
+from repro_torch.serving.trace import (
+    FlightRecorder,
+    Span,
+    Tracer,
+    chrome_trace,
+    make_tracer,
+    validate_chrome_trace,
+    validate_request_timelines,
+    write_chrome_trace,
+)
 from repro_torch.serving.vision import VisionEngine, VisionRequest, synth_requests
 
 __all__ = [
@@ -30,23 +53,39 @@ __all__ = [
     "EngineMetrics",
     "EngineReplica",
     "EventLog",
+    "ExpertHealthMonitor",
     "FaultInjector",
     "FaultyReplica",
+    "FlightRecorder",
     "InjectedFault",
     "InjectedOOM",
     "LatencyTracker",
+    "MetricsServer",
     "MicroBatcher",
     "PackPlan",
     "ReplicaWatchdog",
     "Request",
     "ServeEngine",
     "ServingCluster",
+    "Span",
+    "Tracer",
     "VisionEngine",
     "VisionRequest",
+    "capture_cost",
+    "chrome_trace",
+    "cluster_healthz",
     "hist_percentile",
     "is_oom_error",
+    "make_tracer",
+    "memory_watermark",
+    "parse_program_key",
+    "program_perf",
     "read_jsonl",
     "replica_devices",
+    "serve_cluster_metrics",
     "serving_config",
     "synth_requests",
+    "validate_chrome_trace",
+    "validate_request_timelines",
+    "write_chrome_trace",
 ]

@@ -53,8 +53,11 @@ replicas can absorb, ``health()`` reports ``degraded`` with the eviction
 ledger, and ``scale_down`` refuses. ``FaultConfig.inject`` also wraps each
 replica in the seeded chaos ``FaultyReplica``.
 
-The reference's flight recorders and trace export wait for the tracing
-slice; the cluster reads ``getattr(engine, "tracer", None)`` and finds none.
+Tracing: the cluster assigns every request a cluster-wide trace id and
+mirrors each replica's stable label (``replicaN``) onto its engine's
+tracer; ``flight_recorders()`` collects every tracing replica's recorder
+(evicted replicas' too) and ``export_trace()`` writes one Chrome-trace
+process per replica.
 """
 from __future__ import annotations
 
@@ -70,6 +73,7 @@ from repro_torch.serving.faults import FaultInjector, FaultyReplica, ReplicaWatc
 from repro_torch.serving.metrics import ClusterMetrics
 from repro_torch.serving.replica import EngineReplica
 from repro_torch.serving.scheduler import Backpressure, MicroBatcher
+from repro_torch.serving.trace import FlightRecorder, write_chrome_trace
 
 EngineFactory = Callable[[torch.device], EngineReplica]  # device -> replica
 
@@ -161,6 +165,7 @@ class ServingCluster:
         self._retire_lock = threading.Lock()  # at-most-once on_done guard
         self._degraded = False
         self._evicted: List[dict] = []  # eviction ledger (health())
+        self._evicted_engines: List[EngineReplica] = []
         self._per_replica_cap = int(max_pending_per_replica)
         self._factory = self._resolve_factory(
             cfg, params, engine,
@@ -439,6 +444,7 @@ class ServingCluster:
             except Exception:
                 pass  # best-effort reclaim; unreturned requests fail below
         self._watchdogs.pop(id(eng), None)
+        self._evicted_engines.append(eng)  # keep its flight recorder
         label = self._labels.get(id(eng))
         self.metrics.inc("replicas_evicted")
         if self.events is not None:
@@ -665,6 +671,25 @@ class ServingCluster:
             self._step_replica(e)
         if self._draining:
             self._reap_drained()
+
+    # -- trace export ------------------------------------------------------------
+
+    def flight_recorders(self) -> Dict[str, FlightRecorder]:
+        """Every tracing replica's flight recorder keyed by its stable
+        label: active, draining, standby and evicted alike (a replica that
+        left still holds the spans it served)."""
+        out: Dict[str, FlightRecorder] = {}
+        for e in self.engines + self._draining + self._standby + self._evicted_engines:
+            tr = getattr(e, "tracer", None)
+            if tr is not None and tr.enabled:
+                out[tr.label] = tr.recorder
+        return out
+
+    def export_trace(self, path: str, t0: Optional[float] = None,
+                     t1: Optional[float] = None) -> dict:
+        """Write the cluster-wide Chrome-trace/Perfetto JSON (one process
+        track per replica) and return the document."""
+        return write_chrome_trace(path, self.flight_recorders(), t0, t1)
 
     def warmup(self) -> None:
         """Compile every program on every replica -- active and standby (a

@@ -44,9 +44,23 @@ and retires inline; its per-length prefill runs eagerly.
 The engine is an ``EngineReplica`` (``serving/replica.py``): ``load``,
 ``free_room`` (free decode slots plus queue room), ``reset_metrics`` and
 ``evict``, which hands back every queued and decoding request for the
-cluster to re-dispatch. ``events=`` journals rejections, cancellations and
-retirement faults into an ``EventLog``. The reference's tracer,
-introspection, expert-health monitor, expert-parallel placement and
+cluster to re-dispatch. ``events=`` journals rejections, cancellations,
+retirement faults and expert drift into an ``EventLog``.
+
+Observability, as in the reference: ``tracer`` (``serving/trace.py``;
+``NULL_TRACER`` unless ``cfg.trace.enable``) records each request's
+queue / pack / prefill / decode / retire spans and each step's span on the
+host clock; with tracing's ``step_times`` or ``cfg.introspect.enable`` (the
+default) every step's time is filed under its program key in
+``metrics.step_latency``: on the card the step's device time, from a pair
+of CUDA events that the captured graph records at its first and last node
+(an eager step: on the stream around it), read where the step is
+synchronised anyway (the retirement thread on the packed path, the inline
+retirement on the grouped path; ``programs.StepTimer``), on the CPU the
+host clock. ``warmup()``
+installs the introspection rows (``serving/introspect.py``: a cost row per
+program, the roofline peaks, the memory probe), and MoE configs feed the
+``ExpertHealthMonitor`` ``expert_health``. Expert-parallel placement and
 autotune warmup are not ported.
 """
 from __future__ import annotations
@@ -64,10 +78,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import module_for
 from repro_torch.models.param import require_device, tree_to
+from repro_torch.serving import introspect
 from repro_torch.serving.events import EventLog
 from repro_torch.serving.metrics import EngineMetrics
-from repro_torch.serving.programs import EagerProgram, GraphProgram, PinnedRing, own
+from repro_torch.serving.programs import (
+    EagerProgram,
+    GraphProgram,
+    PinnedRing,
+    StepTimer,
+    own,
+    record,
+)
 from repro_torch.serving.scheduler import MicroBatcher
+from repro_torch.serving.trace import make_tracer
 
 
 def serving_config(cfg: ModelConfig) -> ModelConfig:
@@ -233,6 +256,13 @@ class ServeEngine:
         # on one card share one copy of the weights
         self.params = tree_to(params, self.device)
         self.events = events
+        # NULL_TRACER unless cfg.trace.enable: every site below guards on
+        # ``self.tracer.enabled``, so the disabled path is one attribute read
+        self.tracer = make_tracer(cfg.trace, clock=clock)
+        # step times feed the trace and the introspection's MFU join
+        self._step_times = ((self.tracer.enabled and cfg.trace.step_times)
+                            or cfg.introspect.enable)
+        self._timer = StepTimer(self.device)
         self.B = batch_slots
         self.max_len = max_len
         self._clock = clock
@@ -255,6 +285,17 @@ class ServeEngine:
         self.metrics = EngineMetrics(
             num_experts=cfg.moe.num_experts if self._with_stats else 0,
             clock=clock)
+        self.expert_health = None
+        if cfg.introspect.enable and self._with_stats:
+            # fed by add_expert_tokens outside the metrics lock
+            self.expert_health = introspect.ExpertHealthMonitor(
+                cfg.moe.num_experts,
+                window_tokens=cfg.introspect.drift_window_tokens,
+                drift_threshold=cfg.introspect.drift_threshold,
+                baseline_alpha=cfg.introspect.baseline_alpha,
+                events=events, label="lm", clock=clock,
+                on_drift=introspect.drift_counter(self))
+            self.metrics.expert_health = self.expert_health
         self.max_prefill = int(cfg.serve.max_prefill or max_len)
         if self.max_prefill > max_len:
             raise ValueError(
@@ -328,9 +369,12 @@ class ServeEngine:
 
     def reset_metrics(self) -> None:
         """Fresh ``EngineMetrics`` (cluster replica leave: the old one was
-        folded into the cluster's retired accumulator)."""
-        self.metrics = EngineMetrics(
-            num_experts=self.metrics.expert_tokens.size, clock=self._clock)
+        folded into the cluster's retired accumulator). The static
+        introspection surface (cost rows, peaks, memory probe, health
+        monitor) carries over: it describes the programs, not load."""
+        old = self.metrics
+        self.metrics = EngineMetrics(num_experts=old.expert_tokens.size, clock=self._clock)
+        self.metrics.adopt_static(old)
 
     def evict(self) -> List[Request]:
         """Quarantine support (``serving/cluster.py``): strand and return
@@ -366,7 +410,14 @@ class ServeEngine:
         (builds the kernels, warms the allocator), and so does the grouped
         path's prefill, which stays eager. A tick writes cache rows or
         states of the empty slots; admission overwrites a slot's, so
-        nothing leaks."""
+        nothing leaks. Then the introspection rows are installed: a cost
+        row per program built."""
+        self._warm_programs()
+        if self.cfg.introspect.enable:
+            introspect.install(self.metrics, cfg=self.cfg, programs=dict(self._programs),
+                               params=self.params, cache=self.cache, devices=[self.device])
+
+    def _warm_programs(self) -> None:
         b = self._buckets[0]
         zeros = torch.zeros(b, dtype=torch.int32, device=self.device)
         with torch.inference_mode():
@@ -509,8 +560,13 @@ class ServeEngine:
         """Retire one event: copy the token tensor to the host (the only
         device-to-host sync of serving, off the decode loop when async),
         append to each request, check EOS, record completion metrics, fire
-        ``on_done``. ``ev["now"]`` was stamped by the decode loop."""
+        ``on_done``. ``ev["now"]`` was stamped by the decode loop. A step's
+        time (``ev["step"]``) is read here, once the token copy has
+        synchronised the step."""
         tok = ev["tok"].cpu().numpy() if ev.get("tok") is not None else None
+        if ev.get("step") is not None:
+            key, mark, host_s = ev["step"]
+            self.metrics.record_step(key, self._timer.seconds(mark, host_s))
         with self._mlock:
             for req, i in ev.get("append", ()):
                 if req.eos_seen or req.evicted or req.generated is None:
@@ -545,6 +601,11 @@ class ServeEngine:
                         if self.events is not None:
                             self.events.emit("callback_error", uid=req.uid,
                                              error=repr(e))
+                if self.tracer.enabled:
+                    # close the retire span the decode loop opened; it
+                    # extends past the recorded latency by design
+                    self.tracer.end(req.trace_id, "retire", latency_s=latency,
+                                    cancelled=cancelled)
 
     def _pending_retire(self) -> int:
         return self._rq.unfinished_tasks if self._async else 0
@@ -579,6 +640,10 @@ class ServeEngine:
                                  depth=self.scheduler.depth)
             raise
         self.metrics.inc("submitted")
+        if self.tracer.enabled:
+            if req.trace_id is None:  # the cluster assigns; standalone: uid
+                req.trace_id = req.uid
+            self.tracer.begin(req.trace_id, "queue", t=req.submitted_at)
         self.metrics.observe_queue_depth(self.scheduler.depth)
 
     def _expired(self, req: Request, now: float) -> bool:
@@ -596,6 +661,8 @@ class ServeEngine:
             if expired or req.eos_seen:
                 self.active.pop(slot)
                 cancelled = bool(expired and not req.eos_seen)
+                if self.tracer.enabled:
+                    self.tracer.transition(req.trace_id, "decode", "retire", t=now)
                 if self.events is not None and cancelled:
                     self.events.emit("cancel", t=now, uid=req.uid,
                                      where="mid_generation",
@@ -610,6 +677,9 @@ class ServeEngine:
         live = []
         for req in items:
             if self._expired(req, now):
+                if self.tracer.enabled:
+                    # never dispatched: the timeline is queue -> retire
+                    self.tracer.transition(req.trace_id, "queue", "retire", t=now)
                 if self.events is not None:
                     self.events.emit("cancel", t=now, uid=req.uid, where="queued",
                                      waited_s=now - req.submitted_at,
@@ -662,19 +732,41 @@ class ServeEngine:
                 slots.append(free.pop(0))
                 cursor += n
                 self.metrics.queue_wait.record(max(0.0, now - req.submitted_at))
+                if self.tracer.enabled:
+                    # the planner selected the request at `now`: queue ends
+                    # and the host-side pack phase begins
+                    self.tracer.transition(req.trace_id, "queue", "pack", t=now,
+                                           waited_s=now - req.submitted_at)
             self.metrics.inc("prefill_batches")
             self.metrics.inc("pack_real_tokens", total)
             self.metrics.inc("pack_pad_tokens", bucket - total)
             slot_ids = np.zeros(nb, np.int32)
             slot_ids[:len(slots)] = slots
-            prog = self._compiled(self._program_key("packed_prefill", bucket=bucket, n=nb),
-                                  lambda: self._build_admit(bucket, nb))
+            key = self._program_key("packed_prefill", bucket=bucket, n=nb)
+            prog = self._compiled(key, lambda: self._build_admit(bucket, nb))
+            trace = self.tracer.enabled
+            if trace or self._step_times:
+                t_d = self._clock()  # pack ends, prefill dispatch begins
+                if trace:
+                    for req in reqs:
+                        self.tracer.transition(req.trace_id, "pack", "prefill", t=t_d,
+                                               bucket=bucket, n=len(reqs))
+            mark = self._timer.take() if self._step_times else None
             with torch.inference_mode():
                 first, logits = prog(np.concatenate(
-                    [tokens[0], positions, seg, last_idx, starts, lens, slot_ids]))
+                    [tokens[0], positions, seg, last_idx, starts, lens, slot_ids]), mark=mark)
                 first = own(prog, first)
                 if self._keep_logits:
                     logits = own(prog, logits)
+            step = None
+            if trace or self._step_times:
+                t_e = self._clock()
+                if self._step_times:
+                    step = (key, mark, t_e - t_d)
+                if trace:
+                    self.tracer.record_span(key, t_d, t_e, n=len(reqs), real_tokens=total)
+                    for req in reqs:
+                        self.tracer.transition(req.trace_id, "prefill", "decode", t=t_e)
             append = []
             for i, (slot, req) in enumerate(zip(slots, reqs)):
                 self.pos[slot] = lens[i]
@@ -683,7 +775,7 @@ class ServeEngine:
                 append.append((req, i))
                 if self._keep_logits:
                     req.step_logits.append(logits[i])
-            self._emit({"tok": first, "now": now, "append": append})
+            self._emit({"tok": first, "now": now, "append": append, "step": step})
 
     def _admit_grouped(self) -> None:
         """Batch-parallel admission: up to ``free_slots`` polled prompts a
@@ -704,17 +796,36 @@ class ServeEngine:
                 slots = [free.pop(0) for _ in reqs]
                 for req in reqs:
                     self.metrics.queue_wait.record(max(0.0, now - req.submitted_at))
+                    if self.tracer.enabled:
+                        # no pack phase on this path: queue -> prefill
+                        self.tracer.transition(req.trace_id, "queue", "prefill", t=now)
                 tokens = torch.from_numpy(np.stack([r.prompt for r in reqs])).to(
                     self.device)
+                trace = self.tracer.enabled
+                if trace or self._step_times:
+                    t_d = self._clock()
+                mark = self._timer.take() if self._step_times else None
                 with torch.inference_mode():
+                    record(mark, 0, self.device)
                     logits, part = self.mod.prefill(self.params, self.cfg, tokens,
                                                     max_len=self.max_len)
                     logits = logits[:, -1, :]
+                    first = torch.argmax(logits, dim=-1)
+                    record(mark, 1, self.device)
                     for i, slot in enumerate(slots):
                         for buf, rows in zip(_leaves(self.cache), _leaves(part)):
                             buf[:, slot] = rows[:, i]
                 self.metrics.inc("prefill_batches")
-                first = torch.argmax(logits, dim=-1).cpu().numpy()
+                first = first.cpu().numpy()
+                if trace or self._step_times:
+                    t_e = self._clock()
+                    key = self._program_key("grouped_prefill", L=n, n=len(reqs))
+                    if self._step_times:
+                        self.metrics.record_step(key, self._timer.seconds(mark, t_e - t_d))
+                    if trace:
+                        self.tracer.record_span(key, t_d, t_e, n=len(reqs))
+                        for req in reqs:
+                            self.tracer.transition(req.trace_id, "prefill", "decode", t=t_e)
                 for i, (slot, req) in enumerate(zip(slots, reqs)):
                     self.pos[slot] = n
                     req.generated.append(int(first[i]))
@@ -730,15 +841,24 @@ class ServeEngine:
         tokens = np.zeros(self.B, np.int32)
         for slot, req in self.active.items():
             tokens[slot] = req.generated[-1]
-        tick = self._compiled(self._program_key("decode"), self._build_tick)
+        key = self._program_key("decode")
+        tick = self._compiled(key, self._build_tick)
+        trace = self.tracer.enabled
+        if trace or self._step_times:
+            t_d = self._clock()
+        mark = self._timer.take() if self._step_times else None
         with torch.inference_mode():
-            nxt, logits, stats = tick(*self._tick_inputs(tokens))
+            nxt, logits, stats = tick(*self._tick_inputs(tokens), mark=mark)
             if self._keep_logits:
                 logits = own(tick, logits)
         if stats is not None:
             self.metrics.add_expert_tokens(stats.cpu().numpy())
         nxt = nxt.cpu().numpy()
         now = self._clock()
+        if self._step_times:
+            self.metrics.record_step(key, self._timer.seconds(mark, now - t_d))
+        if trace:
+            self.tracer.record_span(key, t_d, now, n=len(self.active))
         self.metrics.inc("decode_ticks")
         self.metrics.work_done(len(self.active), "tokens")
         self.metrics.observe_queue_depth(self.scheduler.depth)
@@ -755,6 +875,8 @@ class ServeEngine:
                 done.append(slot)
         for slot in done:
             req = self.active.pop(slot)
+            if trace:
+                self.tracer.transition(req.trace_id, "decode", "retire", t=now)
             self._emit({"now": now, "retired": [(req, now - req.submitted_at, False)]})
 
     def step(self) -> None:
@@ -767,13 +889,21 @@ class ServeEngine:
         if not self._packed:
             self._step_grouped()
             return
-        tick = self._compiled(self._program_key("decode"), self._build_tick)
+        key = self._program_key("decode")
+        tick = self._compiled(key, self._build_tick)
+        trace = self.tracer.enabled
+        if trace or self._step_times:
+            t_d = self._clock()
+        mark = self._timer.take() if self._step_times else None
         with torch.inference_mode():
-            nxt, logits, stats = tick(*self._tick_inputs(None))
+            nxt, logits, stats = tick(*self._tick_inputs(None), mark=mark)
             nxt, stats = own(tick, (nxt, stats))
             if self._keep_logits:
                 logits = own(tick, logits)
         now = self._clock()
+        step = (key, mark, now - t_d) if self._step_times else None
+        if trace:
+            self.tracer.record_span(key, t_d, now, n=len(self.active))
         self.metrics.inc("decode_ticks")
         self.metrics.work_done(len(self.active), "tokens")
         self.metrics.observe_queue_depth(self.scheduler.depth)
@@ -789,8 +919,12 @@ class ServeEngine:
                     self.pos[slot] >= self.max_len - 1:
                 self.active.pop(slot)
                 retired.append((req, now - req.submitted_at, False))
+                if trace:
+                    # decode ends at the timestamp the latency record uses,
+                    # so queue+pack+prefill+decode sums exactly to it
+                    self.tracer.transition(req.trace_id, "decode", "retire", t=now)
         self._emit({"tok": nxt, "now": now, "append": append,
-                    "retired": retired, "stats": stats})
+                    "retired": retired, "stats": stats, "step": step})
 
     def flush(self, max_ticks: int = 10_000) -> None:
         """Blocking drain: serve everything queued and in flight, then wait

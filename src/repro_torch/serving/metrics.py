@@ -1,9 +1,10 @@
 """Serving metrics shared by the engines and the cluster, a framework-free
 copy of ``repro.serving.metrics``: ``hist_percentile``, ``LatencyTracker``,
 ``EngineMetrics`` (the vision and LM counters, tokens/s, per-expert
-occupancy) and the cluster roll-up ``ClusterMetrics``. The program roofline
-rows, the memory watermark, the expert-health monitor and the Prometheus
-export read the introspection layer, which is not ported yet.
+occupancy, per-program step times, and the introspection surface of
+``serving/introspect.py``: cost rows, roofline peaks, the memory probe, the
+expert-health monitor), the join ``program_perf``, the cluster roll-up
+``ClusterMetrics`` and its Prometheus text export.
 
 ``EngineMetrics`` is host-side instrumentation only -- counters, latency
 trackers, queue-depth samples and the per-expert routed-token occupancy --
@@ -177,8 +178,22 @@ class EngineMetrics:
         self.batch_latency = LatencyTracker(lock=self._lock)
         # admission-queue wait, stamped when a request leaves the queue
         self.queue_wait = LatencyTracker(lock=self._lock)
-        # per-program step wall times keyed like "classify|b=8"
+        # per-program step times keyed like "classify|b=8" (device time on
+        # a card, host time on the CPU: the engines' StepTimer)
         self.step_latency: Dict[str, LatencyTracker] = {}
+        # ProgramCost rows (serving/introspect.py), one per program, same
+        # keys as step_latency; static after warmup
+        self.program_costs: Dict[str, dict] = {}
+        # roofline peaks (analysis/hw.device_peaks): the MFU denominator
+        self.peaks: Optional[dict] = None
+        # live memory-watermark probe (introspect.memory_watermark closure);
+        # snapshot() calls it outside the lock and keeps the last answer
+        self.memory_probe: Optional[Callable[[], dict]] = None
+        self._memory: Optional[dict] = None
+        # expert-routing health monitor (introspect.ExpertHealthMonitor),
+        # fed by add_expert_tokens outside the metrics lock: the monitor has
+        # its own lock and may call back into inc() on drift
+        self.expert_health = None
         self.expert_tokens = np.zeros(max(0, num_experts), np.int64)
         self._depth_sum = 0
         self._depth_max = 0
@@ -209,9 +224,43 @@ class EngineMetrics:
         with self._lock:
             if a.size and self.expert_tokens.size == a.size:
                 self.expert_tokens += a
+            monitor = self.expert_health
+        if monitor is not None:
+            # outside our lock: monitor -> metrics, never the reverse
+            monitor.update(a)
+
+    def set_program_cost(self, key: str, cost: dict) -> None:
+        with self._lock:
+            self.program_costs[key] = cost
+
+    def set_peaks(self, peaks: dict) -> None:
+        with self._lock:
+            self.peaks = peaks
+
+    def set_memory(self, mem: dict) -> None:
+        with self._lock:
+            self._memory = mem
+
+    def adopt_static(self, other: "EngineMetrics") -> None:
+        """Carry another metrics object's static introspection surface (cost
+        rows, peaks, memory probe, health monitor) into this one. Engines
+        call it from ``reset_metrics()``: cost rows describe programs, not
+        load, so a replica that rejoins keeps them without double-counting."""
+        with other._lock:
+            costs = dict(other.program_costs)
+            peaks = other.peaks
+            probe = other.memory_probe
+            mem = other._memory
+            monitor = other.expert_health
+        with self._lock:
+            self.program_costs.update(costs)
+            self.peaks = peaks if peaks is not None else self.peaks
+            self.memory_probe = probe
+            self._memory = mem
+            self.expert_health = monitor
 
     def record_step(self, key: str, seconds: float) -> None:
-        """Record one program dispatch's wall time under its program key."""
+        """Record one program dispatch's time under its program key."""
         with self._lock:
             t = self.step_latency.get(key)
             if t is None:
@@ -254,9 +303,18 @@ class EngineMetrics:
         return self.expert_tokens / float(total)
 
     def snapshot(self) -> dict:
-        """The metrics schema of the reference engine (without the
-        introspection rows)."""
+        """The metrics schema of the reference engine."""
+        mem = None
+        probe = self.memory_probe
+        if probe is not None:
+            try:
+                mem = probe()  # the allocator's statistics, outside the lock
+            except Exception:
+                mem = None
         with self._lock:
+            if mem is not None:
+                self._memory = mem
+            monitor = self.expert_health
             return {
                 "counters": dict(self.counters),
                 "fps": self.fps,
@@ -271,6 +329,11 @@ class EngineMetrics:
                 },
                 "step_latency_ms": {k: t.snapshot()
                                     for k, t in sorted(self.step_latency.items())},
+                "program_perf": program_perf(self.program_costs,
+                                             self.step_latency, self.peaks),
+                "memory": self._memory,
+                "expert_health": (monitor.snapshot()
+                                  if monitor is not None else None),
                 "expert_tokens": self.expert_tokens.tolist(),
                 "expert_occupancy": _occupancy_of(self.expert_tokens),
             }
@@ -302,6 +365,71 @@ def _occupancy_stats(tokens: np.ndarray) -> Optional[dict]:
         "hot_expert": int(occ.argmax()),
         "cold_expert": int(occ.argmin()),
     }
+
+
+def program_perf(costs: Dict[str, dict],
+                 steps: Dict[str, "LatencyTracker"],
+                 peaks: Optional[dict]) -> Dict[str, dict]:
+    """Join the ProgramCost table with measured per-program step-latency
+    histograms: per program this yields
+
+      * the roofline terms t_compute = flops/peak_flops, t_memory =
+        hbm_bytes/hbm_bw, t_collective = collective_bytes/ici_bw, with
+        ``bound`` naming the dominant term;
+      * measured MFU = flops / (p50 step seconds * peak_flops) and
+        achieved HBM bandwidth = hbm_bytes / p50 step seconds;
+      * ``roofline_frac`` = roofline-predicted step time over measured
+        p50 (1.0 means the program runs at the hardware limit).
+
+    p50 (not mean) anchors the measured side: step-time distributions are
+    long-tailed (host jitter, retirement interleaving) and MFU should
+    describe the typical dispatch. Rows appear for any key with a cost OR
+    a measurement; the join fields only when both sides exist."""
+    out: Dict[str, dict] = {}
+    pf = float(peaks.get("peak_flops", 0)) if peaks else 0.0
+    bw = float(peaks.get("hbm_bw", 0)) if peaks else 0.0
+    ici = float(peaks.get("ici_bw", 0)) if peaks else 0.0
+    for key in sorted(set(costs) | set(steps)):
+        c = costs.get(key)
+        row: dict = {}
+        flops = hbm = coll = -1.0
+        if c:
+            flops = float(c.get("flops", -1.0))
+            hbm = float(c.get("hbm_bytes", -1.0))
+            coll = float(c.get("collective_bytes", 0.0) or 0.0)
+            row["flops"] = flops
+            row["hbm_bytes"] = hbm
+            row["collective_bytes"] = coll
+            row["estimated"] = bool(c.get("estimated", False))
+            row["source"] = c.get("source", "")
+            t_c = flops / pf if (flops > 0 and pf) else 0.0
+            t_m = hbm / bw if (hbm > 0 and bw) else 0.0
+            t_x = coll / ici if (coll > 0 and ici) else 0.0
+            if t_c or t_m or t_x:
+                terms = {"compute": t_c, "memory": t_m, "collective": t_x}
+                row["t_compute_s"] = t_c
+                row["t_memory_s"] = t_m
+                row["t_collective_s"] = t_x
+                row["bound"] = max(terms, key=terms.get)
+                row["roofline_step_s"] = max(t_c, t_m, t_x)
+        t = steps.get(key)
+        if t is not None and len(t):
+            sec = t.percentile(50)
+            row["steps"] = len(t)
+            row["step_p50_ms"] = round(sec * 1e3, 4)
+            if sec > 0 and c:
+                if flops > 0 and pf:
+                    row["mfu"] = round(flops / sec / pf, 6)
+                if hbm > 0:
+                    row["achieved_hbm_gbps"] = round(hbm / sec / 1e9, 3)
+                    if bw:
+                        row["hbm_util"] = round(hbm / sec / bw, 6)
+                rf = row.get("roofline_step_s", 0.0)
+                if rf > 0:
+                    row["roofline_frac"] = round(rf / sec, 6)
+        if row:
+            out[key] = row
+    return out
 
 
 class ClusterMetrics:
@@ -350,6 +478,11 @@ class ClusterMetrics:
         self._ret_tokens: Optional[np.ndarray] = None
         self._ret_first: Optional[float] = None
         self._ret_last: Optional[float] = None
+        # cost rows and peaks survive replica churn here: rows are static
+        # program properties, so the fold unions keys, preferring measured
+        # over estimated rows
+        self._ret_costs: Dict[str, dict] = {}
+        self._ret_peaks: Optional[dict] = None
         # (t, active-replica-count), appended by mark_replicas on every
         # scale event (and at cluster construction)
         self._timeline: List[tuple] = []
@@ -396,6 +529,16 @@ class ClusterMetrics:
         if l is not None:
             self._ret_last = l if self._ret_last is None \
                 else max(self._ret_last, l)
+        with m._lock:
+            costs = dict(m.program_costs)
+            peaks = m.peaks
+        for k, c in costs.items():
+            old = self._ret_costs.get(k)
+            if old is None or (old.get("estimated")
+                               and not c.get("estimated")):
+                self._ret_costs[k] = c
+        if peaks is not None:
+            self._ret_peaks = peaks
 
     def mark_replicas(self, n: int) -> None:
         """Append (now, active-replica-count) to the scale timeline."""
@@ -479,9 +622,34 @@ class ClusterMetrics:
                 acc.merge(t)
         return out
 
+    def merged_program_costs(self) -> Dict[str, dict]:
+        """ProgramCost union over retired + live replicas. Live rows win
+        over retired ones (and measured over estimated): replicas compile
+        the same program grid, so same-key rows describe the same program."""
+        out = dict(self._ret_costs)
+        for m in self._replicas:
+            with m._lock:
+                costs = dict(m.program_costs)
+            for k, c in costs.items():
+                old = out.get(k)
+                if old is None or (old.get("estimated")
+                                   and not c.get("estimated")):
+                    out[k] = c
+        return out
+
+    def merged_peaks(self) -> Optional[dict]:
+        """Roofline peaks for the aggregate join: replicas are homogeneous
+        (one device kind per cluster), so any replica's answer serves."""
+        for m in self._replicas:
+            if m.peaks is not None:
+                return m.peaks
+        return self._ret_peaks
+
     def snapshot(self) -> dict:
-        """The reference's cluster schema, without the ``program_perf`` and
-        ``memory`` rows of the introspection layer."""
+        """The reference's cluster schema. The ``memory`` roll-up sums the
+        replica rows as the reference does: replicas sharing one card each
+        report the whole process's allocator, so N of them count it N
+        times."""
         counters: Dict[str, int] = dict(self.counters)
         for k, v in self._ret_counters.items():
             counters[k] = counters.get(k, 0) + v
@@ -506,11 +674,27 @@ class ClusterMetrics:
         queue_wait = LatencyTracker.merged(
             [m.queue_wait for m in self._replicas])
         queue_wait.merge(self._ret_queue_wait)
+        replica_snaps = [m.snapshot() for m in self._replicas]
+        mem_rows = [s["memory"] for s in replica_snaps
+                    if s.get("memory") is not None]
+        memory = None
+        if mem_rows:
+            memory = {
+                "replicas": len(mem_rows),
+                "param_bytes": sum(r.get("param_bytes", 0) for r in mem_rows),
+                "kv_cache_bytes": sum(r.get("kv_cache_bytes", 0)
+                                      for r in mem_rows),
+                "watermark_bytes": sum(r.get("watermark_bytes", 0)
+                                       for r in mem_rows),
+                "estimated": any(r.get("estimated", True) for r in mem_rows),
+            }
         health = _occupancy_stats(tokens)
         if health is not None:
+            # the expert_drift counter folds through retirement like any
+            # other counter, so this survives replica churn
             health["drift_events"] = counters.get("expert_drift", 0)
         return {
-            "replicas": [m.snapshot() for m in self._replicas],
+            "replicas": replica_snaps,
             "aggregate": {
                 "counters": counters,
                 "fps": self.fps,
@@ -520,6 +704,10 @@ class ClusterMetrics:
                 "step_latency_ms": {
                     k: t.snapshot()
                     for k, t in sorted(self.merged_step_latency().items())},
+                "program_perf": program_perf(self.merged_program_costs(),
+                                             self.merged_step_latency(),
+                                             self.merged_peaks()),
+                "memory": memory,
                 "expert_health": health,
                 "front_queue_depth": {
                     "mean": (self._depth_sum / self._depth_n)
@@ -534,3 +722,143 @@ class ClusterMetrics:
                                 else len(self._replicas)),
             "replica_timeline": [[t, n] for t, n in self._timeline],
         }
+
+    def export_prometheus(self) -> str:
+        """Prometheus text-exposition rendering of every aggregate counter,
+        gauge, and latency histogram.
+
+        Counters land as one ``repro_serving_events_total`` family labeled
+        by counter name; latency distributions render as cumulative
+        histograms over the log-spaced ``_BIN_EDGES`` (``le`` in seconds,
+        +Inf closing bucket, ``_sum``/``_count`` series); per-program step
+        latencies carry a ``program`` label. The bucket boundaries are the
+        same merge-safe bins the autoscaler windows over, so a scrape and a
+        scale decision read one distribution."""
+        snap = self.snapshot()
+        agg = snap["aggregate"]
+        lines: List[str] = []
+
+        lines.append("# TYPE repro_serving_events_total counter")
+        for k, v in sorted(agg["counters"].items()):
+            lines.append(f'repro_serving_events_total{{event="{k}"}} {v}')
+
+        fps = agg["fps"]
+        lines.append("# TYPE repro_serving_fps gauge")
+        lines.append("repro_serving_fps "
+                     f"{0.0 if fps != fps else fps}")
+        lines.append("# TYPE repro_serving_replicas_active gauge")
+        lines.append(f"repro_serving_replicas_active "
+                     f"{snap['replicas_active']}")
+        depth = agg["front_queue_depth"]
+        lines.append("# TYPE repro_serving_front_queue_depth gauge")
+        for stat in ("mean", "max", "last"):
+            lines.append(f'repro_serving_front_queue_depth{{stat="{stat}"}} '
+                         f"{depth[stat]}")
+        if agg["expert_tokens"]:
+            lines.append("# TYPE repro_serving_expert_tokens_total counter")
+            for i, v in enumerate(agg["expert_tokens"]):
+                lines.append(
+                    f'repro_serving_expert_tokens_total{{expert="{i}"}} {v}')
+
+        batch_lat = LatencyTracker.merged(
+            [m.batch_latency for m in self._replicas])
+        batch_lat.merge(self._ret_batch)
+        queue_wait = LatencyTracker.merged(
+            [m.queue_wait for m in self._replicas])
+        queue_wait.merge(self._ret_queue_wait)
+        for name, tracker in (
+            ("repro_request_latency_seconds", self.merged_request_latency()),
+            ("repro_batch_latency_seconds", batch_lat),
+            ("repro_queue_wait_seconds", queue_wait),
+        ):
+            lines += _prom_histogram(name, tracker)
+        steps = self.merged_step_latency()
+        if steps:
+            lines.append("# TYPE repro_step_latency_seconds histogram")
+            for key, tracker in sorted(steps.items()):
+                lines += _prom_histogram(
+                    "repro_step_latency_seconds", tracker,
+                    labels=f'program="{key}"', typed=False)
+
+        # -- introspection surface -------------------------------------------
+        perf = agg.get("program_perf") or {}
+        for metric, field in (
+            ("repro_program_mfu", "mfu"),
+            ("repro_program_achieved_hbm_bytes_per_second", None),
+            ("repro_program_flops", "flops"),
+            ("repro_program_hbm_bytes", "hbm_bytes"),
+            ("repro_program_roofline_frac", "roofline_frac"),
+            ("repro_program_cost_estimated", "estimated"),
+        ):
+            rows = []
+            for key, row in sorted(perf.items()):
+                if metric == "repro_program_achieved_hbm_bytes_per_second":
+                    v = row.get("achieved_hbm_gbps")
+                    v = v * 1e9 if v is not None else None
+                elif field == "estimated":
+                    v = float(bool(row["estimated"])) \
+                        if "estimated" in row else None
+                else:
+                    v = row.get(field)
+                    if v is not None and v < 0:
+                        v = None
+                if v is not None:
+                    rows.append((key, v))
+            if rows:
+                lines.append(f"# TYPE {metric} gauge")
+                for key, v in rows:
+                    lines.append(f'{metric}{{program="{key}"}} {v:g}')
+        bound_rows = [(k, r["bound"]) for k, r in sorted(perf.items())
+                      if "bound" in r]
+        if bound_rows:
+            lines.append("# TYPE repro_program_roofline_bound gauge")
+            for key, bound in bound_rows:
+                lines.append('repro_program_roofline_bound'
+                             f'{{program="{key}",bound="{bound}"}} 1')
+
+        mem_lines = []
+        for i, rsnap in enumerate(snap["replicas"]):
+            mem = rsnap.get("memory")
+            if not mem:
+                continue
+            for kind in ("param_bytes", "kv_cache_bytes",
+                         "watermark_bytes", "bytes_in_use", "bytes_limit",
+                         "expert_stack_bytes", "int4_packed_bytes"):
+                if kind in mem:
+                    mem_lines.append(
+                        'repro_replica_memory_bytes'
+                        f'{{replica="{i}",kind="{kind}"}} {mem[kind]}')
+        if mem_lines:
+            lines.append("# TYPE repro_replica_memory_bytes gauge")
+            lines += mem_lines
+
+        health = agg.get("expert_health")
+        if health:
+            lines.append("# TYPE repro_expert_occupancy_entropy gauge")
+            lines.append("repro_expert_occupancy_entropy "
+                         f"{health['entropy']}")
+            lines.append("# TYPE repro_expert_hot_cold_skew gauge")
+            lines.append("repro_expert_hot_cold_skew "
+                         f"{health['hot_cold_skew']}")
+        return "\n".join(lines) + "\n"
+
+
+def _prom_histogram(name: str, tracker: LatencyTracker,
+                    labels: str = "", typed: bool = True) -> List[str]:
+    """Cumulative Prometheus histogram series from a ``LatencyTracker``'s
+    log-bin histogram (le= boundaries in seconds)."""
+    edges, counts, total, ssum, _ = tracker.hist_data()
+    sep = "," if labels else ""
+    out: List[str] = []
+    if typed:
+        out.append(f"# TYPE {name} histogram")
+    cum = 0
+    for i, edge in enumerate(edges):
+        cum += int(counts[i])
+        out.append(f'{name}_bucket{{{labels}{sep}le="{edge:g}"}} {cum}')
+    out.append(f'{name}_bucket{{{labels}{sep}le="+Inf"}} {total}')
+    out.append(f"{name}_sum{{{labels}}} {ssum}" if labels
+               else f"{name}_sum {ssum}")
+    out.append(f"{name}_count{{{labels}}} {total}" if labels
+               else f"{name}_count {total}")
+    return out

@@ -17,10 +17,26 @@ The kernel wrappers count their launches as they enqueue them; during a
 capture nothing is launched, so a ``GraphProgram`` takes the launches its
 capture counted (by wrapper and by mode) off the counters again and adds
 them back at every replay: the counts stay exact per forward.
+
+``StepTimer`` times a program's steps for the MFU join, as device time:
+a pair of CUDA timing events read by whoever synchronises that step
+anyway. A captured graph records the pair itself: its first and last nodes
+are event-record nodes (captured from ``external`` events), and each replay
+first points them at the caller's pair (``cuGraphExecEventRecordNodeSetEvent``,
+which leaves launches already enqueued as they were), so the pair spans the
+graph's execution on the device: from its first node to its last, the gaps
+between its kernels included, and neither the host's enqueue nor the
+graph's launch latency. A pair recorded on the stream around the replay
+would start when the stream reaches it, which on an idle card (a serving
+loop that the host paces) is before the replay is even launched. An eager
+step records the pair on the stream around its call. On the CPU the host
+clock stamps the caller already took stand in.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import functools
+from collections import deque
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,6 +76,91 @@ def _add_counts(diff: dict, sign: int = 1) -> None:
                 del by_mode[mode]
         else:
             fn.launches += sign * n
+
+
+_EVENT_RECORD_NODE = 7  # CU_GRAPH_NODE_TYPE_EVENT_RECORD
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda():
+    import ctypes
+
+    return ctypes, ctypes.CDLL("libcuda.so.1")
+
+
+def _check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} failed: CUresult {err}")
+
+
+def _event_record_nodes(graph: "torch.cuda.CUDAGraph", events) -> list:
+    """The event-record nodes of a captured graph that record ``events``,
+    in their order, read through ``libcuda`` (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``, ``cuGraphEventRecordNodeGetEvent``)."""
+    ctypes, cu = _libcuda()
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    found = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+               "cuGraphNodeGetType")
+        if kind.value == _EVENT_RECORD_NODE:
+            ev = ctypes.c_void_p()
+            _check(cu.cuGraphEventRecordNodeGetEvent(ctypes.c_void_p(node), ctypes.byref(ev)),
+                   "cuGraphEventRecordNodeGetEvent")
+            found[ev.value] = node
+    handles = [e.cuda_event for e in events]
+    if not all(h in found for h in handles):
+        raise RuntimeError("a captured graph lacks its timing event-record nodes")
+    return [found[h] for h in handles]
+
+
+def record(mark, i: int, device: torch.device) -> None:
+    """Record event ``i`` (0: start, 1: end) of a ``StepTimer`` mark on the
+    device's current stream; nothing for no mark."""
+    if mark is not None:
+        mark[i].record(torch.cuda.current_stream(device))
+
+
+class StepTimer:
+    """Device time of program steps. ``take()`` hands out a pair of timing
+    events (on the CPU: None), which the step records around its device
+    work (a program does it when called with ``mark=``; other steps call
+    ``record``), and
+    ``seconds(mark, host_seconds)`` reads the pair once the step has been
+    synchronised (waiting for its end event otherwise), or hands back
+    ``host_seconds`` on the CPU. Pairs come from a small free list and go
+    back to it once read, so a tick allocates none."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.device_time = device.type == "cuda"
+        self._free: deque = deque()
+
+    def take(self):
+        if not self.device_time:
+            return None
+        try:
+            return self._free.popleft()
+        except IndexError:
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            for e in pair:  # the CUDA event is made at its first record
+                e.record(torch.cuda.current_stream(self.device))
+            return pair
+
+    def seconds(self, mark, host_seconds: Optional[float] = None) -> float:
+        if mark is None:
+            return host_seconds
+        start, end = mark
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        self._free.append(mark)
+        return ms / 1e3
 
 
 class PinnedRing:
@@ -108,8 +209,12 @@ class EagerProgram:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def __call__(self, *inputs):
-        return self.fn(*map(self._put, inputs))
+    def __call__(self, *inputs, mark=None):
+        args = list(map(self._put, inputs))
+        record(mark, 0, self.device)
+        out = self.fn(*args)
+        record(mark, 1, self.device)
+        return out
 
 
 class GraphProgram:
@@ -118,11 +223,14 @@ class GraphProgram:
     the static input buffer), and for a device input the very tensor every
     call passes (it is read in place). ``launches``: the wrapper launches
     (by name and ``name:mode``) one replay makes; ``graph`` keeps its
-    ``cudaGraph_t`` for inspection (``raw_cuda_graph``)."""
+    ``cudaGraph_t`` for inspection (``raw_cuda_graph``). The graph's first
+    and last nodes record a pair of timing events: the program's own pair,
+    or the ``mark=`` of a call (``StepTimer``)."""
 
     def __init__(self, fn: Callable, example: Sequence, *, device: torch.device,
                  pool, stream: torch.cuda.Stream, ring: PinnedRing) -> None:
         self._ring = ring
+        self.device = device
         self.inputs = [x if isinstance(x, torch.Tensor) else
                        torch.from_numpy(np.array(x, copy=True)).to(device) for x in example]
         stream.wait_stream(torch.cuda.current_stream(device))
@@ -132,16 +240,37 @@ class GraphProgram:
         torch.cuda.synchronize(device)
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # external events: captured as event-record nodes, not as a
+        # dependency between streams
+        self._own_mark = (torch.cuda.Event(enable_timing=True, external=True),
+                          torch.cuda.Event(enable_timing=True, external=True))
         with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
+            self._own_mark[0].record(stream)
             self.outputs = fn(*self.inputs)
+            self._own_mark[1].record(stream)
         after = launch_counts()
         self.launches = {k: n - before.get(k, 0) for k, n in after.items()
                          if n != before.get(k, 0)}
         _add_counts(self.launches, -1)  # a capture enqueues nothing
         self.graph.instantiate()
+        self._mark_nodes = _event_record_nodes(self.graph, self._own_mark)
+        self._mark = self._own_mark  # the pair the nodes record now
 
-    def __call__(self, *inputs):
+    def _point_marks(self, mark) -> None:
+        """Make the graph's timing nodes record ``mark`` from the next
+        launch on."""
+        if mark is self._mark:
+            return
+        ctypes, cu = _libcuda()
+        exe = ctypes.c_void_p(self.graph.raw_cuda_graph_exec())
+        for node, ev in zip(self._mark_nodes, mark):
+            _check(cu.cuGraphExecEventRecordNodeSetEvent(exe, ctypes.c_void_p(node),
+                                                         ctypes.c_void_p(ev.cuda_event)),
+                   "cuGraphExecEventRecordNodeSetEvent")
+        self._mark = mark
+
+    def __call__(self, *inputs, mark=None):
         for static, x in zip(self.inputs, inputs):
             if isinstance(x, torch.Tensor):
                 if x is not static:
@@ -149,6 +278,7 @@ class GraphProgram:
                                      "tensor it was captured with")
             else:
                 self._ring.copy_in(static, x)
+        self._point_marks(self._own_mark if mark is None else mark)
         self.graph.replay()
         _add_counts(self.launches)
         return self.outputs

@@ -23,9 +23,19 @@ The engine is an ``EngineReplica`` (``serving/replica.py``): ``load``,
 ``free_room``, ``reset_metrics`` and ``evict``, which hands back every queued
 and dispatched request for the cluster to re-dispatch; retirement skips an
 evicted or already-terminal request and fires ``on_done`` once. ``clock=``
-injects a fake clock and ``events=`` an ``EventLog``. The reference's
-expert-parallel placement, tracer, introspection and autotuning are not
-ported yet.
+injects a fake clock and ``events=`` an ``EventLog``.
+
+Observability, as in the reference: a request's timeline is queue -> infer
+-> retire (one batched forward is the service), each batch a
+``classify|b=..`` step span, on the host clock (``tracer``,
+``serving/trace.py``); with tracing's ``step_times`` or
+``cfg.introspect.enable`` (the default) each batch's time is filed under its
+program key: on the card its device time, from CUDA events the captured
+graph records at its first and last node, read at retirement
+(``programs.StepTimer``), on the CPU the host time from dispatch to
+retirement. ``warmup()`` installs the introspection rows,
+and an MoE config feeds the ``ExpertHealthMonitor`` ``expert_health``. The
+reference's expert-parallel placement and autotuning are not ported.
 """
 from __future__ import annotations
 
@@ -40,11 +50,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import require_device, tree_to
 from repro_torch.models.vit import PATCH_DIM, classify
+from repro_torch.serving import introspect
 from repro_torch.serving.engine import serving_config
 from repro_torch.serving.events import EventLog
 from repro_torch.serving.metrics import EngineMetrics
-from repro_torch.serving.programs import EagerProgram, GraphProgram, PinnedRing, own
+from repro_torch.serving.programs import (
+    EagerProgram,
+    GraphProgram,
+    PinnedRing,
+    StepTimer,
+    own,
+)
 from repro_torch.serving.scheduler import MicroBatcher
+from repro_torch.serving.trace import make_tracer
 
 
 @dataclasses.dataclass
@@ -80,6 +98,7 @@ class _InFlight(NamedTuple):
     out: dict  # device tensors from classify (not yet synchronized)
     finished: Optional[torch.cuda.Event]  # recorded after the batch (card)
     dispatched_at: float
+    step: Optional[tuple]  # StepTimer mark of the replay (card), else None
 
 
 class VisionEngine:
@@ -108,6 +127,11 @@ class VisionEngine:
         # on one card share one copy of the weights
         self.params = tree_to(params, self.device)
         self.events = events
+        # vision timelines are queue -> infer -> retire
+        self.tracer = make_tracer(self.cfg.trace, clock=clock)
+        self._step_times = ((self.tracer.enabled and self.cfg.trace.step_times)
+                            or self.cfg.introspect.enable)
+        self._timer = StepTimer(self.device)
         self._clock = clock
         self.top_k = min(top_k, cfg.num_classes)
         self.n_patches = cfg.image_tokens - 1
@@ -118,6 +142,16 @@ class VisionEngine:
         self.metrics = EngineMetrics(
             num_experts=cfg.moe.num_experts if cfg.moe is not None else 0,
             clock=clock)
+        self.expert_health = None
+        if self.cfg.introspect.enable and cfg.moe is not None:
+            self.expert_health = introspect.ExpertHealthMonitor(
+                cfg.moe.num_experts,
+                window_tokens=self.cfg.introspect.drift_window_tokens,
+                drift_threshold=self.cfg.introspect.drift_threshold,
+                baseline_alpha=self.cfg.introspect.baseline_alpha,
+                events=events, label="vision", clock=clock,
+                on_drift=introspect.drift_counter(self))
+            self.metrics.expert_health = self.expert_health
         self.max_inflight = max(1, int(max_inflight))
         self._inflight: deque = deque()
         # one program a bucket; on the card with aot_warmup each is a CUDA
@@ -158,12 +192,16 @@ class VisionEngine:
     def warmup(self) -> None:
         """Build every bucket's program outside the measured serving path
         (on the card with ``aot_warmup``: capture its graph; eagerly: run
-        it once, which builds the kernels and warms the allocator)."""
+        it once, which builds the kernels and warms the allocator), then
+        install the introspection rows: a cost row per bucket."""
         for b in self.scheduler.batch_sizes:
             prog = self._compiled(b, count_miss=False)
             if prog.graph is None:
                 with torch.inference_mode():
                     prog(np.zeros((b, self.n_patches, PATCH_DIM), np.float32))["classes"].cpu()
+        if self.cfg.introspect.enable:
+            introspect.install(self.metrics, cfg=self.cfg, programs=dict(self._programs),
+                               params=self.params, devices=[self.device])
 
     @property
     def inflight(self) -> int:
@@ -187,9 +225,11 @@ class VisionEngine:
 
     def reset_metrics(self) -> None:
         """Fresh ``EngineMetrics`` (cluster replica leave: the old one was
-        folded into the cluster's retired accumulator)."""
-        self.metrics = EngineMetrics(
-            num_experts=self.metrics.expert_tokens.size, clock=self._clock)
+        folded into the cluster's retired accumulator); the static
+        introspection surface carries over."""
+        old = self.metrics
+        self.metrics = EngineMetrics(num_experts=old.expert_tokens.size, clock=self._clock)
+        self.metrics.adopt_static(old)
 
     def evict(self) -> List[VisionRequest]:
         """Quarantine support (``serving/cluster.py``): strand and return
@@ -225,6 +265,10 @@ class VisionEngine:
                                  depth=self.scheduler.depth)
             raise
         self.metrics.inc("submitted")
+        if self.tracer.enabled:
+            if req.trace_id is None:
+                req.trace_id = req.uid
+            self.tracer.begin(req.trace_id, "queue", t=req.submitted_at)
         self.metrics.observe_queue_depth(self.scheduler.depth)
 
     def step(self) -> None:
@@ -271,16 +315,20 @@ class VisionEngine:
             t0 = self._clock()
             for r in reqs:
                 self.metrics.queue_wait.record(max(0.0, t0 - r.submitted_at))
+                if self.tracer.enabled:
+                    self.tracer.transition(r.trace_id, "queue", "infer", t=t0,
+                                           pad_to=batch.pad_to)
             # the program copies x from pinned memory without waiting: the
             # copy queues behind the batch in flight
             prog = self._compiled(batch.pad_to)
+            mark = self._timer.take() if self._step_times else None
             with torch.inference_mode():
-                out = own(prog, prog(x))
+                out = own(prog, prog(x, mark=mark))
             finished = None
             if self.device.type == "cuda":
                 finished = torch.cuda.Event()
                 finished.record()
-            self._inflight.append(_InFlight(reqs, batch.pad_to, out, finished, t0))
+            self._inflight.append(_InFlight(reqs, batch.pad_to, out, finished, t0, mark))
             self.metrics.inc("batches")
             self.metrics.inc("padded_frames", batch.pad_to - len(reqs))
             self.metrics.inc("pack_real_tokens", len(reqs) * self.n_patches)
@@ -295,8 +343,14 @@ class VisionEngine:
         expert_tokens = ent.out["expert_tokens"].cpu().numpy()
         now = self._clock()
         self.metrics.batch_latency.record(now - ent.dispatched_at)
-        self.metrics.record_step(f"classify|b={ent.pad_to}",
-                                 now - ent.dispatched_at)
+        key = f"classify|b={ent.pad_to}"
+        trace = self.tracer.enabled
+        if self._step_times:
+            self.metrics.record_step(
+                key, self._timer.seconds(ent.step, now - ent.dispatched_at))
+        if trace:
+            self.tracer.record_span(key, ent.dispatched_at, now, n=len(ent.reqs),
+                                    pad_to=ent.pad_to)
         if expert_tokens.size:
             # includes the pad rows' routed tokens (see padded_frames)
             self.metrics.add_expert_tokens(expert_tokens)
@@ -321,6 +375,11 @@ class VisionEngine:
                     if self.events is not None:
                         self.events.emit("callback_error", uid=req.uid,
                                          error=repr(e))
+            if trace:
+                # infer ends at the `now` the latency record uses, so
+                # queue+infer sums to latency_s; retire is the result fill-in
+                self.tracer.transition(req.trace_id, "infer", "retire", t=now)
+                self.tracer.end(req.trace_id, "retire", latency_s=req.latency_s)
         self.metrics.work_done(len(ent.reqs), "frames")
 
 

@@ -2,6 +2,7 @@
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and its entry
 points never fall back to the CPU on their own."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -38,13 +39,49 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.serving.faults, repro_torch.serving.events, "
             "repro_torch.serving.replica, repro_torch.distributed.fault_tolerance, "
             "repro_torch.configs.gemma2_2b, repro_torch.configs.gemma_7b, "
-            "repro_torch.configs.llama3_8b; "
+            "repro_torch.configs.llama3_8b, repro_torch.serving.trace, "
+            "repro_torch.serving.introspect, repro_torch.serving.metrics_server, "
+            "repro_torch.serving.metrics, repro_torch.analysis.hw, "
+            "repro_torch.kernels.ops; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'repro' not in sys.modules, 'repro imported'")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("replicas", [0, 2])
+def test_launch_serve_writes_a_trace_and_metrics_on_the_cpu(tmp_path, replicas):
+    """``python -m repro_torch.launch.serve --smoke --device cpu --trace-out
+    ... --metrics-out ...`` (one engine, and a cluster of two; with the
+    endpoint and the periodic writer on) writes a trace that validates, with
+    every request's timeline, and Prometheus text with a step histogram of
+    every program it ran."""
+    from repro_torch.serving.trace import KIND_REQUEST, Span, validate_chrome_trace
+    from repro_torch.serving.trace import validate_request_timelines
+
+    trace, prom = tmp_path / "t.json", tmp_path / "m.prom"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmoe-1b-7b", "--smoke",
+         "--device", "cpu", "--requests", "4", "--new-tokens", "4", "--replicas", str(replicas),
+         "--trace-out", str(trace), "--metrics-out", str(prom), "--metrics-port", "0",
+         "--metrics-interval", "0.05"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    doc = json.loads(trace.read_text())
+    assert validate_chrome_trace(doc) > 0
+    spans = [Span(e["tid"] - 1 + 1000 * e["pid"], e["name"], KIND_REQUEST, e["ts"] / 1e6,
+                  (e["ts"] + e["dur"]) / 1e6)
+             for e in doc["traceEvents"] if e["ph"] == "X" and e["cat"] == KIND_REQUEST]
+    assert validate_request_timelines(spans) == 4
+    text = prom.read_text()
+    steps = {line.split('"')[1] for line in text.splitlines()
+             if line.startswith("repro_step_latency_seconds_count{")}
+    assert any(k.startswith("serve/decode|") for k in steps)
+    assert any(k.startswith("serve/packed_prefill|") for k in steps)
+    assert "repro_program_mfu{" in text and "metrics endpoint: http://127.0.0.1:" in proc.stdout
 
 
 def _entry_points():
