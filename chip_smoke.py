@@ -194,7 +194,39 @@ caught:
                  ``record_function`` ranges per wrapper equal the
                  wrapper's launches. Printed: traced vs untraced tok/s and
                  the program rows;
- 10. dense    -- the falcon-mamba tree freed, full-width gemma2-2b
+ ep.   expert_parallel -- expert parallelism at full width over an EP mesh
+                 whose slots all name ``cuda:0`` (``launch/mesh.py``,
+                 ``distributed/expert_parallel.py``). The grouped kernel at
+                 a slot's shapes (E/n experts, worst-case capacity, the
+                 padding rows in the last group), every variant bit-equal to
+                 the plain version, timed (``_ep_grouped_rows``). Vision
+                 (``phase_ep_vision``, after the vision observe phase):
+                 ``VisionEngine``s over 4 and 16 slots on phase 4's tree
+                 serve phase 4's 24 requests: classes, probabilities and
+                 ``expert_tokens`` bit-equal to phase 4's engine,
+                 ``retraces`` 0, launches a batch exact (grouped n x 12),
+                 graph nodes equal, every per-slot weight operand 16 / n
+                 experts; a dispatch of 8 profiled at 1, 4 and 16 slots.
+                 GShard (``phase_ep_gshard``, in phase 7 while the fp tree
+                 lives): eager 512-token forwards through
+                 ``impl="gshard"``, TF32 off: at ``capacity_factor`` 4.0
+                 every expert keeps min(load, capacity) slots; at capacity
+                 = 512 none drops and the logits are within
+                 ``EP_GSHARD_REL`` of the grouped path's. LM (``phase_ep_lm``, after the LM observe
+                 phase) on phase 7's int8 tree: a ``ServeEngine`` over 4
+                 slots (packed path, graphs) on phase 7's 16 requests:
+                 tokens identical to phase 7's, teacher-forced logits
+                 bit-equal to the single path's ``prefill``, launches a
+                 forward exact (grouped 4 x 32), ``retraces`` 0, per-slot
+                 operands of 16 experts; the tick and the 512-token
+                 admission profiled at 1 (phase 7), 2 and 4 slots; one
+                 eager W4A8 forward at 2 slots bit-equal to the single path;
+                 ``ServingCluster(devices=["cuda:0"] * 4)``: one replica over
+                 4 slots, the same tokens; an engine over ``cuda:0`` and
+                 ``cuda:1`` refused (``NotImplementedError``). Printed: device
+                 time, kernels and tok/s a step by slot count, the
+                 allocator's peak during each part;
+ 10. dense   -- the falcon-mamba tree freed, full-width gemma2-2b
                  (``configs/gemma2_2b.py``: 26 layers in 13 local(4096) /
                  global pairs, 8 heads of 256 over 4 KV heads, softcaps,
                  sandwich norms, tied 256k embedding; seeded f32 init,
@@ -1878,6 +1910,7 @@ def phase_lm(smi: str) -> dict:
     trees = {m: ptq_model(qcfg, params, taps, materialize=m) for m in ("int8", "int4")}
     fp_bytes = tree_bytes(params)
     out = {"calib_counts": calib_counts, "runs": {"fp": _serve_lm_fp(cfg, params, smi)}}
+    out["gshard"] = _timed(phase_ep_gshard, cfg, params, smi)
     del params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1891,6 +1924,7 @@ def phase_lm(smi: str) -> dict:
         out["runs"][mat] = _serve_lm(qcfg, tree, mat, smi)
     out["cluster"] = phase_cluster_lm(qcfg, trees["int8"], out["runs"]["int8"], smi)
     out["observe"] = _timed(phase_observe_lm, qcfg, trees["int8"], out["runs"]["int8"], smi)
+    out["ep"] = _timed(phase_ep_lm, qcfg, trees, out["runs"]["int8"], smi)
     return out
 
 
@@ -2300,8 +2334,18 @@ def _profile_lm(eng, eager, mat: str, smi: str, per: dict) -> dict:
     """Where one decode tick (8 slots at fill level 300) and one packed
     admission of 4 prompts of 128 tokens (the 512-token prefill, the first
     tokens, the merge into slots) spend their time: each engine's program,
-    eager and as a graph replay, on the same inputs; ``per``: the launches
-    of a forward, one device kernel each (gate)."""
+    eager and as a graph replay, on the same inputs (``_profile_lm_steps``)."""
+    out = {}
+    for mode, e in (("eager", eager), ("graph", eng)):
+        out.update(_profile_lm_steps(e, f"profile lm {mat}", mode, smi, per))
+    return out
+
+
+def _profile_lm_steps(e, tag: str, mode: str, smi: str, per: dict) -> dict:
+    """Engine ``e``'s decode tick (8 slots at fill level 300) and packed
+    admission of 4 prompts of 128 tokens profiled (``_profile``; programs
+    built here if ``e`` has not built them); ``per``: the launches of a
+    forward, one device kernel each (gate)."""
     from repro_torch.serving.programs import own
 
     P, n = LM_MAX_LEN, LM_MAX_LEN // 4
@@ -2310,19 +2354,18 @@ def _profile_lm(eng, eager, mat: str, smi: str, per: dict) -> dict:
                            np.arange(1, 5) * n - 1, np.arange(4) * n, np.full(4, n),
                            np.arange(4)]).astype(np.int32)
     out = {}
-    for mode, e in (("eager", eager), ("graph", eng)):
-        tick = e._compiled(e._program_key("decode"), e._build_tick)
-        admit = e._compiled(e._program_key("packed_prefill", bucket=P, n=4),
-                            lambda: e._build_admit(P, 4))
-        with torch.inference_mode():
-            out[f"decode tick, {mode}"] = _profile(
-                f"profile lm {mat}", f"decode tick, {mode}", smi, 3,
-                lambda: own(tick, tick(e._tok, pos)), expect=per)
-            out[f"packed prefill 512, {mode}"] = _profile(
-                f"profile lm {mat}", f"packed prefill 512, {mode}", smi, 3,
-                lambda: own(admit, admit(pack)), expect=per)
+    tick = e._compiled(e._program_key("decode"), e._build_tick)
+    admit = e._compiled(e._program_key("packed_prefill", bucket=P, n=4),
+                        lambda: e._build_admit(P, 4))
+    with torch.inference_mode():
+        out[f"decode tick, {mode}"] = _profile(
+            tag, f"decode tick, {mode}", smi, 3,
+            lambda: own(tick, tick(e._tok, pos)), expect=per)
+        out[f"packed prefill 512, {mode}"] = _profile(
+            tag, f"packed prefill 512, {mode}", smi, 3,
+            lambda: own(admit, admit(pack)), expect=per)
     for label, prof in out.items():
-        _check_kernels_per_call(f"profile lm {mat} {label}", prof, per)
+        _check_kernels_per_call(f"{tag} {label}", prof, per)
     return out
 
 
@@ -3248,6 +3291,395 @@ def phase_observe_vision(qcfg, p_int8, single, smi: str) -> dict:
     return {"counts": counts, "warmup": warm, "b8": step, **obs}
 
 
+# ---------------------------------------------------------------------------
+# expert parallelism: an EP mesh's slots on the one card
+# ---------------------------------------------------------------------------
+
+EP_VISION_SLOTS = (4, 16)  # M3ViT-S's 16 experts over 4 and 16 slots
+EP_LM_SLOTS = 4  # OLMoE-1B-7B's 64 experts over 4 slots (the tick also at 2)
+EP_TF_STEPS = (0, 1)  # teacher-forced: the admission's logits and a tick's
+EP_GSHARD_TOKENS = 512
+# capacity_factor E / k: capacity int(T k f / E) + 1 > T, clipped to T, so
+# no expert can overflow
+EP_GSHARD_DROPLESS = 64 / 8
+EP_GSHARD_REL = 1e-4  # gshard vs grouped logits, relative to the largest |logit|
+
+
+def _ep_config(cfg):
+    import dataclasses
+
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, moe_exec="expert_parallel"))
+
+
+def _ep_mesh(n: int):
+    """An EP mesh of ``n`` slots, every one on ``cuda:0``."""
+    from repro_torch.launch.mesh import make_ep_mesh
+
+    return make_ep_mesh(n, devices=["cuda:0"] * n)
+
+
+@contextlib.contextmanager
+def _grouped_mlp_experts():
+    """The experts in the weight operands (wi, wo) of every
+    ``ops.grouped_mlp`` call made inside (a capture makes its calls)."""
+    from repro_torch.kernels import ops
+
+    real, seen = ops.grouped_mlp, []
+
+    def recorded(x, wi, wo, *args, **kw):
+        seen.append((wi.shape[0], wo.shape[0]))
+        return real(x, wi, wo, *args, **kw)
+
+    ops.grouped_mlp = recorded
+    try:
+        yield seen
+    finally:
+        ops.grouped_mlp = real
+
+
+def _check_local_experts(tag: str, seen: list, n: int, E: int) -> None:
+    experts = sorted({e for pair in seen for e in pair})
+    print(f"[{tag}] {len(seen)} per-slot grouped MLP calls captured, experts in their weight "
+          f"operands {experts} (gate: {E // n} = {E} / {n})", flush=True)
+    if experts != [E // n] or not seen or len(seen) % n:
+        raise AssertionError(f"[{tag}] per-slot calls saw {experts} experts, {len(seen)} calls")
+
+
+def _ep_grouped_rows(gen, smi: str) -> list:
+    """The grouped kernel at the shapes a slot's call takes on this phase's
+    paths: the E/n local experts of one slot, the rows it receives (every
+    slot's worst-case capacity C = T_loc k: real rows spread over the
+    experts, the padding rows in the last group), int8: bit-equal to the
+    plain version in every variant that takes the widths, and timed
+    (``_grouped_timing``: its variant beside dp4a, warm and at decode cold,
+    the plain version, the bound)."""
+    E_lm, k_lm, E_v, k_v = 64, 8, 16, 2
+    shapes = []
+    for label, T, k, E, n, Din, Dout, cold in (
+            ("ep decode fc1, 4 slots", LM_SLOTS, k_lm, E_lm, 4, 2048, 2048, True),
+            ("ep admission fc1, 4 slots", LM_MAX_LEN, k_lm, E_lm, 4, 2048, 2048, False),
+            ("ep M3ViT-S b=8 fc1, 4 slots", 8 * 197, k_v, E_v, 4, 384, 1536, False),
+            ("ep M3ViT-S b=8 fc1, 16 slots", 8 * 197, k_v, E_v, 16, 384, 1536, False)):
+        t_loc = -(-T // n)
+        rows, real = n * t_loc * k, t_loc * k
+        sizes = _routing(gen, real, E // n)
+        sizes[-1] += rows - real
+        shapes.append((label, rows, E // n, Din, Dout, sizes.tolist(), cold))
+    out, checked = [], {}
+    for label, T, G, Din, Dout, sizes, cold in shapes:
+        x, w, sz, ws, a_s = _grouped_operands(gen, T, G, Din, Dout, False, sizes)
+        _check_grouped_variants(x, w, sz, ws, a_s, checked)
+        row = _grouped_timing(label, x, w, sz, ws, a_s, cold=cold)
+        out.append(row)
+    print(f"[ep kernels] grouped int8 at the slots' shapes, every variant bit-equal to the "
+          f"plain version: {checked} ({smi})", flush=True)
+    return out
+
+
+def phase_ep_vision(qcfg, p_int8, single, smi: str) -> dict:
+    """Expert parallelism, vision part, on phase 4's M3ViT-S int8 tree:
+    ``VisionEngine``s over an EP mesh of 4 and of 16 slots on ``cuda:0``,
+    graphs on, serve phase 4's 24 requests (batches of 8) beside phase 4's
+    engine (``single``); gates: classes, probabilities and ``expert_tokens``
+    bit-equal, ``retraces`` 0, launches per batch exact (grouped: n x 12),
+    every per-slot call's weight operand 16 / n experts, the graph nodes
+    equal to the launches; one dispatch of 8 profiled at 1, 4 and 16
+    slots."""
+    from repro_torch.models.vit import PATCH_DIM
+    from repro_torch.serving import VisionEngine, synth_requests
+    from repro_torch.serving.programs import own
+
+    torch.cuda.reset_peak_memory_stats()
+    grouped_rows = _ep_grouped_rows(torch.Generator(device="cuda").manual_seed(23), smi)
+    E = qcfg.moe.num_experts
+    cfg = _ep_config(qcfg)
+    before = single.metrics.expert_tokens.copy()
+    ref = synth_requests(qcfg, 24, seed=3)
+    for r in ref:
+        single.submit(r)
+    single.flush()
+    ref_tokens = single.metrics.expert_tokens - before
+    xs = np.zeros((8, qcfg.image_tokens - 1, PATCH_DIM), np.float32)
+    prog = single._programs["classify|b=8"]
+    out = {"counts": {}, "grouped_rows": grouped_rows, "runs": {1: {"profile": _profile(
+        "ep vision 1", "dispatch of 8, graph", smi, 3, lambda: own(prog, prog(xs)),
+        expect=PER_FORWARD)}}}
+    for n in EP_VISION_SLOTS:
+        tag = f"ep vision {n}"
+        per = dict(PER_FORWARD, grouped_matmul=n * PER_FORWARD["grouped_matmul"])
+        with _grouped_mlp_experts() as seen:
+            eng = VisionEngine(cfg, p_int8, batch_buckets=(1, 4, 8), max_wait_s=2e-3,
+                               mesh=_ep_mesh(n))
+            warm = _warm(tag, eng)
+        _check_local_experts(tag, seen, n, E)
+        _check_programs(tag, eng, per)
+        reqs = synth_requests(qcfg, 24, seed=3)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        batches = eng.metrics.counters["batches"]
+        same = all(np.array_equal(a.classes, b.classes) and np.array_equal(a.probs, b.probs)
+                   for a, b in zip(reqs, ref))
+        tokens_same = np.array_equal(eng.metrics.expert_tokens, ref_tokens)
+        print(f"[{tag}] phase 4's 24 requests in {batches} batches vs phase 4's engine: "
+              f"classes and probabilities bit-equal {same}, expert_tokens equal {tokens_same} "
+              f"(gates); smoke figure ({smi}): {len(reqs) / wall:.1f} frames/s; launches "
+              f"{counts}", flush=True)
+        if not (same and tokens_same):
+            raise AssertionError(f"[{tag}] the EP engine's answers differ from phase 4's")
+        for name, want in per.items():
+            if counts[name] != want * batches:
+                raise AssertionError(f"[{tag}] {name}: {counts[name]} launches for {batches} "
+                                     f"batches, expected {want} per forward")
+        _check_grouped_variants_used(tag, counts)
+        _check_retraces(tag, eng)
+        prog = eng._programs["classify|b=8"]
+        prof = _profile(tag, "dispatch of 8, graph", smi, 3, lambda: own(prog, prog(xs)),
+                        expect=per)
+        _check_kernels_per_call(tag, prof, per)
+        out["runs"][n] = {"warmup": warm, "fps": len(reqs) / wall, "profile": prof}
+        for key, v in counts.items():
+            out["counts"][key] = out["counts"].get(key, 0) + v
+        del eng, prog
+        _release()
+    rows = "; ".join(
+        f"{n} slot{'s' * (n > 1)} {r['profile']['device_ms']:.3f} ms device, "
+        f"{r['profile']['kernels']:.0f} kernels, grouped {r['profile']['grouped_matmul_ms']:.3f} "
+        f"ms in {r['profile']['grouped_matmul_kernels']:.0f}" for n, r in out["runs"].items())
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"[ep vision] dispatch of 8 as a graph replay ({smi}): {rows}; allocator peak during "
+          f"the phase {out['peak_bytes'] / 1e9:.2f} GB", flush=True)
+    return out
+
+
+def phase_ep_gshard(cfg, params, smi: str) -> dict:
+    """The GShard capacity path on phase 7's fp OLMoE-1B-7B tree: eager
+    forwards of a 512-token prompt through ``impl="gshard"`` with TF32 off,
+    beside the grouped path's forward. At ``capacity_factor`` 4.0 (the
+    reference's ``lowering_config``) the random router overloads experts
+    and slots drop; gate: every layer keeps min(load, capacity) slots of
+    each expert, its load counted from the router on the layer's input. At
+    ``EP_GSHARD_DROPLESS`` (capacity = the token count: nothing can drop)
+    gates: every slot kept (512 x 8 a layer) and the logits within
+    ``EP_GSHARD_REL`` of the grouped path's, relative to its largest
+    |logit|."""
+    import dataclasses
+
+    from repro_torch.core.moe.dispatch import capacity
+    from repro_torch.core.moe.router import route_topk
+    from repro_torch.models import synth_batch, transformer
+
+    E, k, T = cfg.moe.num_experts, cfg.moe.top_k, EP_GSHARD_TOKENS
+    tokens = torch.from_numpy(synth_batch(cfg, 1, T, seed=9)).cuda()
+    layers, real = [], transformer._moe_apply
+
+    def recorded(x, p, c, taps=None):
+        y, aux, kept = real(x, p, c, taps=taps)
+        e = route_topk(x.reshape(-1, x.shape[-1]), p["gate"], p.get("gate_b"), k
+                       ).experts.reshape(-1).long()
+        load = torch.zeros(E, dtype=torch.int64, device=x.device)
+        layers.append((kept.long(), load.index_add_(0, e, torch.ones_like(e))))
+        return y, aux, kept
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    transformer._moe_apply = recorded
+    _reset_counts()
+    out = {}
+    try:
+        with torch.inference_mode():
+            grouped = transformer.forward(params, cfg, tokens)[0]
+            scale = float(grouped.abs().max())
+            for factor in (4.0, EP_GSHARD_DROPLESS):
+                gcfg = cfg.replace(moe=dataclasses.replace(cfg.moe, impl="gshard",
+                                                           capacity_factor=factor))
+                layers.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gs = transformer.forward(params, gcfg, tokens)[0]
+                torch.cuda.synchronize()
+                cap = capacity(T, k, E, factor)
+                out[factor] = {
+                    "wall_s": time.perf_counter() - t0, "cap": cap,
+                    "kept": [int(kept.sum()) for kept, _ in layers],
+                    "min_load_cap": all(torch.equal(kept, torch.clamp(load, max=cap))
+                                        for kept, load in layers),
+                    "rel_err": max_err(gs, grouped) / scale}
+    finally:
+        transformer._moe_apply = real
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    counts = _read_counts()
+    for factor, r in out.items():
+        print(f"[ep gshard] fp tree, {T}-token prompt, TF32 off, capacity_factor {factor} "
+              f"(capacity {r['cap']}): kept slots per layer {r['kept']} of {T * k}, each "
+              f"expert's kept slots = min(its load, capacity) in every layer: "
+              f"{r['min_load_cap']} (gate); logits vs the grouped path: relative to max "
+              f"|logit| {scale:.3g}: {r['rel_err']:.3g}; forward {r['wall_s']:.2f} s wall "
+              f"({smi})", flush=True)
+    dropless = out[EP_GSHARD_DROPLESS]
+    none_dropped = dropless["kept"] == [T * k] * cfg.num_layers
+    print(f"[ep gshard] at capacity = {T} tokens: none dropped {none_dropped} (gate), "
+          f"relative logit error {dropless['rel_err']:.3g} (gate: <= {EP_GSHARD_REL})",
+          flush=True)
+    if not (all(r["min_load_cap"] for r in out.values()) and none_dropped
+            and dropless["rel_err"] <= EP_GSHARD_REL):
+        raise AssertionError("[ep gshard] kept slots or logits off")
+    return {"counts": counts, **{f"factor {f}": r for f, r in out.items()}}
+
+
+def phase_ep_lm(qcfg, trees: dict, single: dict, smi: str) -> dict:
+    """Expert parallelism, LM part, on phase 7's OLMoE-1B-7B int8 tree: a
+    ``ServeEngine`` over 4 slots on ``cuda:0`` (packed path, graphs on, 8
+    slots, max_len 512) serves phase 7's 16 requests (gates: tokens
+    identical to phase 7's engine, teacher-forced logits at
+    ``EP_TF_STEPS`` bit-equal to the single path's ``prefill``,
+    ``retraces`` 0, launches per forward exact with grouped 4 x 32, graph
+    nodes equal, per-slot weight operands of 16 experts); the tick and the
+    512-token admission profiled at 4 slots and on an engine of 2 slots;
+    one eager forward of the W4A8 tree at 2 slots bit-equal to the single
+    path; ``ServingCluster(..., devices=["cuda:0"] * 4)``: one replica over
+    4 slots, the same tokens; a mesh over a second card refused."""
+    from repro_torch.launch.mesh import make_ep_mesh
+    from repro_torch.models import synth_batch, transformer
+    from repro_torch.distributed.expert_parallel import use_ep_mesh
+    from repro_torch.serving import ServeEngine, ServingCluster
+
+    torch.cuda.reset_peak_memory_stats()
+    E = qcfg.moe.num_experts
+    cfg, p_int8 = _ep_config(qcfg), trees["int8"]
+    n = EP_LM_SLOTS
+    tag = f"ep lm {n}"
+    per = dict(LM_PER_FORWARD, grouped_matmul=n * LM_PER_FORWARD["grouped_matmul"])
+    with _grouped_mlp_experts() as seen:
+        eng = ServeEngine(cfg, p_int8, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                          mesh=_ep_mesh(n), keep_logits=True)
+        warm = _warm(tag, eng)
+    _check_local_experts(tag, seen, n, E)
+    _check_programs(tag, eng, per)
+    reqs = _lm_requests(qcfg.vocab_size)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    c = eng.metrics.snapshot()["counters"]
+    forwards = c["prefill_batches"] + c["decode_ticks"]
+    for name, want in per.items():
+        if counts[name] != want * forwards:
+            raise AssertionError(f"[{tag}] {name}: {counts[name]} launches for {forwards} "
+                                 f"forwards, expected {want} per forward")
+    _check_int8_variants(tag, counts)
+    _check_grouped_variants_used(tag, counts)
+    _check_retraces(tag, eng)
+    differ = [r.uid for r, want in zip(reqs, single["tokens"]) if r.generated != want]
+    errs = np.concatenate([_teacher_forced(p_int8, qcfg, r, EP_TF_STEPS)[0] for r in reqs])
+    tokens = sum(len(r.generated) for r in reqs)
+    print(f"[{tag}] phase 7's {len(reqs)} requests: tokens identical to phase 7's engine "
+          f"{not differ} (gate; differing {differ}); teacher-forced logits at steps "
+          f"{list(EP_TF_STEPS)} vs the single path's prefill, max err {errs.max():.3g} "
+          f"(gate: bit-equal); smoke figure ({smi}): {tokens / wall:.1f} tok/s vs "
+          f"{single['tok_s']:.1f} on one slot (phase 7); launches {counts}", flush=True)
+    if differ or errs.max() != 0:
+        raise AssertionError(f"[{tag}] the EP engine differs from the single path")
+    profiles = {1: {k: single["profile"][k] for k in ("decode tick, graph",
+                                                     "packed prefill 512, graph")}}
+    profiles[n] = _profile_lm_steps(eng, tag, "graph", smi, per)
+    del eng
+    _release()
+    # two slots: an engine whose tick and 512-token admission are built
+    # for the profile alone
+    per2 = dict(LM_PER_FORWARD, grouped_matmul=2 * LM_PER_FORWARD["grouped_matmul"])
+    eng2 = ServeEngine(cfg, p_int8, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, mesh=_ep_mesh(2))
+    profiles[2] = _profile_lm_steps(eng2, "ep lm 2", "graph", smi, per2)
+    del eng2
+    _release()
+    for step, label, per_step in (("decode tick, graph", "decode tick (8 slots at fill 300)",
+                                   LM_SLOTS), ("packed prefill 512, graph",
+                                               "512-token packed admission", LM_MAX_LEN)):
+        print(f"[ep lm] {label} as a graph replay ({smi}): " + "; ".join(
+            f"{k} slot{'s' * (k > 1)} {p[step]['device_ms']:.3f} ms device, "
+            f"{p[step]['kernels']:.0f} kernels, {per_step / p[step]['device_ms'] * 1e3:.1f} "
+            f"tok/s, grouped {p[step]['grouped_matmul_ms']:.3f} ms in "
+            f"{p[step]['grouped_matmul_kernels']:.0f}" for k, p in sorted(profiles.items())),
+            flush=True)
+
+    # the W4A8 tree: one eager forward at 2 slots against the single path
+    x = torch.from_numpy(synth_batch(qcfg, 2, 64, seed=11)).cuda()
+    _reset_counts()
+    with torch.inference_mode():
+        want = transformer.forward(trees["int4"], qcfg, x)[0]
+        with use_ep_mesh(_ep_mesh(2)):
+            got = transformer.forward(trees["int4"], cfg, x)[0]
+    w4 = _read_counts()
+    w4_same = torch.equal(got, want)
+    print(f"[ep lm W4A8] eager forward of 2 x 64 tokens at 2 slots vs the single path: "
+          f"logits bit-equal {w4_same} (gate); W4A8 grouped launches "
+          f"{w4.get('grouped_matmul:w4a8', 0)} (gate: 32 + 2 x 32)", flush=True)
+    if not w4_same or w4.get("grouped_matmul:w4a8", 0) != 3 * 32:
+        raise AssertionError("[ep lm W4A8] the EP forward differs from the single path")
+
+    # the cluster: one EP replica over every entry of devices
+    ctag = "ep cluster lm"
+    cluster = ServingCluster(cfg, p_int8, devices=["cuda:0"] * n, engine="lm",
+                             batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    shape = [_inner(e).mesh.shape for e in cluster.engines + cluster._standby]
+    print(f"[{ctag}] replicas and their meshes: {shape} (gate: one replica, "
+          f"{{'model': {n}}})", flush=True)
+    if shape != [{"model": n}]:
+        raise AssertionError(f"[{ctag}] the EP cluster built {shape}")
+    _check_shared_weights(ctag, cluster, p_int8)
+    cwarm = _cluster_warmup(ctag, cluster, per, smi)
+    creqs = _lm_requests(qcfg.vocab_size)
+    fired, _ = _delivery(creqs)
+    timer = _StepTimer(cluster)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in creqs:
+        cluster.submit(r)
+    steps = timer.run_until_idle()
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    ccounts = _read_counts()
+    cc = cluster.metrics.snapshot()["aggregate"]["counters"]
+    _check_delivered_once(ctag, creqs, fired)
+    cdiffer = [r.uid for r, want in zip(creqs, single["tokens"]) if r.generated != want]
+    print(f"[{ctag}] tokens of every request identical to phase 7's engine: {not cdiffer} "
+          f"(gate; differing {cdiffer}); smoke figure ({smi}): "
+          f"{LM_REQUESTS * LM_NEW_TOKENS / cwall:.1f} tok/s, {steps} cluster steps, host time "
+          f"of a step outside the replica: {timer.summary()}", flush=True)
+    if cdiffer or cc.get("retraces", 0):
+        raise AssertionError(f"[{ctag}] other tokens or retraces: {cdiffer}, {cc}")
+    _check_cluster_launches(ctag, ccounts, cc["prefill_batches"] + cc["decode_ticks"], per)
+    del cluster, timer
+    _release()
+
+    # a mesh over a second card is refused when the engine is built
+    try:
+        ServeEngine(cfg, p_int8, mesh=make_ep_mesh(2, devices=["cuda:0", "cuda:1"]))
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("[ep lm] an engine over two cards was built")
+    print(f"[ep lm] an engine over cuda:0 and cuda:1 raises NotImplementedError (gate): "
+          f"{refused}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[ep lm] allocator peak during the phase {peak / 1e9:.2f} GB", flush=True)
+    return {"runs": {"engine": counts, "w4a8": w4, "cluster": ccounts},
+            "tok_s": tokens / wall, "profiles": profiles, "warmup": warm,
+            "cluster_warmup": cwarm, "peak_bytes": peak}
+
+
 def phase_dense(smi: str) -> dict:
     """Phase 10: full-width gemma2-2b (``configs/gemma2_2b.py``, 26 layers in
     13 local/global pairs, hd 256, the local layers' K/V in a ring), last, on
@@ -3476,7 +3908,8 @@ def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
     the gemma2-2b serving runs (fp, int8, ring wrap), which also add to
     ``int8_matmul`` and ``rmsnorm``."""
     runs = ([r["counts"] for r in lm["runs"].values()]
-            + [r["counts"] for r in lm["cluster"].values()])
+            + [r["counts"] for r in lm["cluster"].values()]
+            + list(lm["ep"]["runs"].values()) + [lm["gshard"]["counts"]])
     dense_runs = [r["counts"] for r in dense["runs"].values()]
     name = row["name"]
     if name.startswith("lm_attention[gemma2"):
@@ -3518,8 +3951,9 @@ def main() -> None:
     _timed(phase_profile, qcfg, p_int8, smi, engines)
     vcluster = _timed(phase_cluster_vision, qcfg, p_int8, engines["graph"], smi)
     _timed(phase_observe_vision, qcfg, p_int8, engines["graph"], smi)
-    counts = {k: counts.get(k, 0) + vcluster["counts"].get(k, 0)
-              for k in set(counts) | set(vcluster["counts"])}
+    ep_vision = _timed(phase_ep_vision, qcfg, p_int8, engines["graph"], smi)
+    counts = {k: counts.get(k, 0) + vcluster["counts"].get(k, 0) + ep_vision["counts"].get(k, 0)
+              for k in set(counts) | set(vcluster["counts"]) | set(ep_vision["counts"])}
     del p_int8, engines
     torch.cuda.empty_cache()
     lm = _timed(phase_lm, smi)

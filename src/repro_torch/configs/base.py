@@ -38,9 +38,16 @@ class MoEConfig:
     top_k: int
     d_ff: int  # per-expert hidden dim
     moe_every: int = 1  # every Nth layer is MoE (the port runs 1 only)
-    # grouped = sort-based unified kernel (the only mode the port runs;
-    # gshard configs are switched to it by ``serving_config``)
+    capacity_factor: float = 1.25  # gshard: per-expert slots over the mean load
+    # grouped = sort-based unified kernel (the paper's orchestration; the
+    #           engines' ``serving_config`` switches every config to it);
+    # gshard  = capacity dispatch/combine einsums, which drop the slots past
+    #           an expert's capacity (the reference's training default)
     impl: str = "grouped"
+    # single          = the whole expert stack on one device;
+    # expert_parallel = the grouped path over the slots of an EP mesh
+    #                   (``distributed/expert_parallel.py``; the mesh is set
+    #                   with ``use_ep_mesh``), serving only
     moe_exec: str = "single"
 
 

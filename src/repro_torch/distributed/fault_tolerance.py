@@ -1,7 +1,6 @@
 """Fault-tolerance utilities, ported from
 ``repro.distributed.fault_tolerance``: the preemption hook, the straggler
-monitor and step retry. ``elastic_mesh`` is not ported: it reshapes a JAX
-device mesh and comes with expert parallelism.
+monitor, step retry and ``elastic_mesh`` (over the port's ``Mesh``).
 
 The failure model: (a) planned preemptions (a signal) -- stop admission,
 finish what was accepted and exit clean; (b) hard loss of a replica -- the
@@ -11,9 +10,14 @@ can replace the slow worker.
 """
 from __future__ import annotations
 
+import math
 import signal
 import time
 from typing import Callable, List, Optional
+
+import numpy as np
+
+from repro_torch.launch.mesh import Mesh, visible_devices
 
 
 class PreemptionGuard:
@@ -90,3 +94,22 @@ def run_step_with_retry(fn: Callable, *args, max_retries: int = 2,
             if on_retry is not None:
                 on_retry(attempt)
             sleep(0.1 * 2**attempt)
+
+
+def elastic_mesh(preferred_shape, axis_names, devices=None) -> Mesh:
+    """The largest mesh of ``preferred_shape``'s aspect that fits the
+    devices (every visible card by default): lose a host, keep going. The
+    data (first) axis shrinks first, halving, and the model axis is kept,
+    since the model-parallel degree is baked into the layout while the
+    data-parallel degree is free."""
+    devices = visible_devices(devices)
+    n = len(devices)
+    shape = list(preferred_shape)
+    while math.prod(shape) > n and shape[0] > 1:
+        shape[0] //= 2
+    if math.prod(shape) > n:
+        raise ValueError(
+            f"cannot fit mesh {preferred_shape} on {n} devices even after "
+            f"shrinking the data axis")
+    use = math.prod(shape)
+    return Mesh(np.asarray(devices[:use], dtype=object).reshape(shape), axis_names)

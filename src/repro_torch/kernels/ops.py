@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
+from repro_torch.core.moe.dispatch import expert_of_sorted_rows
 from repro_torch.core.quant.calibrate import maybe_record
 from repro_torch.core.quant.linear_quant import fake_quant_activation
 from repro_torch.core.quant.qtypes import quantize_sym
@@ -120,13 +121,6 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         return _ref.grouped_matmul_ref(x, w, group_sizes)
 
 
-def row_groups(group_sizes: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Group id of each row of an expert-sorted buffer."""
-    ends = torch.cumsum(group_sizes, 0)
-    rows = torch.arange(n_rows, device=group_sizes.device, dtype=ends.dtype)
-    return torch.searchsorted(ends, rows, right=True)
-
-
 def grouped_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                 group_sizes: torch.Tensor, *, act: str = "silu", glu: bool = True,
                 bi: Optional[torch.Tensor] = None, bo: Optional[torch.Tensor] = None,
@@ -141,7 +135,7 @@ def grouped_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
 
     seg = None
     if bi is not None or bo is not None:
-        seg = row_groups(group_sizes, x.shape[0])
+        seg = expert_of_sorted_rows(group_sizes, x.shape[0])
     h = grouped_matmul(x, wi, group_sizes, w_scale=wi_scale,
                        a_scale=wi_a_scale, a_bits=a_bits)
     if bi is not None:

@@ -6,6 +6,11 @@ walked by a Python loop, where the reference scans. The K/V cache is one
 stacked buffer per tensor, [layers, B, max_len, KVH, hd]; each layer writes
 its rows into its slice in place (``layers.attention_block``).
 
+The MoE FFN (``_moe_apply``) takes ``MoEConfig.impl``'s path: ``grouped``
+(the sort-based unified kernel; with ``moe_exec="expert_parallel"`` over
+the slots of the ambient EP mesh, ``distributed/expert_parallel.py``) or
+``gshard`` (capacity dispatch/combine einsums, which drop overflow slots).
+
 gemma2's alternating local/global attention (``attn.alternate_local_global``)
 keeps two stacks of L/2 layers, ``layers_local`` and ``layers_global``,
 walked in (local, global) pairs, and a nested cache ``{"local": ...,
@@ -19,11 +24,18 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.moe.dispatch import grouped_combine, grouped_dispatch
+from repro_torch.core.moe.dispatch import (
+    capacity,
+    grouped_combine,
+    grouped_dispatch,
+    gshard_dispatch_combine,
+)
 from repro_torch.core.moe.router import route_topk
 from repro_torch.core.quant.calibrate import maybe_record
+from repro_torch.core.quant.qtypes import unpack_int4
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
+    act_fn,
     apply_norm,
     attention_block,
     mlp_apply,
@@ -133,30 +145,87 @@ def _expert_count_zeros(cfg: ModelConfig, device) -> torch.Tensor:
 
 
 def _moe_apply(x: torch.Tensor, p: dict, cfg: ModelConfig, taps=None):
-    """Grouped MoE FFN on [B, S, D]; returns (y, aux_loss, expert_counts
-    [E] int32), the routed (token, slot) histogram of this layer."""
+    """MoE FFN on [B, S, D]; returns (y, aux_loss, expert_counts [E]
+    int32), the routed (token, slot) histogram of this layer (gshard: the
+    slots not dropped)."""
     m = cfg.moe
-    if m.impl != "grouped" or m.moe_exec != "single":
-        raise NotImplementedError(
-            f"MoE impl={m.impl!r}, moe_exec={m.moe_exec!r}: only the grouped "
-            "single-device path is ported (serving_config switches to it)")
+    if m.moe_exec == "expert_parallel" and taps is None:
+        # the grouped path over the slots of the ambient EP mesh;
+        # calibration keeps the single path, so taps record in one place
+        from repro_torch.distributed.expert_parallel import expert_parallel_moe
+
+        return expert_parallel_moe(x, p, cfg)
     B, S, D = x.shape
-    xt = x.reshape(B * S, D)
+    T = B * S
+    xt = x.reshape(T, D)
     # int8 gate: its matmul runs through the quant seam; the gate bias is
     # added inside route_topk
     gate_logits = (quant_linear(xt, p, "gate", cfg)
                    if p["gate"].dtype == torch.int8 else None)
     r = route_topk(xt, p["gate"], p.get("gate_b"), m.top_k, logits=gate_logits)
-    dsp = grouped_dispatch(xt, r.experts, r.weights, m.num_experts)
-    y_sorted = ops.grouped_mlp(
-        dsp.x_sorted, p["wi"], p["wo"], dsp.group_sizes,
-        act=cfg.act, glu=cfg.glu, bi=p.get("bi"), bo=p.get("bo"),
-        taps=taps, mid_a_scale=p.get("wo_a_scale"), a_bits=cfg.quant.a_bits,
-        wi_scale=p.get("wi_scale"), wo_scale=p.get("wo_scale"),
-        wi_a_scale=p.get("wi_as"),
-    )
-    y = grouped_combine(y_sorted, dsp, B * S)
-    return y.reshape(B, S, D), r.aux_loss, dsp.group_sizes
+    if m.impl == "gshard":
+        y, counts = _gshard_ffn(xt, p, cfg, r.experts, r.weights, B, taps)
+    else:  # grouped: the paper's sort-based unified kernel
+        dsp = grouped_dispatch(xt, r.experts, r.weights, m.num_experts)
+        counts = dsp.group_sizes
+        y_sorted = ops.grouped_mlp(
+            dsp.x_sorted, p["wi"], p["wo"], dsp.group_sizes,
+            act=cfg.act, glu=cfg.glu, bi=p.get("bi"), bo=p.get("bo"),
+            taps=taps, mid_a_scale=p.get("wo_a_scale"), a_bits=cfg.quant.a_bits,
+            wi_scale=p.get("wi_scale"), wo_scale=p.get("wo_scale"),
+            wi_a_scale=p.get("wi_as"),
+        )
+        y = grouped_combine(y_sorted, dsp, T)
+    return y.reshape(B, S, D), r.aux_loss, counts
+
+
+def _gshard_ffn(xt, p, cfg: ModelConfig, experts, weights, B: int, taps):
+    """The capacity-einsum (GShard) expert FFN over tokens [T, D]; returns
+    (y [T, D], routed-and-kept slots per expert [E] int32). The reference
+    runs these as plain XLA einsums, so they are plain ``torch.einsum``
+    here. Integer stacks (nibble-packed int4 unpacked first) are
+    dequantized on the fly: this path has no integer contraction."""
+    m = cfg.moe
+    T, D = xt.shape
+    wi, wo = p["wi"], p["wo"]
+    if wi.dtype in (torch.int8, torch.uint8):
+        if wi.dtype == torch.uint8:
+            hid = wi.shape[-1]
+            wi = unpack_int4(wi, D)
+            wo = unpack_int4(wo, hid // 2 if cfg.glu else hid)
+        wi = wi.float() * p["wi_scale"][..., None, :]
+        wo = wo.float() * p["wo_scale"][..., None, :]
+    # hierarchical groups with a capacity each, so the dispatch one-hot is
+    # [G, Tg, E, C] (the flat [T, E, C] form grows as T^2)
+    if T >= 2048 and T % 2048 == 0:
+        G = T // 2048
+    elif T % B == 0:
+        G = B
+    else:
+        G = 1
+    Tg = T // G
+    cap = capacity(Tg, m.top_k, m.num_experts, m.capacity_factor)
+    xg = xt.reshape(G, Tg, D)
+    disp, comb = gshard_dispatch_combine(
+        xg, experts.reshape(G, Tg, m.top_k), weights.reshape(G, Tg, m.top_k),
+        m.num_experts, cap)
+    ein = torch.einsum("gtec,gtd->gecd", disp.to(xt.dtype), xg)
+    h = torch.einsum("gecd,edh->gech", ein, wi)
+    if "bi" in p:
+        h = h + p["bi"][None, :, None, :]
+    if cfg.glu:
+        g, u = torch.chunk(h, 2, dim=-1)
+        h = act_fn(cfg.act)(g) * u
+    else:
+        h = act_fn(cfg.act)(h)
+    # the fc2-input site: a gshard-calibrated model still gets the
+    # wo_a_scale leaf the grouped serving path quantizes with
+    maybe_record(taps, "moe_mid", h)
+    eout = torch.einsum("gech,ehd->gecd", h, wo)
+    if "bo" in p:
+        eout = eout + p["bo"][None, :, None, :]
+    y = torch.einsum("gtec,gecd->gtd", comb.to(xt.dtype), eout).reshape(T, D)
+    return y, torch.sum(disp, dim=(0, 1, 3)).to(torch.int32)
 
 
 def layer(tree, i: int):

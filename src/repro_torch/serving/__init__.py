@@ -1,9 +1,10 @@
 """Serving stack of the port: micro-batcher, metrics, event log, tracing and
-introspection, the vision engine, the continuous-batching LM engine, the
-multi-replica cluster with its fault model and autoscaler, and the live
-metrics endpoint."""
+introspection, the vision engine, the continuous-batching LM engine (both
+single-device or expert-parallel over an EP mesh), the multi-replica
+cluster with its fault model and autoscaler, and the live metrics
+endpoint."""
 from repro_torch.serving.autoscaler import Autoscaler
-from repro_torch.serving.cluster import ServingCluster, replica_devices
+from repro_torch.serving.cluster import ServingCluster, replica_devices, replica_meshes
 from repro_torch.serving.engine import Request, ServeEngine, serving_config
 from repro_torch.serving.events import EventLog, read_jsonl
 from repro_torch.serving.faults import (
@@ -82,6 +83,7 @@ __all__ = [
     "program_perf",
     "read_jsonl",
     "replica_devices",
+    "replica_meshes",
     "serve_cluster_metrics",
     "serving_config",
     "synth_requests",

@@ -14,14 +14,19 @@ The cluster is generic over the ``EngineReplica`` protocol
 builds ``VisionEngine`` replicas for the vit families and ``ServeEngine``
 replicas (LM decode; free decode slots are the load signal) for the rest.
 
-Replica layout (``replica_devices``): the device list is split into
-``replicas + standby`` contiguous groups of equal size and each replica is
-pinned to its group's first device; with more replicas than devices,
-replicas share devices (host-side concurrency: several replicas time-share
-one card). Replicas on one device share one copy of the weights (the
-engines' ``tree_to`` keeps a tensor already on the device) and each keeps
-its own cache, graph pool and capture stream. Expert-parallel replicas
-(``moe_exec="expert_parallel"``) are not ported.
+Replica layout (``replica_meshes``): the device list is split into
+``replicas + standby`` contiguous groups of equal size, each a
+``('model',)`` mesh (``launch/mesh.py``). A data-parallel replica is pinned
+to its group's first device (``replica_devices``); with more replicas than
+devices, replicas share devices (host-side concurrency: several replicas
+time-share one card). With ``cfg.moe.moe_exec == "expert_parallel"`` each
+replica takes its whole group as its EP mesh (by default one replica over
+every entry of ``devices``, which may name one card several times) and
+runs the sharded-expert exchange of ``distributed/expert_parallel.py``
+over it; an EP replica grown past the pool spans the whole device list.
+Replicas on one device share one copy of the weights (the engines'
+``tree_to`` keeps a tensor already on the device) and each keeps its own
+cache, graph pool and capture stream.
 
 Backpressure is two-level: each replica bounds its own admission
 (``max_pending_per_replica``; the router only offers work to replicas with
@@ -68,6 +73,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import torch
 
 from repro_torch.configs.base import FaultConfig, ModelConfig
+from repro_torch.launch.mesh import Mesh, visible_devices
 from repro_torch.serving.events import EventLog
 from repro_torch.serving.faults import FaultInjector, FaultyReplica, ReplicaWatchdog
 from repro_torch.serving.metrics import ClusterMetrics
@@ -75,32 +81,30 @@ from repro_torch.serving.replica import EngineReplica
 from repro_torch.serving.scheduler import Backpressure, MicroBatcher
 from repro_torch.serving.trace import FlightRecorder, write_chrome_trace
 
-EngineFactory = Callable[[torch.device], EngineReplica]  # device -> replica
+# a data-parallel replica's device, or an expert-parallel replica's mesh,
+# -> replica
+EngineFactory = Callable[[Union[torch.device, Mesh]], EngineReplica]
 
 
-def _device_list(devices=None) -> List[torch.device]:
-    """``devices`` as ``torch.device``s; by default every visible card, and
-    without one a ``RuntimeError`` (never a silent fall back to the CPU)."""
-    if devices is not None:
-        return [torch.device(d) for d in devices]
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass devices=['cpu'] (replicas "
-            "with device='cpu') to run on the CPU")
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-
-
-def replica_devices(n_replicas: int, devices=None) -> List[torch.device]:
-    """The device of each of ``n_replicas`` replicas: the device list split
-    into ``n_replicas`` contiguous equal groups, each replica pinned to its
-    group's first device. More replicas than devices is allowed: replicas
-    then share devices round-robin (host-side concurrency only)."""
-    devices = _device_list(devices)
+def replica_meshes(n_replicas: int, devices=None) -> List[Mesh]:
+    """The device list (every visible card by default) split into
+    ``n_replicas`` contiguous equal groups, each a 1-axis ``('model',)``
+    mesh. More replicas than devices is allowed: replicas then share
+    devices round-robin, one device a mesh (host-side concurrency only)."""
+    devices = visible_devices(devices)
     n = max(1, int(n_replicas))
     if len(devices) >= n:
         per = len(devices) // n
-        return [devices[i * per] for i in range(n)]
-    return [devices[i % len(devices)] for i in range(n)]
+        groups = [devices[i * per:(i + 1) * per] for i in range(n)]
+    else:
+        groups = [[devices[i % len(devices)]] for i in range(n)]
+    return [Mesh(g, ("model",)) for g in groups]
+
+
+def replica_devices(n_replicas: int, devices=None) -> List[torch.device]:
+    """The device of each of ``n_replicas`` data-parallel replicas: the
+    first device of its ``replica_meshes`` group."""
+    return [m.devices.flat[0] for m in replica_meshes(n_replicas, devices)]
 
 
 class ServingCluster:
@@ -135,15 +139,14 @@ class ServingCluster:
         faults: Optional[FaultConfig] = None,
         fault_stall_fn: Optional[Callable[[float], None]] = None,
     ) -> None:
-        if (cfg is not None and cfg.moe is not None
-                and cfg.moe.moe_exec == "expert_parallel"):
-            raise NotImplementedError(
-                "moe_exec='expert_parallel': expert-parallel replicas are not "
-                "ported; every replica runs the grouped single-device path")
-        devices = _device_list(devices)
+        devices = visible_devices(devices)
         self._devices = devices
+        self._ep = (cfg is not None and cfg.moe is not None
+                    and cfg.moe.moe_exec == "expert_parallel")
         if replicas <= 0:
-            replicas = len(devices)  # default: one replica per device
+            # default: one replica per device (data parallelism); expert
+            # parallelism: one replica spanning every device
+            replicas = 1 if self._ep else len(devices)
         self._clock = clock
         # observability: the shared event log (autoscaler decisions land
         # here too) and the cluster-global trace-id counter -- uids are
@@ -181,16 +184,19 @@ class ServingCluster:
             base_factory = self._factory
             self._inject_seq = 0
 
-            def chaotic(device, _f=base_factory):
+            def chaotic(placement, _f=base_factory):
                 inj = FaultInjector(self.faults, ordinal=self._inject_seq,
                                     stall_fn=fault_stall_fn)
                 self._inject_seq += 1
-                return FaultyReplica(_f(device), inj)
+                return FaultyReplica(_f(placement), inj)
 
             self._factory = chaotic
-        self.devices = replica_devices(replicas + standby, devices)
+        self.meshes = self._build_meshes(replicas + standby)
+        # the device each replica runs on (an EP replica: its slots' one)
+        self.devices = [m.devices.flat[0] for m in self.meshes]
         self._next_device_i = replicas + standby
-        built = [self._factory(d) for d in self.devices]
+        built = [self._factory(m if self._ep else d)
+                 for m, d in zip(self.meshes, self.devices)]
         for e in built:
             self._label_replica(e)
         self.engines: List[EngineReplica] = built[:replicas]  # routable
@@ -223,23 +229,27 @@ class ServingCluster:
             engine = "vision" if cfg.family in ("vit", "vit_moe") else "lm"
         clock = self._clock
         events = self.events
+
+        def place(p) -> dict:  # an EP replica takes its mesh
+            return {"mesh": p} if isinstance(p, Mesh) else {"device": p}
+
         if engine == "vision":
             from repro_torch.serving.vision import VisionEngine
 
-            return lambda device: VisionEngine(
+            return lambda p: VisionEngine(
                 cfg, params,
                 batch_buckets=batch_buckets, max_wait_s=max_wait_s,
                 max_pending=max_pending_per_replica, top_k=top_k,
-                max_inflight=max_inflight, device=device, events=events,
-                clock=clock,
+                max_inflight=max_inflight, events=events, clock=clock,
+                **place(p),
             )
         if engine == "lm":
             from repro_torch.serving.engine import ServeEngine
 
-            return lambda device: ServeEngine(
+            return lambda p: ServeEngine(
                 cfg, params, batch_slots=batch_slots, max_len=max_len,
-                max_pending=max_pending_per_replica, device=device,
-                events=events, clock=clock,
+                max_pending=max_pending_per_replica, events=events,
+                clock=clock, **place(p),
             )
         raise ValueError(
             f"engine must be 'vision', 'lm', or a factory: {engine!r}")
@@ -256,11 +266,24 @@ class ServingCluster:
         if tr is not None and tr.enabled:
             tr.label = label
 
-    def _next_device(self) -> torch.device:
-        """Device of a replica grown past the pre-built pool: one no live
-        replica is pinned to, falling back to round-robin only once every
-        device is taken (blindly cycling indices would double up on an
-        active replica's device while others sit free)."""
+    def _build_meshes(self, n: int) -> List[Mesh]:
+        meshes = replica_meshes(n, self._devices)
+        if not self._ep:
+            # without expert parallelism a multi-device slice would run the
+            # same replicated program on each of its devices: pin each
+            # replica to its first device instead
+            meshes = [Mesh(list(m.devices.flat)[:1], ("model",)) for m in meshes]
+        return meshes
+
+    def _next_device(self) -> Union[torch.device, Mesh]:
+        """Placement of a replica grown past the pre-built pool: an EP
+        replica spans every device (the whole mesh); a data-parallel one
+        takes a device no live replica is pinned to, falling back to
+        round-robin only once every device is taken (blindly cycling
+        indices would double up on an active replica's device while others
+        sit free)."""
+        if self._ep:
+            return self._build_meshes(1)[0]
         used = {
             e.device for e in self.engines + self._draining + self._standby
             if e.device is not None

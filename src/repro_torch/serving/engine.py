@@ -60,11 +60,20 @@ retirement on the grouped path; ``programs.StepTimer``), on the CPU the
 host clock. ``warmup()``
 installs the introspection rows (``serving/introspect.py``: a cost row per
 program, the roofline peaks, the memory probe), and MoE configs feed the
-``ExpertHealthMonitor`` ``expert_health``. Expert-parallel placement and
-autotune warmup are not ported.
+``ExpertHealthMonitor`` ``expert_health``. Autotune warmup is not ported.
+
+Expert parallelism, as in the reference: with ``cfg.moe.moe_exec ==
+"expert_parallel"`` the engine takes ``mesh=`` (``launch/mesh.py``; the
+cluster's ``replica_meshes`` hand one to an EP replica), whose ``'model'``
+axis splits the expert stacks over its slots, and every program, eager or
+captured into a CUDA graph, runs inside ``use_ep_mesh(mesh)``
+(``distributed/expert_parallel.py``), so a graph holds every slot's work.
+The engine's device is the slots' one device; a mesh over several cards
+raises. The expert counters read the same [E] histogram as on one device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -76,8 +85,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.expert_parallel import engine_placement, in_ep_mesh, use_ep_mesh
 from repro_torch.models import module_for
-from repro_torch.models.param import require_device, tree_to
+from repro_torch.models.param import tree_to
 from repro_torch.serving import introspect
 from repro_torch.serving.events import EventLog
 from repro_torch.serving.metrics import EngineMetrics
@@ -232,14 +242,16 @@ class ServeEngine:
     logits behind every generated token on the request (device tensors,
     no sync). ``events=`` is the ``EventLog`` that rejections,
     cancellations and retirement faults are journaled into; ``clock=``
-    injects a fake clock for deterministic tests."""
+    injects a fake clock for deterministic tests. ``mesh=`` (required by an
+    expert-parallel config) pins the engine to its slots' device, in place
+    of ``device``."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
                  max_len: int = 512, max_pending: int = 0,
                  eos_id: Optional[int] = None,
                  events: Optional[EventLog] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 device="cuda", keep_logits: bool = False) -> None:
+                 device="cuda", keep_logits: bool = False, mesh=None) -> None:
         self.cfg = cfg = serving_config(cfg)
         self.mod = module_for(cfg)
         if not hasattr(self.mod, "decode_step"):
@@ -251,7 +263,8 @@ class ServeEngine:
                             and cfg.attn is not None
                             and not cfg.attn.alternate_local_global
                             and hasattr(self.mod, "prefill_packed"))
-        self.device = require_device(device)
+        self.mesh = mesh
+        self._ep, self.device = engine_placement(cfg, mesh, device)
         # the same tensors when the tree is on this device already: replicas
         # on one card share one copy of the weights
         self.params = tree_to(params, self.device)
@@ -434,16 +447,22 @@ class ServeEngine:
                 return
             if not self._graphs:
                 tick(*self._tick_inputs(np.zeros(self.B, np.int32)))
-            if self._packed:
-                logits, _ = self.mod.prefill_packed(
-                    self.params, self.cfg, zeros[None], zeros, zeros, zeros[:1],
-                    max_len=b)
-            else:
-                logits, _ = self.mod.prefill(self.params, self.cfg, zeros[None],
-                                             max_len=self.max_len)
+            with self._scope():
+                if self._packed:
+                    logits, _ = self.mod.prefill_packed(
+                        self.params, self.cfg, zeros[None], zeros, zeros, zeros[:1],
+                        max_len=b)
+                else:
+                    logits, _ = self.mod.prefill(self.params, self.cfg, zeros[None],
+                                                 max_len=self.max_len)
             logits.cpu()
 
     # -- programs (the reference's AOT program cache) ----------------------------
+
+    def _scope(self):
+        """The EP mesh's scope for an eager model call (a null context
+        without expert parallelism)."""
+        return use_ep_mesh(self.mesh) if self._ep else contextlib.nullcontext()
 
     def _program_key(self, prog: str, **kv) -> str:
         """Program-cache key in the reference's schema:
@@ -466,7 +485,10 @@ class ServeEngine:
     def _program(self, fn: Callable, *example):
         """Step ``fn`` as a program: on the card with ``aot_warmup`` a CUDA
         graph captured from ``example`` inputs (``GraphProgram``; a failed
-        capture raises), else ``fn`` run eagerly."""
+        capture raises), else ``fn`` run eagerly; under expert parallelism
+        inside the engine's EP mesh."""
+        if self._ep:
+            fn = in_ep_mesh(fn, self.mesh)
         if not self._graphs:
             return EagerProgram(fn, self.device)
         if self._async:
@@ -805,7 +827,7 @@ class ServeEngine:
                 if trace or self._step_times:
                     t_d = self._clock()
                 mark = self._timer.take() if self._step_times else None
-                with torch.inference_mode():
+                with torch.inference_mode(), self._scope():
                     record(mark, 0, self.device)
                     logits, part = self.mod.prefill(self.params, self.cfg, tokens,
                                                     max_len=self.max_len)

@@ -35,7 +35,13 @@ graph records at its first and last node, read at retirement
 (``programs.StepTimer``), on the CPU the host time from dispatch to
 retirement. ``warmup()`` installs the introspection rows,
 and an MoE config feeds the ``ExpertHealthMonitor`` ``expert_health``. The
-reference's expert-parallel placement and autotuning are not ported.
+reference's autotuning is not ported.
+
+Expert parallelism, as in the reference: an expert-parallel config
+(``cfg.moe.moe_exec == "expert_parallel"``) takes ``mesh=``, and each
+bucket's program, eager or captured, runs inside ``use_ep_mesh(mesh)``
+(``distributed/expert_parallel.py``); the engine runs on the slots' one
+device.
 """
 from __future__ import annotations
 
@@ -48,7 +54,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.param import require_device, tree_to
+from repro_torch.distributed.expert_parallel import engine_placement, in_ep_mesh
+from repro_torch.models.param import tree_to
 from repro_torch.models.vit import PATCH_DIM, classify
 from repro_torch.serving import introspect
 from repro_torch.serving.engine import serving_config
@@ -103,7 +110,8 @@ class _InFlight(NamedTuple):
 
 class VisionEngine:
     """Dynamic-batching MoE-ViT classifier engine on one device (the card
-    unless ``device="cpu"``)."""
+    unless ``device="cpu"``; ``mesh=``, which an expert-parallel config
+    requires, pins it to its slots' device instead)."""
 
     def __init__(
         self,
@@ -118,11 +126,13 @@ class VisionEngine:
         device="cuda",
         events: Optional[EventLog] = None,
         clock: Callable[[], float] = time.monotonic,
+        mesh=None,
     ) -> None:
         if cfg.family not in ("vit", "vit_moe"):
             raise ValueError(f"vision families only, got {cfg.family!r}")
-        self.device = require_device(device)
         self.cfg = serving_config(cfg)
+        self.mesh = mesh
+        self._ep, self.device = engine_placement(self.cfg, mesh, device)
         # the same tensors when the tree is on this device already: replicas
         # on one card share one copy of the weights
         self.params = tree_to(params, self.device)
@@ -181,6 +191,8 @@ class VisionEngine:
             def fn(x):
                 return classify(params, cfg, x, top_k=k)
 
+            if self._ep:
+                fn = in_ep_mesh(fn, self.mesh)
             with torch.inference_mode():
                 prog = self._programs[key] = (
                     GraphProgram(fn, [np.zeros((b, self.n_patches, PATCH_DIM), np.float32)],

@@ -623,9 +623,14 @@ def test_replica_devices_split_and_oversubscribe():
 
 
 def test_expert_parallel_cluster_is_refused():
+    """An expert-parallel cluster builds one replica over its devices, so a
+    slot count that does not divide the experts is refused, and so is a
+    mesh over more than one device (the engines capture on one)."""
     from repro_torch.configs import smoke_config
 
-    cfg = smoke_config("olmoe-1b-7b")
+    cfg = smoke_config("olmoe-1b-7b")  # 8 experts
     cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, moe_exec="expert_parallel"))
-    with pytest.raises(NotImplementedError, match="expert_parallel"):
-        port_cluster.ServingCluster(cfg, {}, replicas=1, devices=["cpu"])
+    with pytest.raises(ValueError, match="not divisible"):
+        port_cluster.ServingCluster(cfg, {}, devices=["cpu"] * 3)
+    with pytest.raises(NotImplementedError, match="untested"):
+        port_cluster.ServingCluster(cfg, {}, devices=["cpu", "cuda:1"])
