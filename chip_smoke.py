@@ -226,6 +226,39 @@ caught:
                  ``cuda:1`` refused (``NotImplementedError``). Printed: device
                  time, kernels and tok/s a step by slot count, the
                  allocator's peak during each part;
+ tune. autotune -- the kernel autotuner (``kernels/autotune.py``) at full
+                 width, in three parts, each on a table in a fresh temporary
+                 directory; before the LM observe phase no part uses the
+                 profiler (that phase's step-time gate reads a profiled
+                 replay's span, which moves with the profiler's history).
+                 Vision (``phase_autotune_vision``, after the EP vision
+                 phase) on phase 4's M3ViT-S int8 tree, a tuned
+                 ``VisionEngine``, a second on the same table and a third
+                 from the table reloaded from disk, each serving phase 4's
+                 24 requests. LM: a tuned packed engine over the fp tree
+                 right after phase 7's fp serve, while the tree lives; at
+                 the end of phase 7 (after its EP part) tuned engines over
+                 the int8 and W4A8 trees, an ``aot_warmup=False`` int8
+                 engine on the same table and one from the reloaded table,
+                 and an engine over 4 EP slots on the int8 tree. Dense, at
+                 the end of phase 10, tuned
+                 grouped-path engines over the gemma2-2b fp and int8 trees
+                 (the hd-256 decode keys meet ``decode`` against ``tile``),
+                 and the int8 tree's second engine and reloaded table.
+                 Every sweep holds each candidate to the rule's pick's bits.
+                 Gates: each tuned engine's classes and probabilities, or
+                 tokens, equal to the untuned engine's of its phase;
+                 launches a forward exact; every program a graph whose
+                 nodes equal its launches; ``retraces`` 0; the tables'
+                 ``misses`` and ``untakeable`` 0; the second engine and the
+                 reloaded table sweep nothing and the reloaded entries
+                 equal the saved ones; no sweep inside a graph capture.
+                 Printed: every key's candidates' device ms, the rule's and
+                 the tuned pick, the keys where they differ, each part's
+                 sweep time, and the steps (dispatch of 8, tick, 512-token
+                 admission) tuned beside untuned: graph replays timed by
+                 their own events (``_replay_ms``) for the vision and fp
+                 parts, profiled (``_profile``) after the observe phase;
  10. dense   -- the falcon-mamba tree freed, full-width gemma2-2b
                  (``configs/gemma2_2b.py``: 26 layers in 13 local(4096) /
                  global pairs, 8 heads of 256 over 4 KV heads, softcaps,
@@ -268,8 +301,10 @@ import functools
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1911,20 +1946,35 @@ def phase_lm(smi: str) -> dict:
     fp_bytes = tree_bytes(params)
     out = {"calib_counts": calib_counts, "runs": {"fp": _serve_lm_fp(cfg, params, smi)}}
     out["gshard"] = _timed(phase_ep_gshard, cfg, params, smi)
-    del params
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    print(f"[lm] {cfg.name}: fp {fp_bytes / 1e9:.2f} GB -> int8 "
-          f"{tree_bytes(trees['int8']) / 1e9:.2f} GB, W4A8 "
-          f"{tree_bytes(trees['int4']) / 1e9:.2f} GB; init+calibrate+PTQ "
-          f"{time.perf_counter() - t0:.1f} s; calibration launches {calib_counts}",
-          flush=True)
-    _check_combine_invariance(qcfg)
-    for mat, tree in trees.items():
-        out["runs"][mat] = _serve_lm(qcfg, tree, mat, smi)
-    out["cluster"] = phase_cluster_lm(qcfg, trees["int8"], out["runs"]["int8"], smi)
-    out["observe"] = _timed(phase_observe_lm, qcfg, trees["int8"], out["runs"]["int8"], smi)
-    out["ep"] = _timed(phase_ep_lm, qcfg, trees, out["runs"]["int8"], smi)
+    # the autotune phase's LM part: one table for its engines, in a fresh
+    # directory outside the checkout; the fp tree's tuned engine while the
+    # tree lives (timed without the profiler: the observe gate below reads
+    # the profiler's history), the other trees' after the EP part
+    tune_dir = tempfile.mkdtemp(prefix="autotune-lm-")
+    try:
+        out["autotune"] = {"fp": _timed(phase_autotune_lm_fp, cfg, params, out["runs"]["fp"],
+                                        tune_dir, smi)}
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        print(f"[lm] {cfg.name}: fp {fp_bytes / 1e9:.2f} GB -> int8 "
+              f"{tree_bytes(trees['int8']) / 1e9:.2f} GB, W4A8 "
+              f"{tree_bytes(trees['int4']) / 1e9:.2f} GB; init+calibrate+PTQ "
+              f"{time.perf_counter() - t0:.1f} s; calibration launches {calib_counts}",
+              flush=True)
+        _check_combine_invariance(qcfg)
+        for mat, tree in trees.items():
+            out["runs"][mat] = _serve_lm(qcfg, tree, mat, smi)
+        out["cluster"] = phase_cluster_lm(qcfg, trees["int8"], out["runs"]["int8"], smi)
+        out["observe"] = _timed(phase_observe_lm, qcfg, trees["int8"], out["runs"]["int8"],
+                                smi)
+        out["ep"] = _timed(phase_ep_lm, qcfg, trees, out["runs"]["int8"], smi)
+        out["autotune"].update(_timed(phase_autotune_lm, qcfg, trees, out["runs"], tune_dir,
+                                      smi))
+        out["autotune"]["ep"] = _timed(phase_autotune_lm_ep, qcfg, trees, out["runs"], out["ep"],
+                                       tune_dir, smi)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
     return out
 
 
@@ -1978,6 +2028,7 @@ def _serve_lm_fp(cfg, params, smi: str) -> dict:
                                  f"{len(r.generated)} tokens")
     tokens = sum(len(r.generated) for r in reqs)
     lat = snap["latency_ms"]
+    replay_ms = _lm_step_ms(eng)  # on the state serving left, as the tuned engine's
     print(f"[{tag}] smoke figure, not a benchmark ({smi}): {len(reqs)} requests, {tokens} "
           f"tokens in {wall:.2f} s = {tokens / wall:.1f} tok/s; latency p50 {lat['p50']:.1f} "
           f"ms, p99 {lat['p99']:.1f} ms; {admissions} admissions ({c['pack_real_tokens']} real "
@@ -2029,8 +2080,10 @@ def _serve_lm_fp(cfg, params, smi: str) -> dict:
     del eng, eager
     torch.cuda.empty_cache()
     return {"counts": counts, "counters": c, "tok_s": tokens / wall, "latency_ms": lat,
+            "tokens": [list(r.generated) for r in reqs],
             "tok_s_eager": tokens / wall_e, "warmup": warm, "programs": programs,
-            "tf": tf, "tf_f32_cache": ctl, "profile": profile, "per_call_ms": per_call}
+            "tf": tf, "tf_f32_cache": ctl, "profile": profile, "per_call_ms": per_call,
+            "replay_ms": replay_ms}
 
 
 @contextlib.contextmanager
@@ -2115,15 +2168,16 @@ def _lm_requests(vocab: int):
             for i, n in enumerate(rng.integers(16, 257, LM_REQUESTS))]
 
 
-def _run_engine(qcfg, params, prompts=None, tag="lm", eager=False):
+def _run_engine(qcfg, params, prompts=None, tag="lm", eager=False, mesh=None):
     """Serve the seeded requests (or one request per prompt given) on a
-    fresh engine, warmed (``_warm``): its programs captured as CUDA graphs,
-    or with ``eager`` the ``aot_warmup=False`` engine; returns (engine,
-    requests, wall seconds, launch counts, warmup)."""
+    fresh engine (over ``mesh`` where given), warmed (``_warm``): its
+    programs captured as CUDA graphs, or with ``eager`` the
+    ``aot_warmup=False`` engine; returns (engine, requests, wall seconds,
+    launch counts, warmup)."""
     from repro_torch.serving import Request, ServeEngine
 
     eng = ServeEngine(_eager(qcfg) if eager else qcfg, params, batch_slots=LM_SLOTS,
-                      max_len=LM_MAX_LEN, device="cuda", keep_logits=True)
+                      max_len=LM_MAX_LEN, device="cuda", keep_logits=True, mesh=mesh)
     warm = _warm(tag, eng)
     reqs = (_lm_requests(qcfg.vocab_size) if prompts is None else
             [Request(uid=i, prompt=p, max_new_tokens=LM_NEW_TOKENS)
@@ -2367,6 +2421,49 @@ def _profile_lm_steps(e, tag: str, mode: str, smi: str, per: dict) -> dict:
     for label, prof in out.items():
         _check_kernels_per_call(f"{tag} {label}", prof, per)
     return out
+
+
+def _replay_ms(prog, *inputs, reps: int = 10, before=None) -> float:
+    """The median device ms of ``reps`` back-to-back replays of a captured
+    program on ``inputs`` (after one warm-up replay), each timed by the
+    events its graph records at its first and last node
+    (``programs.StepTimer``, as a served step is timed), read after the
+    last; no profiler. ``before()`` is enqueued ahead of every replay,
+    outside its events (a tick's feed reset: the tick writes its argmax
+    into the feed, and its routing follows the feed)."""
+    from repro_torch.serving.programs import StepTimer
+
+    timer = StepTimer(torch.device("cuda"))
+    marks = [timer.take() for _ in range(reps)]
+    with torch.inference_mode():
+        for mark in [None] + marks:
+            if before is not None:
+                before()
+            prog(*inputs, mark=mark)
+    return float(np.median([timer.seconds(mark) * 1e3 for mark in marks]))
+
+
+def _lm_step_ms(e, reps: int = 10) -> dict:
+    """Engine ``e``'s captured decode tick (8 slots at fill 300) and packed
+    admission of 4 prompts of 128 tokens, ``_profile_lm_steps``'s steps
+    and inputs, timed without the profiler (``_replay_ms``); the tick's
+    feed is set to the same seeded tokens before each replay, and the
+    cache and feed are put back after (``_state_kept``), so two engines
+    that served the same requests are timed on the same state and nothing
+    after sees the timing."""
+    P, n = LM_MAX_LEN, LM_MAX_LEN // 4
+    pos = np.full(LM_SLOTS, 300, np.int32)
+    pack = np.concatenate([np.zeros(P, np.int32), np.arange(P) % n, np.arange(P) // n,
+                           np.arange(1, 5) * n - 1, np.arange(4) * n, np.full(4, n),
+                           np.arange(4)]).astype(np.int32)
+    feed = torch.from_numpy(np.random.default_rng(23).integers(
+        0, e.cfg.vocab_size, LM_SLOTS).astype(np.int32)).to(e._tok.device)
+    with e._state_kept():
+        return {"decode tick": _replay_ms(e._programs[e._program_key("decode")], e._tok, pos,
+                                          reps=reps, before=lambda: e._tok.copy_(feed)),
+                "packed prefill 512": _replay_ms(
+                    e._programs[e._program_key("packed_prefill", bucket=P, n=4)], pack,
+                    reps=reps)}
 
 
 def _profile(tag: str, label: str, smi: str, n: int, fn, expect=None) -> dict:
@@ -3680,6 +3777,342 @@ def phase_ep_lm(qcfg, trees: dict, single: dict, smi: str) -> dict:
             "cluster_warmup": cwarm, "peak_bytes": peak}
 
 
+# ---------------------------------------------------------------------------
+# autotune: the kernel autotuner at every served engine's warmup
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_EP_SLOTS = 4  # the tuned EP engine of the LM part
+
+
+def _tuned_config(cfg, cache_dir: str, eager: bool = False):
+    """``cfg`` with ``autotune.enable`` and its table under ``cache_dir``
+    (and, with ``eager``, ``serve.aot_warmup=False``)."""
+    from repro_torch.configs import AutotuneConfig
+
+    cfg = cfg.replace(autotune=AutotuneConfig(enable=True, cache_dir=cache_dir))
+    return _eager(cfg) if eager else cfg
+
+
+@contextlib.contextmanager
+def _sweeps_watched():
+    """Counts the autotuner's sweeps made inside, and those made while a
+    CUDA graph was being captured (gate: none)."""
+    from repro_torch.kernels import autotune
+
+    real, seen = autotune.sweep_request, {"sweeps": 0, "in_capture": 0}
+
+    def watched(*args, **kw):
+        seen["sweeps"] += 1
+        seen["in_capture"] += int(torch.cuda.is_current_stream_capturing())
+        return real(*args, **kw)
+
+    autotune.sweep_request = watched
+    try:
+        yield seen
+    finally:
+        autotune.sweep_request = real
+
+
+def _tuned(tag: str, cfg, run) -> tuple:
+    """``run()`` (which builds and warms a tuned engine of config ``cfg``)
+    under watch; returns (its result, the keys it swept, the active
+    table). Printed: the keys it swept whose pick differs from the rule's.
+    Gates: no sweep inside a graph capture, the table's ``untakeable``
+    0."""
+    from repro_torch.kernels import autotune
+
+    prev = autotune.active_table()
+    n0, s0 = (prev.stats["swept"], prev.sweep_s) if prev is not None else (0, 0.0)
+    kind = autotune.device_kind()
+    before = set(autotune.TuningTable.load(autotune.table_path(cfg.autotune, kind),
+                                           kind).entries)
+    before |= set(prev.entries) if prev is not None else set()
+    with _sweeps_watched() as seen:
+        result = run()
+    table = autotune.active_table()
+    swept = table.stats["swept"] - (n0 if table is prev else 0)
+    sweep_s = table.sweep_s - (s0 if table is prev else 0.0)
+    moved = []
+    for key in sorted(set(table.entries) - before):
+        e = table.entries[key]
+        rule = autotune.default_for(autotune.request_from_key(key))
+        if e["choice"] != rule:
+            moved.append(f"{key}: {rule} {e['candidates'][rule]:.5f} -> {e['choice']} "
+                         f"{e['ms']:.5f} ms")
+    print(f"[{tag}] autotune at warmup: {swept} keys swept in {seen['sweeps']} sweeps "
+          f"({sweep_s:.2f} s), {seen['in_capture']} during a graph capture (gate: 0); "
+          f"{autotune.summary()}; picks away from the rule: {moved}", flush=True)
+    if seen["in_capture"] or table.stats["untakeable"]:
+        raise AssertionError(f"[{tag}] a sweep inside a capture or an untakeable pick: "
+                             f"{seen}, {table.stats}")
+    return result, swept, table
+
+
+def _check_table(tag: str, table) -> None:
+    """Gates after serving: every kernel call outside the collection found
+    its key (``misses`` 0) and every pick took its operands
+    (``untakeable`` 0)."""
+    s = table.stats
+    print(f"[{tag}] table stats {s} (gates: misses 0, untakeable 0)", flush=True)
+    if s["misses"] or s["untakeable"]:
+        raise AssertionError(f"[{tag}] table misses or untakeable picks: {s}")
+
+
+def _tune_report(tag: str, table, smi: str) -> dict:
+    """Every key's candidates' device ms, the rule's pick and the tuned
+    pick, printed; the keys whose picks differ returned."""
+    from repro_torch.kernels import autotune
+
+    differ = []
+    for key in sorted(table.entries):
+        e = table.entries[key]
+        rule = autotune.default_for(autotune.request_from_key(key))
+        times = ", ".join(f"{c} {ms:.5f}" for c, ms in e["candidates"].items())
+        print(f"[{tag}] {key}: {times} ms; rule {rule}, tuned {e['choice']}", flush=True)
+        if e["choice"] != rule:
+            differ.append({"key": key, "rule": rule, "tuned": e["choice"],
+                           "rule_ms": e["candidates"][rule], "tuned_ms": e["ms"]})
+    print(f"[{tag}] {len(differ)} of {len(table.entries)} keys tuned away from the rule's "
+          f"pick ({smi}): " + "; ".join(
+              f"{d['key']}: {d['rule']} {d['rule_ms']:.5f} -> {d['tuned']} "
+              f"{d['tuned_ms']:.5f} ms" for d in differ), flush=True)
+    return {"keys": len(table.entries), "differ": differ}
+
+
+def phase_autotune_vision(qcfg, p_int8, single, smi: str) -> dict:
+    """Autotune, vision part, on phase 4's M3ViT-S int8 tree: a tuned
+    ``VisionEngine`` (buckets 1, 4, 8, graphs on) in a fresh table, a
+    second on the same table and a third from the table reloaded from
+    disk, each serving phase 4's 24 requests (batches of 8). Gates: classes
+    and probabilities bit-equal to phase 4's engine; the first sweeps, the
+    second and third sweep nothing, the reloaded entries equal the first's;
+    ``misses`` and ``untakeable`` 0; no sweep inside a capture. Printed:
+    every key's candidates, the dispatch of 8 as a graph replay tuned and
+    untuned (``_replay_ms``: no profiler, so the later observe gate's
+    profiler history stays as it was)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.models.vit import PATCH_DIM
+    from repro_torch.serving import VisionEngine, synth_requests
+
+    tag = "autotune vision"
+    autotune.deactivate()
+
+    def serve(e):
+        reqs = synth_requests(qcfg, 24, seed=3)
+        for r in reqs:
+            e.submit(r)
+        e.flush()
+        return reqs
+
+    ref = serve(single)
+    xs = np.zeros((8, qcfg.image_tokens - 1, PATCH_DIM), np.float32)
+    out = {"replay_ms": {"untuned": _replay_ms(single._programs["classify|b=8"], xs)}}
+    with tempfile.TemporaryDirectory() as cache_dir:
+        tcfg = _tuned_config(qcfg, cache_dir)
+        first = None
+        for label in ("first", "second", "reloaded"):
+            if label == "reloaded":
+                autotune.deactivate()  # a new process: the table from disk
+            eng = VisionEngine(tcfg, p_int8, batch_buckets=(1, 4, 8), max_wait_s=2e-3,
+                               device="cuda")
+            warm, swept, table = _tuned(f"{tag} {label}", tcfg,
+                                        lambda: _warm(f"{tag} {label}", eng))
+            reqs = serve(eng)
+            same = all(np.array_equal(a.classes, b.classes) and np.array_equal(a.probs, b.probs)
+                       for a, b in zip(reqs, ref))
+            print(f"[{tag} {label}] 24 requests in batches of 8 vs phase 4's engine: classes and "
+                  f"probabilities bit-equal {same} (gate); keys swept {swept} (gate: "
+                  f"{'> 0' if first is None else '0'})", flush=True)
+            if not same or (swept == 0) != (first is not None):
+                raise AssertionError(f"[{tag} {label}] other answers, or swept {swept}")
+            _check_table(f"{tag} {label}", table)
+            _check_retraces(f"{tag} {label}", eng)
+            if first is None:
+                first = dict(table.entries)
+                out["sweep_s"], out["warmup"] = table.sweep_s, warm
+                out["replay_ms"]["tuned"] = _replay_ms(eng._programs["classify|b=8"], xs)
+            elif label == "reloaded" and table.entries != first:
+                raise AssertionError(f"[{tag}] the reloaded table's entries differ")
+            del eng
+        out["report"] = _tune_report(tag, table, smi)
+    autotune.deactivate()
+    print(f"[{tag}] dispatch of 8 as a graph replay, device ms from the graph's own events "
+          f"({smi}): untuned {out['replay_ms']['untuned']:.3f}, tuned "
+          f"{out['replay_ms']['tuned']:.3f}; sweep {out['sweep_s']:.2f} s", flush=True)
+    _release()
+    return out
+
+
+def _autotune_lm(tag: str, cfg, params, untuned: dict, cache_dir: str, smi: str,
+                 per: dict, *, eager: bool = False, mesh=None, profile=None,
+                 swept_zero: bool = False) -> dict:
+    """A tuned ``ServeEngine`` (``_run_engine``: 8 slots, max_len 512,
+    phase 7's 16 requests; over ``mesh`` where given) on the table under
+    ``cache_dir``. Gates: every token equal to the untuned engine's
+    (``untuned["tokens"]``), launches ``per`` a forward, (graphs)
+    ``retraces`` 0, ``misses`` and ``untakeable`` 0, no sweep inside a capture, and with
+    ``swept_zero`` no key swept. ``profile(engine)``: the tuned steps'
+    profile."""
+    tcfg = _tuned_config(cfg, cache_dir, eager)
+    (eng, reqs, wall, counts, warm), swept, table = _tuned(tag, tcfg, lambda: _run_engine(
+        tcfg, params, tag=tag, mesh=mesh))
+    c = eng.metrics.snapshot()["counters"]
+    forwards = c["prefill_batches"] + c["decode_ticks"]
+    differ = [r.uid for r, want in zip(reqs, untuned["tokens"]) if r.generated != want]
+    wrong = {name: counts.get(name, 0) for name, n in per.items()
+             if counts.get(name, 0) != n * forwards}
+    tok_s = len(reqs) * LM_NEW_TOKENS / wall
+    print(f"[{tag}] phase 7's {len(reqs)} requests: tokens identical to the untuned engine's "
+          f"{not differ} (gate; differing {differ}); launches {per} a forward (gate: exact; "
+          f"off: {wrong}); keys swept {swept} (gate: {'0' if swept_zero else 'any'}); "
+          f"{tok_s:.1f} tok/s ({smi})", flush=True)
+    if differ or wrong or (swept_zero and swept):
+        raise AssertionError(f"[{tag}] the tuned engine differs: tokens {differ}, launches "
+                             f"{wrong}, swept {swept}")
+    if not eager:  # an eager engine builds its programs on first use
+        _check_programs(tag, eng, per)
+        _check_retraces(tag, eng)
+    _check_table(tag, table)
+    out = {"tok_s": tok_s, "warmup": warm, "swept": swept}
+    if profile is not None:
+        out["profile"] = profile(eng)
+    del eng, reqs
+    _release()
+    return out
+
+
+def _print_tuned_steps(tag: str, untuned: dict, tuned: dict, smi: str) -> None:
+    """The graph-replay device ms of each profiled step, untuned and tuned."""
+    print(f"[{tag}] graph replays ({smi}): " + "; ".join(
+        f"{label} untuned {untuned[label]['device_ms']:.3f} ms device, tuned "
+        f"{prof['device_ms']:.3f} ms (grouped {untuned[label]['grouped_matmul_ms']:.3f} -> "
+        f"{prof['grouped_matmul_ms']:.3f}, lm_attention {untuned[label]['lm_attention_ms']:.3f}"
+        f" -> {prof['lm_attention_ms']:.3f})" for label, prof in tuned.items()), flush=True)
+
+
+def _second_and_reloaded(tag: str, cfg, params, untuned: dict, cache_dir: str, smi: str,
+                         per: dict, eager: bool = True) -> dict:
+    """The cache-hit gates of a part: a second tuned engine on the same
+    table serves the requests again, bit-equal, sweeping nothing (with
+    ``eager``, ``aot_warmup=False``, so every kernel call of its serving
+    looks its key up; the grouped path's prefill is eager either way);
+    then a third from the table reloaded from disk (a new process's
+    warmup) sweeps nothing and finds the same entries."""
+    from repro_torch.kernels import autotune
+    from repro_torch.serving import ServeEngine
+
+    label = f"{tag} second{', eager' if eager else ''}"
+    out = {"second": _autotune_lm(label, cfg, params, untuned, cache_dir, smi, per,
+                                  eager=eager, swept_zero=True)}
+    entries = dict(autotune.active_table().entries)
+    autotune.deactivate()
+    tcfg = _tuned_config(cfg, cache_dir, eager=True)
+    eng = ServeEngine(tcfg, params, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN, device="cuda")
+    _, swept, table = _tuned(f"{tag} reloaded", tcfg, lambda: _warm(f"{tag} reloaded", eng))
+    same = table.entries == entries
+    print(f"[{tag} reloaded] a table reloaded from disk: {len(table.entries)} entries equal to "
+          f"the first's {same}, keys swept {swept} (gates: equal, 0)", flush=True)
+    if swept or not same:
+        raise AssertionError(f"[{tag} reloaded] swept {swept}, entries equal {same}")
+    _check_table(f"{tag} reloaded", table)
+    del eng
+    out["reloaded_swept"] = swept
+    return out
+
+
+def phase_autotune_lm_fp(cfg, params, fp: dict, cache_dir: str, smi: str) -> dict:
+    """Autotune, LM part (a), while phase 7's fp OLMoE-1B-7B tree lives: a
+    tuned packed engine (f32 grouped calls, bf16 cache) on a fresh table
+    under ``cache_dir``, gated against ``_serve_lm_fp``'s engine
+    (``_autotune_lm``); its tick and 512-token admission timed as graph
+    replays beside the untuned engine's (``_lm_step_ms``: no profiler, so
+    the observe phase's profiler history stays as it was)."""
+    from repro_torch.kernels import autotune
+
+    tag = "autotune lm fp"
+    autotune.deactivate()
+    out = _autotune_lm(tag, cfg, params, fp, cache_dir, smi, LM_FP_PER_FORWARD,
+                       profile=_lm_step_ms)
+    print(f"[{tag}] graph replays, device ms from the graphs' own events ({smi}): " + "; ".join(
+        f"{label} untuned {fp['replay_ms'][label]:.3f}, tuned {ms:.3f}"
+        for label, ms in out["profile"].items()), flush=True)
+    autotune.deactivate()
+    return out
+
+
+def phase_autotune_lm(qcfg, trees: dict, runs: dict, cache_dir: str, smi: str) -> dict:
+    """Autotune, LM part (b): tuned packed engines over the int8 and W4A8
+    trees on the part's table, gated against phase 7's engines, their tick
+    and admission profiled; then the int8 tree's second engine and reloaded
+    table (``_second_and_reloaded``)."""
+    from repro_torch.kernels import autotune
+
+    out = {}
+    for mat in ("int8", "int4"):
+        tag = f"autotune lm {mat}"
+        out[mat] = _autotune_lm(tag, qcfg, trees[mat], runs[mat], cache_dir, smi,
+                                LM_PER_FORWARD, profile=lambda e, tag=tag: _profile_lm_steps(
+                                    e, tag, "graph", smi, LM_PER_FORWARD))
+        _print_tuned_steps(tag, runs[mat]["profile"], out[mat]["profile"], smi)
+    out.update(_second_and_reloaded("autotune lm int8", qcfg, trees["int8"], runs["int8"],
+                                    cache_dir, smi, LM_PER_FORWARD))
+    autotune.deactivate()
+    return out
+
+
+def phase_autotune_lm_ep(qcfg, trees: dict, runs: dict, ep: dict, cache_dir: str,
+                         smi: str) -> dict:
+    """Autotune, LM part (c), after the EP phase: a tuned engine over an EP
+    mesh of ``AUTOTUNE_EP_SLOTS`` slots on the int8 tree, on the part's
+    table reloaded from disk (it sweeps only its per-slot keys), gated
+    against phase 7's tokens; its tick and admission profiled beside the
+    EP phase's. Then every key of the part's table printed."""
+    from repro_torch.kernels import autotune
+
+    n = AUTOTUNE_EP_SLOTS
+    tag = f"autotune ep lm {n}"
+    per = dict(LM_PER_FORWARD, grouped_matmul=n * LM_PER_FORWARD["grouped_matmul"])
+    autotune.deactivate()
+    out = _autotune_lm(tag, _ep_config(qcfg), trees["int8"], runs["int8"], cache_dir, smi, per,
+                       mesh=_ep_mesh(n), profile=lambda e: _profile_lm_steps(
+                           e, tag, "graph", smi, per))
+    _print_tuned_steps(tag, ep["profiles"][n], out["profile"], smi)
+    table = autotune.active_table()
+    out["report"] = _tune_report("autotune lm", table, smi)
+    out["sweep_s"] = table.sweep_s
+    autotune.deactivate()
+    return out
+
+
+def phase_autotune_dense(cfg, params, qcfg, p_int8, runs: dict, profiles: dict,
+                         smi: str) -> dict:
+    """Autotune, dense part, inside phase 10: tuned grouped-path engines
+    over the gemma2-2b fp and int8 trees on a fresh table (the hd-256
+    decode keys meet ``decode`` against ``tile``), gated against phase
+    10's engines, each tick profiled beside phase 10's; then the int8
+    tree's second engine and reloaded table; every key printed."""
+    from repro_torch.kernels import autotune
+
+    autotune.deactivate()
+    out = {}
+    with tempfile.TemporaryDirectory() as cache_dir:
+        for mat, c, p, per in (("fp", cfg, params, DENSE_FP_PER_FORWARD),
+                               ("int8", qcfg, p_int8, DENSE_INT8_PER_FORWARD)):
+            tag = f"autotune dense {mat}"
+            out[mat] = _autotune_lm(tag, c, p, runs[mat], cache_dir, smi, per, profile=lambda e,
+                                    mat=mat, per=per: {"decode tick, graph": _profile_dense_tick(
+                                        e, f"{mat} tuned", smi, per)})
+            _print_tuned_steps(tag, {"decode tick, graph": profiles[mat]}, out[mat]["profile"],
+                               smi)
+        out.update(_second_and_reloaded("autotune dense int8", qcfg, p_int8, runs["int8"],
+                                        cache_dir, smi, DENSE_INT8_PER_FORWARD, eager=False))
+        table = autotune.active_table()
+        out["report"] = _tune_report("autotune dense", table, smi)
+        out["sweep_s"] = table.sweep_s
+    autotune.deactivate()
+    return out
+
+
 def phase_dense(smi: str) -> dict:
     """Phase 10: full-width gemma2-2b (``configs/gemma2_2b.py``, 26 layers in
     13 local/global pairs, hd 256, the local layers' K/V in a ring), last, on
@@ -3722,6 +4155,9 @@ def phase_dense(smi: str) -> dict:
     for mat, run, per in (("fp", fp, DENSE_FP_PER_FORWARD), ("int8", q8, DENSE_INT8_PER_FORWARD)):
         prof = _profile_dense_tick(run.pop("engine"), mat, smi, per)
         out["profile"][mat] = prof
+    _release()
+    out["autotune"] = _timed(phase_autotune_dense, cfg, params, qcfg, p_int8, out["runs"],
+                             out["profile"], smi)
     print(f"[dense] fp tick byte bound {tick_bound:.3f} ms ({fp_bytes / 1e9:.2f} GB of f32 "
           f"weights at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): graph replay "
           f"{out['profile']['fp']['device_ms']:.3f} ms of device time "
@@ -3795,6 +4231,7 @@ def _serve_dense(cfg, params, mat: str, per: dict, smi: str) -> dict:
     err, agree = _dense_teacher_forced(params, cfg, reqs)
     out = {"counts": counts, "counters": c, "tok_s": tokens / wall, "tok_s_eager": tokens / wall_e,
            "warmup": warm, "programs": programs, "engine": eng,
+           "tokens": [list(r.generated) for r in reqs],
            "tf_max": float(err.max()), "tf_median": float(np.median(err)), "tf_agree": agree}
     print(f"[{tag}] teacher-forced vs prefill, {err.size} steps: max |logit error| median "
           f"{np.median(err):.3g}, p90 {np.quantile(err, 0.9):.3g}, max {err.max():.3g}; "
@@ -3954,6 +4391,7 @@ def main() -> None:
     ep_vision = _timed(phase_ep_vision, qcfg, p_int8, engines["graph"], smi)
     counts = {k: counts.get(k, 0) + vcluster["counts"].get(k, 0) + ep_vision["counts"].get(k, 0)
               for k in set(counts) | set(vcluster["counts"]) | set(ep_vision["counts"])}
+    _timed(phase_autotune_vision, qcfg, p_int8, engines["graph"], smi)
     del p_int8, engines
     torch.cuda.empty_cache()
     lm = _timed(phase_lm, smi)

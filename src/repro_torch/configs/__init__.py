@@ -10,6 +10,7 @@ from repro_torch.configs import moe_vit as _moe_vit
 from repro_torch.configs.base import (
     AttnConfig,
     AutoscaleConfig,
+    AutotuneConfig,
     ContinuousBatchingConfig,
     FaultConfig,
     IntrospectConfig,
@@ -73,6 +74,7 @@ __all__ = [
     "REGISTRY",
     "AttnConfig",
     "AutoscaleConfig",
+    "AutotuneConfig",
     "ContinuousBatchingConfig",
     "FaultConfig",
     "IntrospectConfig",

@@ -102,6 +102,37 @@ class ContinuousBatchingConfig:
 
 
 @dataclass(frozen=True)
+class AutotuneConfig:
+    """Per-device kernel autotuning (``kernels/autotune.py``), the port's
+    counterpart of the reference's Pallas tile search and of the paper's
+    per-deployment re-synthesis of the accelerator (CoQMoE section 4).
+
+    The port tunes no tiles: its kernels have no TPU sublane x lane grid.
+    It tunes the choices its kernels make by rule: the grouped kernel's
+    variant (``mma``, ``stream``, ``dp4a`` / ``fma``) and ``lm_attention``'s
+    schedule (``decode``, ``tile``). When enabled, engine ``warmup()`` runs
+    every program the replica will capture once eagerly, collects the
+    kernel shape-bucket keys they hit, times each legal candidate of each
+    missing key on the card and keeps the fastest in a versioned JSON table
+    per device kind; a later warmup on the same kind sweeps nothing. On
+    the CPU nothing is timed: keys get the rule's pick."""
+
+    enable: bool = False
+    # candidates timed per (kernel, shape-bucket) key at most; the rule's
+    # pick is always the first
+    budget: int = 12
+    # timed repetitions per candidate (the median is kept)
+    reps: int = 5
+    # directory holding one table file per device kind; None falls back to
+    # $REPRO_AUTOTUNE_CACHE, then ".repro_autotune"
+    cache_dir: Optional[str] = None
+    # pinned entries applied over the loaded table, as (entry key, choice)
+    # pairs: the key string ``kernels/autotune.py`` builds and a variant or
+    # schedule name ("mma", "stream", "dp4a", "fma", "decode", "tile")
+    overrides: Tuple[Tuple[str, str], ...] = ()
+
+
+@dataclass(frozen=True)
 class AutoscaleConfig:
     """Target-range admission autoscaling of ``ServingCluster``
     (``serving/autoscaler.py``).
@@ -265,6 +296,8 @@ class ModelConfig:
     num_classes: int = 0
     image_tokens: int = 0  # 197 for a 224/16 ViT (196 patches + cls)
     quant: QuantConfig = field(default_factory=QuantConfig)
+    # per-device kernel autotuning at serving warmup (kernels/autotune.py)
+    autotune: AutotuneConfig = field(default_factory=AutotuneConfig)
     # continuous-batching serving path (serving/engine.py)
     serve: ContinuousBatchingConfig = field(
         default_factory=ContinuousBatchingConfig)

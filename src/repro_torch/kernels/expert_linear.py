@@ -102,6 +102,24 @@ def _aligned(*tensors) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def integer_mode(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether ``grouped_matmul`` runs x and w in an integer mode (else f32)."""
+    return x.dtype == torch.int8 and w.dtype in (torch.int8, torch.uint8)
+
+
+def variant_takes(variant: int, x: torch.Tensor, w: torch.Tensor,
+                  w_scale: Optional[torch.Tensor] = None) -> bool:
+    """Whether ``grouped_matmul(x, w, ..., variant=variant)`` takes these
+    operands: ``takes`` at their widths and at the alignment the wrapper
+    sees (an operand it copies -- not contiguous, or a scale not f32 -- is
+    a fresh allocation, so aligned; its output always is)."""
+    in_place = [t for t in (x, w) if t.is_contiguous()]
+    if w_scale is not None and w_scale.is_contiguous() and w_scale.dtype == torch.float32:
+        in_place.append(w_scale)
+    return takes(variant, x.shape[1], w.shape[2], _aligned(*in_place),
+                 f32=not integer_mode(x, w))
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                    *, w_scale: Optional[torch.Tensor] = None,
                    a_scale=None, variant: Optional[int] = None) -> torch.Tensor:
@@ -120,7 +138,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
             w_scale is not None and w_scale.shape != (G, Dout)):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"group_sizes {tuple(group_sizes.shape)}")
-    int8 = x.dtype == torch.int8 and w.dtype in (torch.int8, torch.uint8)
+    int8 = integer_mode(x, w)
     if not int8 and not (x.dtype == torch.float32 and w.dtype == torch.float32):
         raise TypeError(f"int8/int8, int8/packed-int4 or f32/f32 operands required, "
                         f"got {x.dtype}, {w.dtype}")

@@ -14,6 +14,15 @@ module-global read and builds no name. A range is host-side: it is recorded
 while a step is captured into a CUDA graph and is absent when the graph
 replays, so the ranges name kernels in eager steps (``aot_warmup=False``)
 only; under replay the hand kernels' own device names say which ran.
+
+Autotuning (``kernels/autotune.py``): ``attention`` and ``grouped_matmul``
+resolve their call's shape-bucket key before the device branch, so a
+``collecting()`` scope records it on any device and the active table's
+stats count the lookup. On a CUDA tensor the table's pick goes to the
+kernel as ``schedule=`` / ``variant=``; with no table, on a miss, or where
+the pick cannot take the operands (counted ``untakeable``) the kernel's
+rule picks. A step captured into a CUDA graph keeps the pick its capture
+resolved.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from repro_torch.core.moe.dispatch import expert_of_sorted_rows
 from repro_torch.core.quant.calibrate import maybe_record
 from repro_torch.core.quant.linear_quant import fake_quant_activation
 from repro_torch.core.quant.qtypes import quantize_sym
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.expert_linear import grouped_matmul as _gmm_kernel
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_kernel
@@ -73,23 +83,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     quantized f32 case of the vision models takes ``streaming_attention``
     (K/V of a head in shared memory) while it fits; every other case takes
     ``lm_attention`` (``segments``: its grid hint for segment ids; the
-    plain version has no use for it)."""
+    plain version has no use for it) in the active tuning table's
+    schedule, or the one its rule picks."""
     kw = dict(causal=causal, q_offset=q_offset, quant_bits=quant_bits,
               logit_softcap=logit_softcap, local_window=local_window,
               k_scale=k_scale, v_scale=v_scale, kv_valid_len=kv_valid_len,
               q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
     with _scope(lambda: (f"attention[B={q.shape[0]},Sq={q.shape[1]},H={q.shape[2]},"
                          f"Sk={k.shape[1]},q{quant_bits}]")):
-        if not q.is_cuda:
-            return _ref.flash_attention_ref(q, k, v, **kw)
         vision = (not causal and quant_bits > 0 and not logit_softcap
                   and not local_window and isinstance(q_offset, int) and q_offset == 0
                   and k_scale is None and kv_valid_len is None and q_segment_ids is None
                   and q.dtype == k.dtype == v.dtype == torch.float32
                   and fits_in_shared_memory(k.shape[1], q.shape[-1]))
+        schedule = autotune.attn_schedule(q, k, v, causal=causal, quant_bits=quant_bits,
+                                          local_window=local_window,
+                                          scaled=k_scale is not None, vision=vision)
+        if not q.is_cuda:
+            return _ref.flash_attention_ref(q, k, v, **kw)
         if vision:
             return streaming_attention(q, k, v, quant_bits=quant_bits)
-        return lm_attention(q, k, v, segments=segments, **kw)
+        return lm_attention(q, k, v, segments=segments, schedule=schedule, **kw)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
@@ -101,7 +115,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     int8 weights and nibble-packed int4 (``uint8``, W4A8) stacks execute as
     stored: an fp ``x`` is quantized here with the folded ``a_scale``, the
     contraction accumulates in int32 and the product-of-scales dequant
-    lands once on the accumulator."""
+    lands once on the accumulator. On the card the kernel runs in the
+    active tuning table's variant, or the one its rule picks."""
     integer_w = w.dtype in (torch.int8, torch.uint8)
     if integer_w and x.dtype != torch.int8:
         if a_scale is None:
@@ -112,8 +127,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         x = quantize_sym(x.float(), a_scale, a_bits)
     with _scope(lambda: (f"grouped_matmul[T={x.shape[0]},G={w.shape[0]},"
                          f"Din={w.shape[1]},Dout={w.shape[2]},{w.dtype}]")):
+        variant = autotune.gmm_variant(x, w, w_scale, a_scale)
         if x.is_cuda:
-            return _gmm_kernel(x, w, group_sizes, w_scale=w_scale, a_scale=a_scale)
+            return _gmm_kernel(x, w, group_sizes, w_scale=w_scale, a_scale=a_scale,
+                               variant=variant)
         if w.dtype == torch.uint8:
             return _ref.grouped_matmul_q4_ref(x, w, group_sizes, w_scale, a_scale)
         if w.dtype == torch.int8:

@@ -145,6 +145,18 @@ def _aligned(*tensors) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def schedule_takes(schedule: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether ``lm_attention(q, k, v, ..., schedule=schedule)`` takes these
+    operands: the tile schedule always, the decode schedule where
+    ``choose_schedule`` picks it at the alignment the wrapper sees (an
+    operand it copies is a fresh allocation, so aligned)."""
+    if schedule != 0:
+        return schedule in SCHEDULES
+    B, Sq, H, hd = q.shape
+    aligned = _aligned(*(t for t in (q, k, v) if t.is_contiguous()))
+    return choose_schedule(Sq, k.shape[1], H, k.shape[2], hd, aligned) == 0
+
+
 def lm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True, q_offset=0, quant_bits: int = 0,
                  logit_softcap: float = 0.0, local_window: int = 0,

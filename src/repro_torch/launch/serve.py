@@ -52,6 +52,14 @@ during the run when given; ``--metrics-port N`` serves ``/metrics``,
 ``/healthz`` and ``/snapshot`` over HTTP on 127.0.0.1 for the duration of
 the run (0 picks a free port). On the card the step histograms hold device
 time.
+
+Autotuning: ``--autotune`` tunes the grouped kernel's variant and
+``lm_attention``'s schedule at every engine's warmup, before its graphs are
+captured (``kernels/autotune.py``), and prints the table's summary after
+warmup; the table is ``autotune_torch_<device kind>.json`` under
+``--autotune-cache`` (default ``$REPRO_AUTOTUNE_CACHE``, else
+``.repro_autotune``), so a relaunch on the same kind of card sweeps
+nothing.
 """
 from __future__ import annotations
 
@@ -66,6 +74,7 @@ import numpy as np
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.distributed.fault_tolerance import PreemptionGuard
+from repro_torch.kernels import autotune
 from repro_torch.models import init_model_params
 from repro_torch.serving.cluster import ServingCluster
 from repro_torch.serving.engine import Request, ServeEngine, serving_config
@@ -173,6 +182,13 @@ def main(argv=None) -> None:
                          "replicas (one front-end, least-loaded routing)")
     ap.add_argument("--quantized", action="store_true",
                     help="int8 K/V cache + 4-bit log-sqrt2 attention")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune kernel variants and schedules at warmup on this kind "
+                         "of device (kernels/autotune.py; a table per device kind "
+                         "under --autotune-cache, a cache hit on relaunch)")
+    ap.add_argument("--autotune-cache", default=None,
+                    help="tuning-table directory (default $REPRO_AUTOTUNE_CACHE or "
+                         ".repro_autotune)")
     ap.add_argument("--events-out", default=None,
                     help="stream structured serving events as JSONL here")
     ap.add_argument("--trace-out", default=None,
@@ -210,6 +226,9 @@ def main(argv=None) -> None:
         cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, enable=True))
     if args.chaos:
         cfg = _chaos_config(cfg, args)
+    if args.autotune:
+        cfg = cfg.replace(autotune=dataclasses.replace(
+            cfg.autotune, enable=True, cache_dir=args.autotune_cache))
     if args.trace_out:
         cfg = cfg.replace(trace=dataclasses.replace(cfg.trace, enable=True))
     params = init_model_params(cfg, args.seed, args.device)
@@ -234,6 +253,8 @@ def main(argv=None) -> None:
         # the single engine reports through the cluster's roll-up: one schema
         cm = ClusterMetrics([engine.metrics])
         healthz = None
+    if args.autotune:
+        print(autotune.summary())
     server = None
     if args.metrics_port is not None:
         server = MetricsServer(cm.export_prometheus, healthz_fn=healthz,

@@ -717,7 +717,10 @@ class ServingCluster:
     def warmup(self) -> None:
         """Compile every program on every replica -- active and standby (a
         standby must be warm *before* the autoscaler routes to it) --
-        outside the measured path."""
+        outside the measured path. With ``cfg.autotune.enable`` each
+        replica's warmup tunes first; the table is process-global and kept
+        per device kind, so a replica whose keys an earlier one swept
+        sweeps nothing, and an EP replica sweeps its per-slot keys."""
         for e in self.engines + self._standby:
             e.warmup()
 

@@ -60,7 +60,14 @@ retirement on the grouped path; ``programs.StepTimer``), on the CPU the
 host clock. ``warmup()``
 installs the introspection rows (``serving/introspect.py``: a cost row per
 program, the roofline peaks, the memory probe), and MoE configs feed the
-``ExpertHealthMonitor`` ``expert_health``. Autotune warmup is not ported.
+``ExpertHealthMonitor`` ``expert_health``.
+
+Autotuning, as in the reference: with ``cfg.autotune.enable``, ``warmup()``
+first runs ``kernels/autotune.py:ensure_tuned`` over ``_tune_trace`` (every
+step the engine serves, run once eagerly), which sweeps the kernel keys the
+device kind's table lacks; the graphs are captured after, and each keeps
+the grouped kernel's variant and ``lm_attention``'s schedule that the table
+picked at its capture.
 
 Expert parallelism, as in the reference: with ``cfg.moe.moe_exec ==
 "expert_parallel"`` the engine takes ``mesh=`` (``launch/mesh.py``; the
@@ -86,6 +93,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.expert_parallel import engine_placement, in_ep_mesh, use_ep_mesh
+from repro_torch.kernels import autotune
 from repro_torch.models import module_for
 from repro_torch.models.param import tree_to
 from repro_torch.serving import introspect
@@ -424,7 +432,14 @@ class ServeEngine:
         path's prefill, which stays eager. A tick writes cache rows or
         states of the empty slots; admission overwrites a slot's, so
         nothing leaks. Then the introspection rows are installed: a cost
-        row per program built."""
+        row per program built.
+
+        With ``cfg.autotune.enable`` the kernels are tuned first
+        (``autotune.ensure_tuned`` over ``_tune_trace``: a sweep the first
+        time on a device kind, a cache hit after), before any graph is
+        captured, so each graph keeps the tuned variants and schedules."""
+        if self.cfg.autotune.enable:
+            autotune.ensure_tuned(self.cfg.autotune, self._tune_trace, device=self.device)
         self._warm_programs()
         if self.cfg.introspect.enable:
             introspect.install(self.metrics, cfg=self.cfg, programs=dict(self._programs),
@@ -456,6 +471,37 @@ class ServeEngine:
                     logits, _ = self.mod.prefill(self.params, self.cfg, zeros[None],
                                                  max_len=self.max_len)
             logits.cpu()
+
+    def _tune_trace(self) -> None:
+        """Run every step this replica serves once, eagerly, so that the
+        autotuner's ``collecting()`` scope records the kernel keys they hit
+        (the reference traces them with ``jax.eval_shape``; the port has no
+        abstract trace): the decode tick, every (bucket x prompt count)
+        packed admission on the packed path (as the reference, whether
+        built at warmup or on first use), and on the grouped path the
+        prefill, which serving runs eagerly, at every (prompt count x
+        length) bucket of the power-of-two ladders up to ``batch_slots``
+        and the prompt limit (the reference traces one length), so a served
+        prefill finds its key. Inside the engine's EP scope, so an
+        expert-parallel replica records its per-slot shapes. The cache and
+        the feed are put back after. A family without attention or experts
+        reaches no tuned kernel and runs nothing."""
+        if self.cfg.attn is None and self.cfg.moe is None:
+            return
+        dev = self.device
+        with self._state_kept(), torch.inference_mode(), self._scope():
+            EagerProgram(self._tick_step(), dev)(*self._tick_inputs(np.zeros(self.B, np.int32)))
+            if self._packed:
+                for bucket in self._buckets:
+                    for nb in self._nb_ladder:
+                        self._admit_step(bucket, nb)(
+                            torch.zeros(3 * bucket + 4 * nb, dtype=torch.int32, device=dev))
+                return
+            for n in self._nb_ladder:
+                for length in _pow2_ladder(1, self._prompt_limit):
+                    self.mod.prefill(self.params, self.cfg,
+                                     torch.zeros((n, length), dtype=torch.int32, device=dev),
+                                     max_len=self.max_len)
 
     # -- programs (the reference's AOT program cache) ----------------------------
 
@@ -502,6 +548,27 @@ class ServeEngine:
         return (self._tok if self._packed else host_tokens), self.pos
 
     def _build_tick(self):
+        """The decode tick's program (``_tick_step``); a capture's warm-up
+        call decodes one step, so the state is put back after it."""
+        tick = self._tick_step()
+        if not self._graphs:
+            return self._program(tick)
+        with self._state_kept():
+            return self._program(tick, *self._tick_inputs(np.zeros(self.B, np.int32)))
+
+    @contextlib.contextmanager
+    def _state_kept(self):
+        """Run a block that writes the cache (cache rows, the SSM state) or
+        the token feed, and put both back after it."""
+        state = _leaves(self.cache) + [self._feed]
+        saved = [t.clone() for t in state]
+        try:
+            yield
+        finally:
+            for t, v in zip(state, saved):
+                t.copy_(v)
+
+    def _tick_step(self):
         """The decode tick: one position for every slot at its own fill
         level, from tokens [B] (the feed, or host tokens); the cache is
         updated in place (the SSM's new state is written over the old),
@@ -523,17 +590,14 @@ class ServeEngine:
                 feed.copy_(nxt)
             return nxt, logits, (out[2]["expert_tokens"] if with_stats else None)
 
-        if not self._graphs:
-            return self._program(tick)
-        # the capture's warm-up call decodes one step: put the state back
-        state = _leaves(cache) + [self._feed]
-        saved = [t.clone() for t in state]
-        prog = self._program(tick, *self._tick_inputs(np.zeros(self.B, np.int32)))
-        for t, v in zip(state, saved):
-            t.copy_(v)
-        return prog
+        return tick
 
     def _build_admit(self, bucket: int, nb: int):
+        """The program of one packed admission (``_admit_step``)."""
+        return self._program(self._admit_step(bucket, nb),
+                             np.zeros(3 * bucket + 4 * nb, np.int32))
+
+    def _admit_step(self, bucket: int, nb: int):
         """One packed admission (the reference's ``_build_admit``): one
         segment-masked prefill over ``[1, bucket]`` tokens holding up to
         ``nb`` prompts, each prompt's first token (argmax on the device),
@@ -555,7 +619,7 @@ class ServeEngine:
             feed.index_copy_(0, torch.where(lens > 0, slots, B).long(), first)
             return first, logits
 
-        return self._program(admit, np.zeros(3 * bucket + 4 * nb, np.int32))
+        return admit
 
     # -- retirement --------------------------------------------------------------
 

@@ -34,8 +34,13 @@ program key: on the card its device time, from CUDA events the captured
 graph records at its first and last node, read at retirement
 (``programs.StepTimer``), on the CPU the host time from dispatch to
 retirement. ``warmup()`` installs the introspection rows,
-and an MoE config feeds the ``ExpertHealthMonitor`` ``expert_health``. The
-reference's autotuning is not ported.
+and an MoE config feeds the ``ExpertHealthMonitor`` ``expert_health``.
+
+Autotuning, as in the reference: with ``cfg.autotune.enable``, ``warmup()``
+first runs ``kernels/autotune.py:ensure_tuned`` over ``_tune_trace`` (each
+bucket's ``classify`` once, eagerly); the graphs are captured after, and
+each keeps the grouped kernel's variant that the table picked at its
+capture.
 
 Expert parallelism, as in the reference: an expert-parallel config
 (``cfg.moe.moe_exec == "expert_parallel"``) takes ``mesh=``, and each
@@ -45,6 +50,7 @@ device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -54,7 +60,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.expert_parallel import engine_placement, in_ep_mesh
+from repro_torch.distributed.expert_parallel import engine_placement, in_ep_mesh, use_ep_mesh
+from repro_torch.kernels import autotune
 from repro_torch.models.param import tree_to
 from repro_torch.models.vit import PATCH_DIM, classify
 from repro_torch.serving import introspect
@@ -201,11 +208,30 @@ class VisionEngine:
                     if self._graphs else EagerProgram(fn, self.device))
         return prog
 
+    def _tune_trace(self) -> None:
+        """Every bucket's ``classify`` run once, eagerly, on zero patches,
+        so that the autotuner's ``collecting()`` scope records the kernel
+        keys this replica's programs hit (the reference traces them with
+        ``jax.eval_shape``); inside the EP mesh's scope, so an
+        expert-parallel replica records its per-slot shapes."""
+        for b in self.scheduler.batch_sizes:
+            x = torch.zeros((b, self.n_patches, PATCH_DIM), device=self.device)
+            with torch.inference_mode(), self._ep_scope():
+                classify(self.params, self.cfg, x, top_k=self.top_k)
+
+    def _ep_scope(self):
+        return use_ep_mesh(self.mesh) if self._ep else contextlib.nullcontext()
+
     def warmup(self) -> None:
         """Build every bucket's program outside the measured serving path
         (on the card with ``aot_warmup``: capture its graph; eagerly: run
         it once, which builds the kernels and warms the allocator), then
-        install the introspection rows: a cost row per bucket."""
+        install the introspection rows: a cost row per bucket. With
+        ``cfg.autotune.enable`` the kernels are tuned first
+        (``autotune.ensure_tuned`` over ``_tune_trace``), before any graph
+        is captured, so each graph keeps the tuned picks."""
+        if self.cfg.autotune.enable:
+            autotune.ensure_tuned(self.cfg.autotune, self._tune_trace, device=self.device)
         for b in self.scheduler.batch_sizes:
             prog = self._compiled(b, count_miss=False)
             if prog.graph is None:

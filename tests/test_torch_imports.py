@@ -42,7 +42,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.configs.llama3_8b, repro_torch.serving.trace, "
             "repro_torch.serving.introspect, repro_torch.serving.metrics_server, "
             "repro_torch.serving.metrics, repro_torch.analysis.hw, "
-            "repro_torch.kernels.ops, repro_torch.distributed.expert_parallel, "
+            "repro_torch.kernels.ops, repro_torch.kernels.autotune, "
+            "repro_torch.distributed.expert_parallel, "
             "repro_torch.launch.mesh; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'repro' not in sys.modules, 'repro imported'")
