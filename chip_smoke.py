@@ -285,6 +285,40 @@ caught:
                  sequence. (d) One fp and one int8 tick (8 slots at fill
                  300) profiled as graph replays beside the fp tick's byte
                  bound.
+ 11. train   -- last, after every serving phase, so it cannot move their
+                 gates, and under ``torch.use_deterministic_algorithms(True)``
+                 (``train.trainer.deterministic_mode``). (a) Full-width
+                 M3ViT-S, seeded fp params, one pipeline batch of 64: step-0
+                 loss and gradients with the kernels and again with their
+                 plain versions on the card (``_plain_kernels``), and the
+                 plain ones again at ``TRAIN_CONTROLS`` copies of the params
+                 perturbed by ``TRAIN_CONTROL_EPS`` (the step-0 gradient's
+                 own conditioning): the loss and every leaf within the larger
+                 of ``TRAIN_LOSS_REL`` / ``TRAIN_GRAD_REL`` and
+                 ``TRAIN_CONTROL_FACTOR`` times the controls' (the k bias,
+                 zero in exact arithmetic, under ``TRAIN_NOISE`` of the
+                 global norm on both sides), every leaf with a nonzero plain
+                 gradient nonzero with the kernels; the worst leaves
+                 printed. (b) ``Trainer``
+                 through ``launch/train.py``'s ``main``: 40 steps at batch 64,
+                 lr ``TRAIN_LR``, the default 10 warm-up steps; the mean loss
+                 of the last 5 steps at least ``TRAIN_LOSS_DROP`` below the
+                 first 5's; step device time, images/s, peak memory and the
+                 launches a step printed. (c) Two runs of 3 steps from one
+                 state bit-equal; 10 steps straight bit-equal in every param
+                 and optimizer leaf to 5, a checkpoint, a fresh ``Trainer``
+                 restoring it and 5 more; a preemption requested at step 3
+                 drains at step 4 with a checkpoint. (d) Full-width
+                 OLMoE-1B-7B at 2 layers, batch 4 x 256 through
+                 ``impl="gshard"``: (a)'s gates on its step-0 gradients, and
+                 one ``build_train_step`` update, finite. (e) One M3ViT-S
+                 step profiled: every device kernel by name and count.
+                 Phase 3 holds the weight-gradient kernel against its plain
+                 version at M3ViT-S's fc1 and fc2 training shapes (64 x 197
+                 x 2 = 25216 rows over 16 experts, one empty, one skewed;
+                 atol = rtol = 1e-4; the error against an f64 plain version
+                 printed) and at ragged widths, and the f32 grouped kernel
+                 at the shapes of the expert layers' dx.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before that
@@ -325,6 +359,8 @@ REPLACES = {
     "lm_attention": "src/repro/kernels/quant_attention.py:207",
     "selective_scan": "src/repro/kernels/selective_scan.py:70",
     "rmsnorm": "src/repro/models/layers.py:21",  # plain XLA, not a Pallas kernel
+    # XLA's transpose rule of ragged_dot, not a Pallas kernel
+    "grouped_wgrad": "src/repro/kernels/ops.py:233",
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu",
@@ -333,6 +369,7 @@ SOURCES = {
     "lm_attention": "src/repro_torch/kernels/csrc/lm_attention.cu",
     "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
     "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+    "grouped_wgrad": "src/repro_torch/kernels/csrc/grouped_wgrad.cu",
 }
 # kernel launches per int8 forward of M3ViT-S: 6 dense layers x (q, k, v, o,
 # fc1, fc2) + 6 MoE layers x (q, k, v, o, gate) + head; 6 MoE layers x (fc1,
@@ -448,6 +485,33 @@ DENSE_FP_TF_LIMITS = (2.7e-2, 3.7e-2)
 # ring 4096), a prompt that wraps the ring in its prefill and one that wraps
 # it in decode, 64 new tokens each
 DENSE_RING_MAX_LEN, DENSE_RING_PROMPTS, DENSE_RING_NEW = 4608, (4100, 4060), 64
+# phase 11: full-width M3ViT-S training. The batch, the Trainer's steps and
+# its learning rate (AdamW, warm-up: TrainerConfig's default 10 steps, then
+# cosine to 0 at step 40); the loss gate is the reference Trainer test's margin
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = "m3vit-small", 64, 40, 1e-3
+TRAIN_LOSS_DROP = 0.2
+# kernels against plain versions, step-0: the loss's relative error and each
+# leaf's ||g_kernel - g_plain|| / ||g_plain||, each held to the larger of a
+# floor and TRAIN_CONTROL_FACTOR times the most that TRAIN_CONTROLS copies of
+# the params perturbed by TRAIN_CONTROL_EPS (relative, f32 rounding's size)
+# move the plain ones. At full width the step-0 gradient is ill-conditioned:
+# rounding-sized changes flip expert routings, the attention's row max and
+# its 4-bit codes, and on an H100 a 1e-7 perturbation of the input patches
+# moved every leaf of M3ViT-S's by 8-19% and the loss by 7.8e-5, the kernels
+# theirs by 8-11% and 1.04e-5. A leaf whose gradient is zero in exact
+# arithmetic (the attention's k bias: a constant added to a row's scores
+# cancels in the softmax) holds rounding noise on both sides, gated at
+# TRAIN_NOISE of the global gradient norm instead
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_NOISE = 1e-5, 1e-3, 1e-4
+TRAIN_CONTROLS, TRAIN_CONTROL_EPS, TRAIN_CONTROL_FACTOR = 2, 1e-7, 2.0
+# the LM step: full-width OLMoE-1B-7B cut to 2 layers (all 16 with AdamW in
+# f32 need ~110 GB), 4 x 256 tokens through impl="gshard"
+TRAIN_LM_ARCH, TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_SEQ = "olmoe-1b-7b", 2, 4, 256
+# the training shapes of the weight-gradient rows: M3ViT-S's routed rows at
+# batch 64 (top 2 of 16 experts), one expert empty, one with ~5x the mean
+WGRAD_T, WGRAD_G, WGRAD_EMPTY, WGRAD_SKEWED = TRAIN_BATCH * 197 * 2, 16, 3, 7
+WGRAD_RAGGED = [(37, 3, 100, 70), (1, 1, 8, 8), (0, 4, 64, 64)]  # (T, G, Din, Dout)
+WGRAD_SEED = 13  # the training rows draw their own operands: earlier checks keep theirs
 
 
 def emit(obj) -> None:
@@ -1781,12 +1845,100 @@ def _check_rmsnorm(gen) -> dict:
                                     "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
+def _wgrad_sizes(T: int, G: int) -> torch.Tensor:
+    """M3ViT-S's routed rows over its experts: random loads, expert
+    ``WGRAD_EMPTY`` with none, expert ``WGRAD_SKEWED`` with ~5x the mean."""
+    rng = np.random.default_rng(11)
+    share = rng.uniform(0.5, 1.5, G)
+    share[WGRAD_EMPTY], share[WGRAD_SKEWED] = 0.0, 5.0
+    sizes = np.floor(T * share / share.sum()).astype(np.int64)
+    sizes[0] += T - sizes.sum()
+    return torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def _wgrad_timing(label, x, dy, sizes) -> dict:
+    """The weight-gradient kernel against its plain version (f32, and f64
+    for the error), timed beside it and bounded: 2 T Din Dout operations at
+    the f32 rate (3xTF32 beside it, for a tensor-core design), each input
+    read once and dw written once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.expert_linear import grouped_wgrad
+
+    T, Din = x.shape
+    G, Dout = sizes.shape[0], dy.shape[1]
+    got = grouped_wgrad(x, dy, sizes)
+    want = ref.grouped_wgrad_ref(x, dy, sizes)
+    want64 = ref.grouped_wgrad_ref(x.double(), dy.double(), sizes)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=lambda m: (
+        f"grouped_wgrad {label} T={T} G={G} {Din}x{Dout}: {m}"))
+    for g in range(G):
+        if int(sizes[g]) == 0 and bool(got[g].any()):
+            raise AssertionError(f"grouped_wgrad {label}: empty group {g} is not zero")
+    if not torch.equal(got, grouped_wgrad(x, dy, sizes)):
+        raise AssertionError(f"grouped_wgrad {label}: two calls differ")
+    n_bytes = 4 * (T * Din + T * Dout + G * Din * Dout)
+    nb, by = bound_ms(n_bytes, 2.0 * T * Din * Dout, F32_OPS_PER_S)
+    nb3, by3 = bound_ms(n_bytes, 3 * 2.0 * T * Din * Dout, TF32_OPS_PER_S)
+    row = {"label": label, "shape": [T, G, Din, Dout], "max_abs_err": max_err(got, want),
+           "f64_max_abs_err": max_err(got.double(), want64),
+           "plain_f64_max_abs_err": max_err(want.double(), want64)}
+    if T:
+        _one_device_kernel(f"grouped_wgrad {label}", lambda: grouped_wgrad(x, dy, sizes))
+        row.update(ms=graph_ms(lambda: grouped_wgrad(x, dy, sizes)),
+                   plain_ms=time_ms(lambda: ref.grouped_wgrad_ref(x, dy, sizes), iters=5),
+                   bound_ms=nb, bound_by=by, bound_3xtf32_ms=nb3, bound_3xtf32_by=by3)
+        print(f"[kernels] grouped_wgrad {label} {row['shape']}: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {nb:.5f} ms ({by}), 3xTF32 bound "
+              f"{nb3:.5f} ms ({by3}); max err {row['max_abs_err']:.3g} (vs f64: kernel "
+              f"{row['f64_max_abs_err']:.3g}, plain f32 {row['plain_f64_max_abs_err']:.3g})",
+              flush=True)
+    return row
+
+
+def _check_grouped_training(gen) -> list:
+    """The backward of the expert linears at M3ViT-S's training shapes
+    (``WGRAD_T`` routed rows over 16 experts, one empty, one skewed): the
+    weight-gradient kernel for fc1 (x [T, 384], dy [T, 1536]) and fc2 (x
+    [T, 1536], dy [T, 384]) and at ``WGRAD_RAGGED``; the f32 grouped kernel
+    at the dx shapes (dy against the transposed stacks), every variant
+    within 1e-5 (``_check_grouped_f32``), timed in the one the rule picks."""
+    sizes = _wgrad_sizes(WGRAD_T, WGRAD_G)
+    rows, dx = {}, {}
+    checked: dict = {}
+    for label, Din, Dout in (("m3vit_fc1", 384, 1536), ("m3vit_fc2", 1536, 384)):
+        x = torch.randn((WGRAD_T, Din), generator=gen, device="cuda")
+        dy = torch.randn((WGRAD_T, Dout), generator=gen, device="cuda") / math.sqrt(WGRAD_T)
+        rows[label] = _wgrad_timing(label, x, dy, sizes)
+        w_t = (torch.randn((WGRAD_G, Din, Dout), generator=gen, device="cuda")
+               / math.sqrt(Din)).transpose(1, 2).contiguous()
+        err = _check_grouped_f32(dy * math.sqrt(WGRAD_T), w_t, sizes, checked)
+        dx[label] = dict(_grouped_timing(f"{label}_dx", dy * math.sqrt(WGRAD_T), w_t, sizes),
+                         max_abs_err=err)
+        del x, dy, w_t
+    ragged = [_wgrad_timing(f"ragged_{T}x{G}x{Din}x{Dout}",
+                            torch.randn((T, Din), generator=gen, device="cuda"),
+                            torch.randn((T, Dout), generator=gen, device="cuda"),
+                            _routing(gen, T, G) if T else
+                            torch.zeros(G, dtype=torch.int32, device="cuda"))
+              for T, G, Din, Dout in WGRAD_RAGGED]
+    fc1 = rows["m3vit_fc1"]
+    wgrad_row = {"name": "grouped_wgrad", "mode": "f32", "library_ms": None,
+                 "tolerance": "atol=1e-4, rtol=1e-4; empty group zero; two calls bit-equal",
+                 **fc1, "fc2": rows["m3vit_fc2"], "ragged": ragged}
+    dx_row = {"name": "grouped_matmul_f32[dx]", "mode": "f32", "library_ms": None,
+              "tolerance": "atol=1e-5, rtol=1e-5; mma and stream bit-equal",
+              **dx["m3vit_fc1"], "fc2": dx["m3vit_fc2"], "checked": checked}
+    return [wgrad_row, dx_row]
+
+
 def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [_check_int8_matmul(gen), *_check_grouped_matmul(gen), _check_attention(gen),
             _check_grouped_w4a8(gen),
             *_check_lm_attention(torch.Generator(device="cuda").manual_seed(LM_ATTENTION_SEED)),
-            *_check_selective_scan(gen), _check_rmsnorm(gen)]
+            *_check_selective_scan(gen), _check_rmsnorm(gen),
+            *_check_grouped_training(torch.Generator(device="cuda").manual_seed(WGRAD_SEED))]
     for row in rows:
         row["route"] = "cuda"
         base = row["name"].split("[")[0].removesuffix("_f32").removesuffix("_w4a8")
@@ -2895,7 +3047,12 @@ class _StepTimer:
             t0 = time.perf_counter()
             c.step()
             self.outside.append(time.perf_counter() - t0 - self._inside)
-        raise AssertionError(f"requests still queued or in flight after {max_steps} steps")
+        counters = c.metrics.snapshot()["aggregate"]["counters"]
+        raise AssertionError(
+            f"requests still queued or in flight after {max_steps} steps: front-end depth "
+            f"{c.depth}, active replicas {len(c.engines)} (loads "
+            f"{[e.load for e in c.engines]}), draining {len(c._draining)}, standby "
+            f"{len(c._standby)}; nonzero counters {({k: v for k, v in counters.items() if v})}")
 
     def summary(self) -> str:
         us = 1e6 * np.asarray(self.outside)
@@ -4335,15 +4492,335 @@ def _profile_dense_tick(eng, mat: str, smi: str, per: dict) -> dict:
     return prof
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+# device kernel names of the training step's profile (the serving phases'
+# families and the weight gradient)
+TRAIN_KERNEL_NAMES = dict(KERNEL_NAMES, grouped_wgrad=("grouped_wgrad_kernel",))
+
+
+def _train_counts(reset: bool = False) -> dict:
+    """The wrappers' launch counts and the weight-gradient kernel's (read,
+    or with ``reset`` set to 0)."""
+    from repro_torch.kernels.expert_linear import grouped_wgrad
+
+    if reset:
+        _reset_counts()
+        grouped_wgrad.launches = 0
+        return {}
+    return dict(_read_counts(), grouped_wgrad=grouped_wgrad.launches)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every kernel entry of ``kernels/ops.py`` on the training path (the
+    grouped f32 mode and its weight gradient, both attention routes,
+    RMSNorm) replaced by its plain version, so that CUDA tensors run the
+    plain path on the card through the same autograd Functions."""
+    from repro_torch.kernels import ops, ref
+
+    saved = {n: getattr(ops, n) for n in ("_gmm_kernel", "_wgrad_kernel", "streaming_attention",
+                                          "lm_attention", "_rmsnorm_kernel")}
+    ops._gmm_kernel = lambda x, w, gs, **kw: ref.grouped_matmul_ref(x, w, gs)
+    ops._wgrad_kernel = ref.grouped_wgrad_ref
+    ops.streaming_attention = lambda q, k, v, quant_bits: ref.flash_attention_ref(
+        q, k, v, causal=False, quant_bits=quant_bits)
+    ops.lm_attention = lambda q, k, v, segments=None, schedule=None, **kw: (
+        ref.flash_attention_ref(q, k, v, **kw))
+    ops._rmsnorm_kernel = ref.rmsnorm_ref
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def _flat_leaves(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat_leaves(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _perturbed(params, seed: int):
+    """Every float leaf times (1 + ``TRAIN_CONTROL_EPS`` N(0, 1)): a
+    perturbation at the size of f32 rounding."""
+    from repro_torch.models.param import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tree_map(lambda p: p * (1 + TRAIN_CONTROL_EPS * torch.randn(
+        p.shape, generator=gen, device=p.device)), params)
+
+
+def _grad_parity(tag: str, cfg, params, batch, smi: str) -> dict:
+    """Gate: step-0 loss and gradients with the kernels against the plain
+    versions on the card. The plain gradient is taken again at
+    ``TRAIN_CONTROLS`` perturbed copies of the params (``_perturbed``):
+    how far rounding-sized input changes move it through the path's
+    discrete choices (expert routing, the row max and the 4-bit codes of the
+    attention) is the problem's own conditioning. Each leaf's relative
+    difference (and the loss's) is held to the larger of ``TRAIN_GRAD_REL``
+    (``TRAIN_LOSS_REL``) and ``TRAIN_CONTROL_FACTOR`` times the largest
+    control's; the leaves zero in exact arithmetic to ``TRAIN_NOISE`` of
+    the global norm; every leaf with a nonzero plain gradient is nonzero
+    with the kernels."""
+    from repro_torch.train.train_step import value_and_grad
+
+    _train_counts(reset=True)
+    g_k, m_k = value_and_grad(params, cfg, batch)
+    counts = _train_counts()
+    with _plain_kernels():
+        g_p, m_p = value_and_grad(params, cfg, batch)
+        controls = [value_and_grad(_perturbed(params, seed), cfg, batch)
+                    for seed in range(1, TRAIN_CONTROLS + 1)]
+    if _train_counts() != counts:
+        raise AssertionError(f"[{tag}] the plain runs launched kernels: {counts} -> "
+                             f"{_train_counts()}")
+    loss_p = float(m_p["loss"])
+    loss_rel = abs(float(m_k["loss"]) - loss_p) / abs(loss_p)
+    loss_ctl = max(abs(float(m["loss"]) - loss_p) / abs(loss_p) for _, m in controls)
+    gk, gp = _flat_leaves(g_k), _flat_leaves(g_p)
+    gc = [_flat_leaves(g) for g, _ in controls]
+    norm = {k: float(torch.linalg.vector_norm(v.double())) for k, v in gp.items()}
+    total = math.sqrt(sum(n * n for n in norm.values()))
+
+    def rel(a, k):
+        return float(torch.linalg.vector_norm(a[k].double() - gp[k].double())) / norm[k]
+
+    rows, noise, detached = [], {}, []
+    for k in gp:
+        if norm[k] > 0 and not bool(gk[k].any()):
+            detached.append(k)
+        if norm[k] <= TRAIN_NOISE * total:
+            noise[k] = (norm[k] / total, float(torch.linalg.vector_norm(gk[k].double())) / total)
+            continue
+        rows.append((rel(gk, k), max(rel(c, k) for c in gc), k))
+    over = [(r, c, k) for r, c, k in rows if r > max(TRAIN_GRAD_REL, TRAIN_CONTROL_FACTOR * c)]
+    worst = max(rows)
+    print(f"[{tag}] step-0 loss kernels {float(m_k['loss'])!r} plain {loss_p!r} (rel "
+          f"{loss_rel:.3g}; controls up to {loss_ctl:.3g}); global grad norm {total:.6g}; "
+          f"launches {({k: v for k, v in counts.items() if v and ':' not in k})} ({smi})",
+          flush=True)
+    for r, cr, k in sorted(rows, reverse=True)[:8]:
+        print(f"[{tag}]   {k:36s} kernels rel {r:.3g}, controls up to {cr:.3g}", flush=True)
+    print(f"[{tag}]   under the noise floor (plain, kernels / global): "
+          f"{({k: (f'{a:.2g}', f'{b:.2g}') for k, (a, b) in noise.items()})}", flush=True)
+    if detached:
+        raise AssertionError(f"[{tag}] zero kernel gradient where the plain one is not: "
+                             f"{detached}")
+    if loss_rel > max(TRAIN_LOSS_REL, TRAIN_CONTROL_FACTOR * loss_ctl) or over:
+        raise AssertionError(f"[{tag}] loss rel {loss_rel:.3g} (controls {loss_ctl:.3g}); "
+                             f"leaves over their limit: {over}")
+    bad = {k: v for k, v in noise.items() if v[1] > TRAIN_NOISE or not k.endswith("attn/bk")}
+    if bad:
+        raise AssertionError(f"[{tag}] leaves under the noise floor that should not be "
+                             f"(or kernels above it): {bad}")
+    print(f"[{tag}] gradient parity: the loss and every leaf within max({TRAIN_LOSS_REL} / "
+          f"{TRAIN_GRAD_REL}, {TRAIN_CONTROL_FACTOR} x the controls), none detached; worst "
+          f"leaf {worst[2]} {worst[0]:.3g} (gate)", flush=True)
+    return {"loss": float(m_k["loss"]), "loss_plain": loss_p, "loss_rel": loss_rel,
+            "loss_control_rel": loss_ctl, "worst_leaf": worst[2], "worst_rel": worst[0],
+            "worst_control_rel": worst[1], "counts": counts}
+
+
+def _train_step_profile(tag: str, step_fn, state, batch, smi: str) -> dict:
+    """One training step under ``torch.profiler``: every device kernel by
+    name and count, the hand kernels' families beside the launches their
+    wrappers counted in the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn(state, batch)  # warm
+    torch.cuda.synchronize()
+    _train_counts(reset=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    counts = _train_counts()
+    by_name: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
+            us, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (us + ev.device_time, n + 1)
+    fam = {f: sum(n for name, (_, n) in by_name.items() if any(k in name for k in ks))
+           for f, ks in TRAIN_KERNEL_NAMES.items()}
+    device_ms = sum(us for us, _ in by_name.values()) / 1e3
+    print(f"[{tag}] one step profiled ({smi}): {len(by_name)} kernel names, "
+          f"{sum(n for _, n in by_name.values())} kernels, {device_ms:.2f} ms device time; "
+          f"hand kernels in the trace {fam}, wrapper launches "
+          f"{ {f: counts.get(f, 0) for f in TRAIN_KERNEL_NAMES} }", flush=True)
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"[{tag}] {us / 1e3:9.3f} ms {n:5d} x  {name[:100]}", flush=True)
+    for f in ("grouped_matmul", "grouped_wgrad", "streaming_attention"):
+        if fam[f] == 0:
+            raise AssertionError(f"[{tag}] no {f} kernel in the profiled step")
+    return {"device_ms": device_ms, "kernels": by_name, "families": fam, "counts": counts}
+
+
+def _leaves_equal(a, b) -> bool:
+    from repro_torch.models.param import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _train_determinism(cfg, shape, smi: str) -> dict:
+    """Gate: two runs of 3 steps from one state bit-equal; 10 steps straight
+    equal to 5, a checkpoint, a fresh Trainer restoring it and 5 more, bit
+    for bit in every param and optimizer leaf; a preemption requested at
+    step 3 drains at step 4 with a checkpoint. The steps stay inside the
+    default 10 warm-up steps, where the schedule does not depend on
+    ``total_steps``."""
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.train import Trainer, TrainerConfig, build_train_step, init_train_state
+
+    tag = "train determinism"
+    opt = make_optimizer("adamw", warmup_cosine(TRAIN_LR, 10, 10))
+    step_fn = build_train_step(cfg, shape, None, opt)
+    pipe = SyntheticPipeline(cfg, shape, seed=0)
+    s0 = init_train_state(cfg, opt, 0, device="cuda")
+    runs = []
+    for _ in range(2):
+        s = s0
+        for i in range(3):
+            s, _ = step_fn(s, pipe.batch_for_step(i))
+        runs.append(s)
+    if not (_leaves_equal(runs[0].params, runs[1].params)
+            and _leaves_equal(runs[0].opt_state, runs[1].opt_state)):
+        raise AssertionError(f"[{tag}] two runs of 3 steps from one state differ")
+    del runs, s, s0
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def trainer(total, sub=None, every=1000):
+        return Trainer(cfg, shape, None, TrainerConfig(
+            total_steps=total, lr=TRAIN_LR, log_every=1000, checkpoint_every=every,
+            checkpoint_dir=None if sub is None else str(ckpt / sub), device="cuda"))
+
+    t0 = time.perf_counter()
+    straight = trainer(10).run()
+    trainer(5, "resume", every=5).run()
+    resumed = trainer(10, "resume").run()  # restores step 5, runs 5 more
+    if not (int(straight.step) == int(resumed.step) == 10
+            and _leaves_equal(straight.params, resumed.params)
+            and _leaves_equal(straight.opt_state, resumed.opt_state)):
+        raise AssertionError(f"[{tag}] 5 + checkpoint + 5 steps differ from 10 straight")
+    del straight, resumed
+    pre = trainer(50, "preempt")
+    state = pre.run(on_step=lambda step, rec: step == 3 and pre.guard.request())
+    if int(state.step) != 4 or pre.ckpt.latest_step() != 4:
+        raise AssertionError(f"[{tag}] preemption at step 3: stopped at {int(state.step)}, "
+                             f"checkpoint {pre.ckpt.latest_step()}")
+    ckpt_bytes = sum(f.stat().st_size for f in (ckpt / "preempt").rglob("*.npy"))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[{tag}] two 3-step runs bit-equal; 10 steps straight = 5 + checkpoint + "
+          f"restore + 5, every param and optimizer leaf bit for bit; preemption at step 3 "
+          f"drained at step 4 with a checkpoint of {ckpt_bytes / 1e9:.2f} GB (gate; "
+          f"{time.perf_counter() - t0:.1f} s, {smi})", flush=True)
+    return {"checkpoint_gb": ckpt_bytes / 1e9}
+
+
+def phase_train(smi: str) -> dict:
+    """Phase 11 (see the module docstring): M3ViT-S gradient parity, the
+    Trainer through launch/train.py, determinism and resume, the OLMoE
+    2-layer step, one profiled step."""
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.data import SyntheticPipeline, batch_to
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_model_params
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.train.trainer import deterministic_mode
+
+    deterministic_mode()
+    out: dict = {}
+    cfg = get_config(TRAIN_ARCH)
+    shape = TRAIN_4K.replace(global_batch=TRAIN_BATCH)
+    params = init_model_params(cfg, 0, "cuda")
+    batch = batch_to(SyntheticPipeline(cfg, shape, seed=0).batch_for_step(0), "cuda")
+    out["parity"] = _grad_parity("train m3vit", cfg, params, batch, smi)
+    del params
+
+    # (b) the Trainer through launch/train.py's main
+    torch.cuda.reset_peak_memory_stats()
+    _train_counts(reset=True)
+    t0 = time.perf_counter()
+    tr = launch_train.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                            "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR)])
+    wall = time.perf_counter() - t0
+    counts = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.history]
+    times = sorted(h["step_time_s"] for h in tr.history[1:])
+    step_s = times[len(times) // 2]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v and ":" not in k}
+    print(f"[train m3vit] Trainer, {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, lr {TRAIN_LR} "
+          f"(10 warm-up steps, cosine): loss first 5 {first:.4f}, last 5 {last:.4f}; losses "
+          f"{[round(x, 4) for x in losses]}; step device time median {step_s * 1e3:.2f} ms "
+          f"(min {times[0] * 1e3:.2f}, max {times[-1] * 1e3:.2f}), "
+          f"{TRAIN_BATCH / step_s:.1f} images/s, peak memory {peak / 1e9:.2f} GB, wall "
+          f"{wall:.1f} s; launches a step {per_step} ({smi})", flush=True)
+    if not last <= first - TRAIN_LOSS_DROP:
+        raise AssertionError(f"[train m3vit] loss fell {first - last:.4f}, expected at least "
+                             f"{TRAIN_LOSS_DROP}")
+    out["trainer"] = {"first5": first, "last5": last, "step_ms": step_s * 1e3,
+                      "images_per_s": TRAIN_BATCH / step_s, "peak_gb": peak / 1e9,
+                      "counts": counts, "steps": TRAIN_STEPS}
+    del tr
+
+    # (c) determinism and resume
+    out["determinism"] = _train_determinism(cfg, shape, smi)
+
+    # (e) one M3ViT-S step profiled
+    opt = make_optimizer("adamw", warmup_cosine(TRAIN_LR, 10, TRAIN_STEPS))
+    step_fn = build_train_step(cfg, shape, None, opt)
+    state = init_train_state(cfg, opt, 0, device="cuda")
+    out["profile"] = _train_step_profile("train m3vit", step_fn, state,
+                                         SyntheticPipeline(cfg, shape).batch_for_step(0), smi)
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # (d) the LM step
+    lm_cfg = get_config(TRAIN_LM_ARCH).replace(num_layers=TRAIN_LM_LAYERS)
+    lm_shape = TRAIN_4K.replace(seq_len=TRAIN_LM_SEQ, global_batch=TRAIN_LM_BATCH)
+    lm_params = init_model_params(lm_cfg, 0, "cuda")
+    lm_batch = SyntheticPipeline(lm_cfg, lm_shape, seed=0).batch_for_step(0)
+    out["lm_parity"] = _grad_parity("train olmoe", lm_cfg, lm_params,
+                                    batch_to(lm_batch, "cuda"), smi)
+    lm_opt = make_optimizer(lm_cfg.optimizer, warmup_cosine(TRAIN_LR, 1, 10))
+    state = init_train_state(lm_cfg, lm_opt, params=lm_params)
+    state, metrics = build_train_step(lm_cfg, lm_shape, None, lm_opt)(state, lm_batch)
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(
+        {"p": state.params, "o": state.opt_state}))
+    print(f"[train olmoe] one build_train_step update: loss {float(metrics['loss']):.4f}, "
+          f"grad norm {float(metrics['grad_norm']):.4f}, every param and optimizer leaf "
+          f"finite: {finite} (gate)", flush=True)
+    if not (finite and math.isfinite(float(metrics["loss"]))):
+        raise AssertionError("[train olmoe] the update is not finite")
+    del state, lm_params
+    torch.cuda.empty_cache()
+    return out
+
+
 def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
-              dense: dict) -> int:
+              dense: dict, train: dict) -> int:
     """A row's launches on the main path: the vision serving run and the
     vision cluster's, and for the modes the LM runs, the three OLMoE serving
     runs (fp, int8, W4A8) and the two LM cluster runs (the fp32 grouped row
     also the calibration forwards, the calibration attention row those
     alone); the scan's, the falcon-mamba serving run; the gemma2 rows',
     the gemma2-2b serving runs (fp, int8, ring wrap), which also add to
-    ``int8_matmul`` and ``rmsnorm``."""
+    ``int8_matmul`` and ``rmsnorm``; the training rows', the Trainer's 40
+    steps (the dx row: every f32 grouped launch of those steps, forward,
+    recompute and dx)."""
+    if row["name"] in ("grouped_wgrad", "grouped_matmul_f32[dx]"):
+        return train["trainer"]["counts"][row["name"].removesuffix("_f32[dx]")]
     runs = ([r["counts"] for r in lm["runs"].values()]
             + [r["counts"] for r in lm["cluster"].values()]
             + list(lm["ep"]["runs"].values()) + [lm["gshard"]["counts"]])
@@ -4397,14 +4874,17 @@ def main() -> None:
     lm = _timed(phase_lm, smi)
     ssm = _timed(phase_ssm, smi)
     dense = _timed(phase_dense, smi)
+    train = _timed(phase_train, smi)
     for row in rows:
-        row["launches"] = _launches(row, counts, calib_counts, lm, ssm, dense)
+        row["launches"] = _launches(row, counts, calib_counts, lm, ssm, dense, train)
+        if row["name"] in ("grouped_wgrad", "grouped_matmul_f32[dx]"):
+            row["launches_per_step"] = row["launches"] / TRAIN_STEPS
     for name in ("int8_matmul", "grouped_matmul", "grouped_matmul_w4a8", "grouped_matmul_f32",
                  "lm_attention[packed_prefill]", "lm_attention[decode_int8]",
                  "lm_attention[packed_prefill_f32]", "lm_attention[decode_bf16]",
                  "lm_attention[gemma2_decode_bf16_512]", "lm_attention[gemma2_decode_int8_512]",
                  "lm_attention[gemma2_prefill_f32]", "lm_attention[gemma2_ring_prefill_int8]",
-                 "selective_scan", "rmsnorm"):
+                 "selective_scan", "rmsnorm", "grouped_wgrad", "grouped_matmul_f32[dx]"):
         row = next(r for r in rows if r["name"] == name)
         if row["launches"] == 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -4412,7 +4892,8 @@ def main() -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} | {"shape": row["shape"]}
                       | {k: row[k] for k in ("variant", "schedule", "bf16_max_abs_err",
-                                             "f32_copy_max_abs_err")
+                                             "f32_copy_max_abs_err", "f64_max_abs_err",
+                                             "launches_per_step")
                          if k in row}
                       for row in rows]})
     print(smi, flush=True)

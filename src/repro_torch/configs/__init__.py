@@ -17,6 +17,9 @@ from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
     QuantConfig,
+    SHAPES,
+    TRAIN_4K,
+    ShapeConfig,
     SSMConfig,
     TraceConfig,
 )
@@ -38,11 +41,17 @@ def get_config(arch: str) -> ModelConfig:
     return REGISTRY[arch]
 
 
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
 def smoke_config(arch: str) -> ModelConfig:
     """A reduced config of the same family for CPU smoke tests (the rules of
     ``repro.configs.smoke_config``): 4 layers, d=64, 4 heads of 16, 8
-    experts with d_ff 32, SSM state 8, vocab at most 256; vision configs get
-    10 classes and 17 tokens."""
+    experts with d_ff 32, SSM state 8, vocab at most 256, no gradient
+    accumulation; vision configs get 10 classes and 17 tokens."""
     cfg = get_config(arch)
     kw = dict(
         name=cfg.name + "-smoke",
@@ -50,6 +59,7 @@ def smoke_config(arch: str) -> ModelConfig:
         d_model=64,
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 256) if cfg.vocab_size else 0,
+        microbatch_size=0,
     )
     if cfg.attn is not None:
         ratio = max(1, cfg.attn.num_heads // cfg.attn.num_kv_heads)
@@ -81,8 +91,12 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "QuantConfig",
+    "SHAPES",
     "SSMConfig",
+    "ShapeConfig",
+    "TRAIN_4K",
     "TraceConfig",
     "get_config",
+    "get_shape",
     "smoke_config",
 ]

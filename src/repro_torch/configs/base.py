@@ -39,6 +39,7 @@ class MoEConfig:
     d_ff: int  # per-expert hidden dim
     moe_every: int = 1  # every Nth layer is MoE (the port runs 1 only)
     capacity_factor: float = 1.25  # gshard: per-expert slots over the mean load
+    router_aux_weight: float = 0.01  # weight of the load-balance loss in training
     # grouped = sort-based unified kernel (the paper's orchestration; the
     #           engines' ``serving_config`` switches every config to it);
     # gshard  = capacity dispatch/combine einsums, which drop the slots past
@@ -307,6 +308,12 @@ class ModelConfig:
     introspect: IntrospectConfig = field(default_factory=IntrospectConfig)
     # serving fault model: chaos injection + watchdog (serving/faults.py)
     faults: FaultConfig = field(default_factory=FaultConfig)
+    # training knobs (train/): recompute each block or layer pair in the
+    # backward pass, the optimizer's name, and the microbatch size of
+    # gradient accumulation (0 = none)
+    remat: bool = True
+    optimizer: str = "adamw"  # adamw | adafactor
+    microbatch_size: int = 0
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -363,3 +370,25 @@ class ModelConfig:
         per_expert = (3 if self.glu else 2) * self.d_model * self.moe.d_ff
         return (self.param_count() - moe_layers * self.moe.num_experts * per_expert
                 + moe_layers * self.moe.top_k * per_expert)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape cell: its kind (train, prefill or decode), sequence
+    length and global batch."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    def replace(self, **kw) -> "ShapeConfig":
+        return dataclasses.replace(self, **kw)
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

@@ -17,4 +17,6 @@ CONFIG = ModelConfig(
     ssm=SSMConfig(state_dim=16, version=1, expand=2, conv_width=4),
     tie_embeddings=True,
     quant=QuantConfig(enable=False),
+    optimizer="adamw",
+    microbatch_size=16,
 )

@@ -26,4 +26,6 @@ CONFIG = ModelConfig(
     post_block_norm=True,
     final_logit_softcap=30.0,
     quant=QuantConfig(enable=False),
+    optimizer="adamw",
+    microbatch_size=32,
 )

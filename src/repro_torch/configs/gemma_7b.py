@@ -19,4 +19,6 @@ CONFIG = ModelConfig(
     tie_embeddings=True,
     embed_scale=True,
     quant=QuantConfig(enable=False),
+    optimizer="adamw",
+    microbatch_size=32,
 )

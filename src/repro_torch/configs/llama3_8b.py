@@ -16,4 +16,6 @@ CONFIG = ModelConfig(
     attn=AttnConfig(num_heads=32, num_kv_heads=8, head_dim=128,
                     rope_theta=500_000.0),
     quant=QuantConfig(enable=False),
+    optimizer="adamw",
+    microbatch_size=32,
 )

@@ -27,6 +27,7 @@ def _vit(name: str, layers: int, d: int, heads: int, moe: bool) -> ModelConfig:
         num_classes=1000,
         image_tokens=197,
         quant=_Q,
+        optimizer="adamw",
     )
 
 

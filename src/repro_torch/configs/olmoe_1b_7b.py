@@ -24,4 +24,6 @@ CONFIG = ModelConfig(
     moe=MoEConfig(num_experts=64, top_k=8, d_ff=1024, moe_every=1,
                   impl="gshard"),
     quant=QuantConfig(enable=False),
+    optimizer="adamw",
+    microbatch_size=32,
 )

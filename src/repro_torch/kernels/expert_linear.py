@@ -34,6 +34,12 @@ rounding of the others).
 
 ``grouped_matmul.launches_by_mode`` counts launches per mode (``int8``,
 ``w4a8``, ``f32``) and per mode and variant (``int8/stream``, ``f32/mma``).
+
+``grouped_wgrad`` is the f32 mode's weight gradient, dw[g] = x[rows of
+g]^T @ dy[rows of g] (``csrc/grouped_wgrad.cu``; it replaces no Pallas
+kernel: the reference takes XLA's transpose rule of ``ragged_dot``). Its
+plain version is ``ref.grouped_wgrad_ref``; ``kernels/autograd.py`` calls
+it in the backward of the f32 mode.
 """
 from __future__ import annotations
 
@@ -183,3 +189,36 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
 
 grouped_matmul.launches = 0
 grouped_matmul.launches_by_mode = {}
+
+
+def grouped_wgrad(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """x [T, Din] and dy [T, Dout] f32, rows sorted by group, group_sizes
+    [G] (sum == T) -> dw [G, Din, Dout] f32, dw[g] = x[rows of g]^T @
+    dy[rows of g] (zeros for an empty group). CUDA tensors only. Each output
+    is summed over its group's rows in row order by one thread, with no
+    float atomics: the same inputs give the same bits. One kernel launch a
+    call."""
+    _build.require_cuda("grouped_wgrad", x, dy, group_sizes)
+    if x.dtype != torch.float32 or dy.dtype != torch.float32:
+        raise TypeError(f"f32 x and dy required, got {x.dtype}, {dy.dtype}")
+    T, Din = x.shape
+    G = group_sizes.shape[0]
+    if dy.dim() != 2 or dy.shape[0] != T or group_sizes.dim() != 1:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, dy {tuple(dy.shape)}, "
+                         f"group_sizes {tuple(group_sizes.shape)}")
+    if not 0 < G <= MAX_GROUPS:
+        raise ValueError(f"{G} groups: 1..{MAX_GROUPS} supported")
+    Dout = dy.shape[1]
+    dw = torch.empty((G, Din, Dout), dtype=torch.float32, device=x.device)
+    sizes = group_sizes.to(torch.int32).contiguous()
+    x, dy = x.contiguous(), dy.contiguous()
+    with torch.cuda.device(x.device):
+        err = _build.library().grouped_wgrad_launch(
+            x.data_ptr(), dy.data_ptr(), sizes.data_ptr(), dw.data_ptr(), T, G, Din, Dout,
+            _build.stream(x))
+    _build.check(err, "grouped_wgrad")
+    grouped_wgrad.launches += 1
+    return dw
+
+
+grouped_wgrad.launches = 0

@@ -15,6 +15,12 @@ while a step is captured into a CUDA graph and is absent when the graph
 replays, so the ranges name kernels in eager steps (``aot_warmup=False``)
 only; under replay the hand kernels' own device names say which ran.
 
+Gradients (``kernels/autograd.py``): under grad the f32 grouped matmul,
+attention and RMSNorm go through ``torch.autograd.Function``s (the grouped
+kernel and the weight-gradient kernel in the backward; attention and
+RMSNorm recompute their plain version there); every other kernel raises on
+a CUDA tensor that requires grad.
+
 Autotuning (``kernels/autotune.py``): ``attention`` and ``grouped_matmul``
 resolve their call's shape-bucket key before the device branch, so a
 ``collecting()`` scope records it on any device and the active table's
@@ -36,9 +42,10 @@ from repro_torch.core.moe.dispatch import expert_of_sorted_rows
 from repro_torch.core.quant.calibrate import maybe_record
 from repro_torch.core.quant.linear_quant import fake_quant_activation
 from repro_torch.core.quant.qtypes import quantize_sym
-from repro_torch.kernels import autotune
+from repro_torch.kernels import autograd, autotune
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.expert_linear import grouped_matmul as _gmm_kernel
+from repro_torch.kernels.expert_linear import grouped_wgrad as _wgrad_kernel
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_kernel
 from repro_torch.kernels.norm import rmsnorm as _rmsnorm_kernel
 from repro_torch.kernels.quant_attention import (
@@ -99,11 +106,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         schedule = autotune.attn_schedule(q, k, v, causal=causal, quant_bits=quant_bits,
                                           local_window=local_window,
                                           scaled=k_scale is not None, vision=vision)
-        if not q.is_cuda:
+
+        def plain(q, k, v):
             return _ref.flash_attention_ref(q, k, v, **kw)
-        if vision:
-            return streaming_attention(q, k, v, quant_bits=quant_bits)
-        return lm_attention(q, k, v, segments=segments, schedule=schedule, **kw)
+
+        if not q.is_cuda:
+            kernel = plain
+        elif vision:
+            def kernel(q, k, v):
+                return streaming_attention(q, k, v, quant_bits=quant_bits)
+        else:
+            def kernel(q, k, v):
+                return lm_attention(q, k, v, segments=segments, schedule=schedule, **kw)
+        if autograd.needs_grad(q, k, v):
+            autograd.no_backward("attention (K/V scales)", k_scale, v_scale)
+            return autograd.Recompute.apply(kernel, plain, q, k, v)
+        return kernel(q, k, v)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
@@ -116,8 +134,14 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     stored: an fp ``x`` is quantized here with the folded ``a_scale``, the
     contraction accumulates in int32 and the product-of-scales dequant
     lands once on the accumulator. On the card the kernel runs in the
-    active tuning table's variant, or the one its rule picks."""
+    active tuning table's variant, or the one its rule picks. Under grad
+    the f32 mode goes through ``autograd.GroupedMatmul`` (the integer modes
+    raise on the card)."""
     integer_w = w.dtype in (torch.int8, torch.uint8)
+    if not integer_w and autograd.needs_grad(x, w):
+        return autograd.GroupedMatmul.apply(x, w, group_sizes, grouped_matmul, grouped_wgrad)
+    if integer_w and x.is_cuda:
+        autograd.no_backward("grouped_matmul (int8 / W4A8)", x, w_scale, a_scale)
     if integer_w and x.dtype != torch.int8:
         if a_scale is None:
             raise ValueError(
@@ -136,6 +160,18 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         if w.dtype == torch.int8:
             return _ref.grouped_matmul_q_ref(x, w, group_sizes, w_scale, a_scale)
         return _ref.grouped_matmul_ref(x, w, group_sizes)
+
+
+def grouped_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                  group_sizes: torch.Tensor) -> torch.Tensor:
+    """The f32 grouped matmul's weight gradient, dw[g] = x[rows of g]^T @
+    dy[rows of g] -> [G, Din, Dout]: the kernel on the card, its plain
+    version on the CPU."""
+    with _scope(lambda: (f"grouped_wgrad[T={x.shape[0]},G={group_sizes.shape[0]},"
+                         f"Din={x.shape[1]},Dout={dy.shape[1]}]")):
+        if x.is_cuda:
+            return _wgrad_kernel(x, dy, group_sizes)
+        return _ref.grouped_wgrad_ref(x, dy, group_sizes)
 
 
 def grouped_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
@@ -181,6 +217,7 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale, w_scale: torch.Te
     with _scope(lambda: (f"int8_matmul[M={x_q.numel() // x_q.shape[-1]},"
                          f"K={w_q.shape[0]},N={w_q.shape[1]}]")):
         if x_q.is_cuda:
+            autograd.no_backward("int8_matmul", x_scale, w_scale, bias)
             return _int8_kernel(x_q, w_q, x_scale, w_scale, bias)
         return _ref.int8_matmul_ref(x_q, w_q, x_scale, w_scale, bias)
 
@@ -189,9 +226,11 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Te
     """RMSNorm over the last dim, (1 + gamma) scale; on the card one launch
     whose row sums do not depend on the number of rows."""
     with _scope(lambda: f"rmsnorm[R={x.numel() // x.shape[-1]},D={x.shape[-1]}]"):
-        if x.is_cuda:
-            return _rmsnorm_kernel(x, gamma, eps)
-        return _ref.rmsnorm_ref(x, gamma, eps)
+        kernel = _rmsnorm_kernel if x.is_cuda else _ref.rmsnorm_ref
+        if autograd.needs_grad(x, gamma):
+            return autograd.Recompute.apply(lambda x, g: kernel(x, g, eps),
+                                            lambda x, g: _ref.rmsnorm_ref(x, g, eps), x, gamma)
+        return kernel(x, gamma, eps)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
@@ -202,5 +241,6 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     with _scope(lambda: (f"selective_scan[B={x.shape[0]},S={x.shape[1]},"
                          f"di={x.shape[2]},N={a.shape[-1]}]")):
         if x.is_cuda:
+            autograd.no_backward("selective_scan", x, dt, b, c, a, d)
             return _scan_kernel(x, dt, b, c, a, d)
         return _ref.selective_scan_ref(x, dt, b, c, a, d)

@@ -107,6 +107,38 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
+def grouped_wgrad_ref(x: torch.Tensor, dy: torch.Tensor,
+                      group_sizes: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``grouped_matmul_ref``: dw[g] = x[rows of
+    g]^T @ dy[rows of g] (x [T, Din], dy [T, Dout] sorted by group) ->
+    [G, Din, Dout], zeros for an empty group, in f32 (f64 for f64
+    operands)."""
+    dt = torch.promote_types(torch.promote_types(x.dtype, dy.dtype), torch.float32)
+    dw = torch.zeros((group_sizes.shape[0], x.shape[1], dy.shape[1]), dtype=dt,
+                     device=x.device)
+    for g, (s, e) in enumerate(_group_bounds(group_sizes)):
+        if e > s:
+            dw[g] = x[s:e].to(dt).T @ dy[s:e].to(dt)
+    return dw
+
+
+def grouped_mlp_ref(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                    group_sizes: torch.Tensor, act: str = "silu",
+                    glu: bool = True) -> torch.Tensor:
+    """Expert MLP over sorted rows: fc1 -> act (GLU: the first half gates
+    the second) -> fc2, both through ``grouped_matmul_ref`` (x [T, D], wi
+    [G, D, Dh] with Dh = 2 ff for GLU, wo [G, ff, D])."""
+    from repro_torch.models.layers import act_fn  # lazy: layers imports ops
+
+    h = grouped_matmul_ref(x, wi, group_sizes)
+    if glu:
+        g, u = torch.chunk(h, 2, dim=-1)
+        h = act_fn(act)(g) * u
+    else:
+        h = act_fn(act)(h)
+    return grouped_matmul_ref(h, wo, group_sizes)
+
+
 def grouped_matmul_q_ref(x_q: torch.Tensor, w_q: torch.Tensor,
                          group_sizes: torch.Tensor, w_scale: torch.Tensor,
                          a_scale: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -82,3 +82,26 @@ def tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(tree_bytes(v) for v in tree.values())
     return tree.numel() * tree.element_size()
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict of tensors, with the matching
+    entries of ``rest`` (trees of the same keys, whose entries at a leaf of
+    ``tree`` are passed whole: an optimizer's per-leaf state dict)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in sorted-key order (the order ``jax.tree.leaves``
+    flattens a dict in)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unzip(tree, n: int) -> list:
+    """A tree whose leaves are n-tuples (what ``tree_map`` returns for an
+    ``fn`` with n results) as n trees."""
+    return [tree_map(lambda leaf, i=i: leaf[i], tree) for i in range(n)]

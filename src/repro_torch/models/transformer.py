@@ -16,12 +16,17 @@ keeps two stacks of L/2 layers, ``layers_local`` and ``layers_global``,
 walked in (local, global) pairs, and a nested cache ``{"local": ...,
 "global": ...}``: the local layers' cache is a ring of min(max_len,
 local_window) rows, the global layers' max_len rows.
+
+With ``cfg.remat`` a training forward (grad recorded, no cache) runs each
+layer under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+of its scan body: the layer is recomputed in the backward pass.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe.dispatch import (
@@ -33,7 +38,7 @@ from repro_torch.core.moe.dispatch import (
 from repro_torch.core.moe.router import route_topk
 from repro_torch.core.quant.calibrate import maybe_record
 from repro_torch.core.quant.qtypes import unpack_int4
-from repro_torch.kernels import ops
+from repro_torch.kernels import autograd, ops
 from repro_torch.models.layers import (
     act_fn,
     apply_norm,
@@ -41,7 +46,14 @@ from repro_torch.models.layers import (
     mlp_apply,
     quant_linear,
 )
-from repro_torch.models.param import PDef, dense, require_device, stack_tree, vector
+from repro_torch.models.param import (
+    PDef,
+    dense,
+    require_device,
+    stack_tree,
+    tree_leaves,
+    vector,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +240,15 @@ def _gshard_ffn(xt, p, cfg: ModelConfig, experts, weights, B: int, taps):
     return y, torch.sum(disp, dim=(0, 1, 3)).to(torch.int32)
 
 
+def remat_active(cfg: ModelConfig, x: torch.Tensor, tree) -> bool:
+    """Whether a block (or layer pair) over ``x`` with the params ``tree``
+    is recomputed in the backward pass: ``cfg.remat`` (the reference's
+    ``jax.checkpoint`` of its scan body) where autograd records the
+    forward. Serving (no grad, or a cache) never is, so its steps run as
+    before bit for bit."""
+    return cfg.remat and autograd.needs_grad(x, *tree_leaves(tree))
+
+
 def layer(tree, i: int):
     """Layer ``i`` of a stacked subtree (views: writes reach the stack)."""
     if isinstance(tree, dict):
@@ -299,10 +320,16 @@ def _run_layers(params, cfg: ModelConfig, x, *, positions, caches=None,
         cache = None
         if caches is not None:
             cache = layer(caches if ckey is None else caches[ckey], i)
-        x, aux, ec, _ = _block(x, layer(params[key], i), cfg,
-                               positions=positions, local_window=window,
-                               cache=cache, cache_index=cache_index,
-                               segment_ids=segment_ids, segments=segments)
+        lp = layer(params[key], i)
+        if cache is None and remat_active(cfg, x, lp):
+            x, aux, ec, _ = checkpoint(_block, x, lp, cfg, positions=positions,
+                                       local_window=window, segment_ids=segment_ids,
+                                       segments=segments, use_reentrant=False)
+        else:
+            x, aux, ec, _ = _block(x, lp, cfg,
+                                   positions=positions, local_window=window,
+                                   cache=cache, cache_index=cache_index,
+                                   segment_ids=segment_ids, segments=segments)
         aux_total = aux_total + aux
         ec_total = ec_total + ec
     return x, aux_total, ec_total, caches

@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe.router import topk_stable
@@ -39,6 +40,7 @@ from repro_torch.models.transformer import (
     _moe_pdefs,
     _norm_pdefs,
     layer,
+    remat_active,
 )
 
 PATCH_DIM = 768  # 16*16*3
@@ -146,13 +148,37 @@ def head(params, cfg: ModelConfig, x: torch.Tensor, taps=None) -> torch.Tensor:
     return quant_linear(x[:, 0, :], params, "head", cfg) + params["head_b"]
 
 
+def _blocks(x, lps, cfg):
+    """The blocks of ``lps`` in order; returns (x, aux, expert_counts)
+    summed over them."""
+    aux_total = torch.zeros((), device=x.device)
+    ec_total = _expert_count_zeros(cfg, x.device)
+    for lp in lps:
+        x, aux, ec = block(x, lp, cfg)
+        aux_total = aux_total + aux
+        ec_total = ec_total + ec
+    return x, aux_total, ec_total
+
+
 def _forward(params, cfg: ModelConfig, patches: torch.Tensor, taps=None):
     """patches [B, image_tokens-1, PATCH_DIM] -> (logits [B, C], aux,
-    expert_counts [E] int32 summed over the MoE layers)."""
+    expert_counts [E] int32 summed over the MoE layers). With ``cfg.remat``
+    a training forward recomputes each (dense, MoE) pair (vit: each layer)
+    in the backward pass, the reference's ``jax.checkpoint`` of its scan
+    body."""
     x = embed(params, cfg, patches)
     aux_total = torch.zeros((), device=x.device)
     ec_total = _expert_count_zeros(cfg, x.device)
-    for scope, lp in layers(params, cfg):
+    walk = list(layers(params, cfg))
+    if taps is None and remat_active(cfg, x, params):
+        per = 2 if cfg.family == "vit_moe" else 1
+        for i in range(0, len(walk), per):
+            x, aux, ec = checkpoint(_blocks, x, [lp for _, lp in walk[i:i + per]], cfg,
+                                    use_reentrant=False)
+            aux_total = aux_total + aux
+            ec_total = ec_total + ec
+        return head(params, cfg, x), aux_total, ec_total
+    for scope, lp in walk:
         x, aux, ec = block(x, lp, cfg,
                            taps=None if taps is None else taps.scoped(scope))
         aux_total = aux_total + aux

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and its entry
-points never fall back to the CPU on their own."""
+``chip_smoke.py`` imports ``jax``, ``ml_dtypes`` or the JAX package
+``repro``, and its entry points never fall back to the CPU on their own."""
 import ast
 import json
 import os
@@ -27,7 +27,7 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{path.name} imports {mod}"
 
 
 def test_importing_the_port_leaves_jax_unloaded():
@@ -44,9 +44,12 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.serving.metrics, repro_torch.analysis.hw, "
             "repro_torch.kernels.ops, repro_torch.kernels.autotune, "
             "repro_torch.distributed.expert_parallel, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.launch.train, repro_torch.train, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.kernels.autograd; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'repro' not in sys.modules, 'repro imported'")
+            "assert 'repro' not in sys.modules, 'repro imported'; "
+            "assert 'ml_dtypes' not in sys.modules, 'ml_dtypes imported'")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
@@ -87,10 +90,13 @@ def test_launch_serve_writes_a_trace_and_metrics_on_the_cpu(tmp_path, replicas):
 
 
 def _entry_points():
-    from repro_torch.configs import smoke_config
+    from repro_torch.configs import TRAIN_4K, smoke_config
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import ViTClassifier, init_model_params, ssm_lm, transformer
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim import adamw, constant
     from repro_torch.serving import ServeEngine, ServingCluster, VisionEngine, replica_devices
+    from repro_torch.train import Trainer, TrainerConfig, init_train_state
 
     cfg = smoke_config("m3vit-small")
     lm = smoke_config("olmoe-1b-7b")
@@ -120,6 +126,9 @@ def _entry_points():
                                                                            device="cpu")),
         "init_cache[dense]": lambda: transformer.init_cache(dense, 2, 8),
         "launch.serve[dense]": lambda: serve_main(["--arch", "gemma2-2b", "--smoke"]),
+        "init_train_state": lambda: init_train_state(cfg, adamw(constant(1e-3))),
+        "Trainer": lambda: Trainer(cfg, TRAIN_4K, None, TrainerConfig()),
+        "launch.train": lambda: train_main(["--arch", "m3vit-small", "--smoke", "--steps", "1"]),
     }
 
 
@@ -130,7 +139,8 @@ def _entry_points():
                                   "launch.serve[ssm]", "ServingCluster",
                                   "ServingCluster[vision]", "replica_devices",
                                   "launch.serve[replicas]", "ServeEngine[dense]",
-                                  "init_cache[dense]", "launch.serve[dense]"])
+                                  "init_cache[dense]", "launch.serve[dense]",
+                                  "init_train_state", "Trainer", "launch.train"])
 def test_entry_points_default_to_the_card_and_refuse_without_one(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
