@@ -221,8 +221,11 @@ caught:
                  operands of 16 experts; the tick and the 512-token
                  admission profiled at 1 (phase 7), 2 and 4 slots; one
                  eager W4A8 forward at 2 slots bit-equal to the single path;
-                 ``ServingCluster(devices=["cuda:0"] * 4)``: one replica over
-                 4 slots, the same tokens; an engine over ``cuda:0`` and
+                 ``ServingCluster(devices=["cuda:0"] * 8, standby=1)``: one
+                 replica over 4 slots and a standby over 4 more, the same
+                 tokens, every request delivered once, an eviction
+                 backfilled (the watchdog's step times and their margin to
+                 the stall rule printed); an engine over ``cuda:0`` and
                  ``cuda:1`` refused (``NotImplementedError``). Printed: device
                  time, kernels and tok/s a step by slot count, the
                  allocator's peak during each part;
@@ -313,12 +316,19 @@ caught:
                  ``impl="gshard"``: (a)'s gates on its step-0 gradients, and
                  one ``build_train_step`` update, finite. (e) One M3ViT-S
                  step profiled: every device kernel by name and count.
-                 Phase 3 holds the weight-gradient kernel against its plain
-                 version at M3ViT-S's fc1 and fc2 training shapes (64 x 197
-                 x 2 = 25216 rows over 16 experts, one empty, one skewed;
-                 atol = rtol = 1e-4; the error against an f64 plain version
-                 printed) and at ragged widths, and the f32 grouped kernel
-                 at the shapes of the expert layers' dx.
+                 Every weight-gradient launch of (b) on its ``mma`` variant.
+                 Phase 3 holds the weight-gradient kernel in both variants
+                 (``mma``: 3xTF32, heaviest group first; ``fma``: the
+                 first design) against its plain version at
+                 M3ViT-S's fc1 and fc2 training shapes (64 x 197 x 2 = 25216
+                 rows over 16 experts, one empty, one skewed; atol = rtol =
+                 1e-4, two calls bit-equal, empty groups zero, ``mma``'s
+                 error against an f64 plain version no larger than
+                 ``fma``'s) and at ragged widths, timed beside each other,
+                 the plain per-group loop and ``torch._grouped_mm`` (its
+                 device time from a profiler trace of eager calls); and the f32 grouped kernel at the
+                 shapes of the expert layers' dx (``torch._grouped_mm``
+                 beside it, as beside every f32 grouped row).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before that
@@ -535,6 +545,10 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def bound_ms(n_bytes: float, ops: float, ops_per_s: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _fmt_ms(ms) -> str:
+    return "n/a" if ms is None else f"{ms:.4f} ms"
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -865,7 +879,7 @@ def _check_grouped_matmul(gen) -> list:
                 **_grouped_timing("m3vit_fc1", x, w, sizes, ws, a_s), "olmoe": []}
     f32_row = {"name": "grouped_matmul_f32", "mode": "f32",
                "tolerance": "atol=1e-5, rtol=1e-5; mma and stream bit-equal",
-               "library_ms": None, **_grouped_timing("m3vit_fc1", xf, wf, sizes), "olmoe": []}
+               **_grouped_timing("m3vit_fc1", xf, wf, sizes), "olmoe": []}
 
     # OLMoE-1B-7B, 64 experts, fc1 (2048 -> 2 x 1024) and fc2 (1024 ->
     # 2048), fc1 timed: int8 and f32 at a decode tick (8 slots x top-8 = 64
@@ -908,9 +922,10 @@ def _grouped_timing(label, x, w, sizes, ws=None, a_s=None, cold=False) -> dict:
     """Time one grouped matmul (int8, W4A8 or f32 by the operands) and its
     plain version, and bound it: each input read once (the weights of the
     experts that got rows only), the output written once, 2 T Din Dout
-    operations at the int8 or f32 FMA rate (f32 also at the dense tf32
-    rate, 3 passes: ``bound_3xtf32_ms``, the rate the 3xTF32 variants run
-    at). Device time per call by ``graph_ms``, in the variant the wrapper
+    operations at the int8 rate, or for f32 at the dense tf32 rate, 3
+    passes, as the 3xTF32 variants (``mma``, ``stream``) run them
+    (``bound_ms``; the rule's pick is one of these; the f32 FMA rate beside
+    it as ``bound_f32_ms``). Device time per call by ``graph_ms``, in the variant the wrapper
     picks and in the first port's tiles (dp4a, f32: fma), each timed call
     alone one device kernel; with ``cold`` also with the expert stack
     rotated over at least ``COLD_BYTES`` of buffers, so that L2 holds none
@@ -930,9 +945,9 @@ def _grouped_timing(label, x, w, sizes, ws=None, a_s=None, cold=False) -> dict:
                + 4 * T * Dout)
     if f32:
         plain_fn = lambda: ref.grouped_matmul_ref(x, w, sizes)  # noqa: E731
-        nb, by = bound_ms(n_bytes, 2.0 * T * Din * Dout, F32_OPS_PER_S)
-        nb3, by3 = bound_ms(n_bytes, 3 * 2.0 * T * Din * Dout, TF32_OPS_PER_S)
-        row.update(bound_3xtf32_ms=nb3, bound_3xtf32_by=by3)
+        nb, by = bound_ms(n_bytes, 3 * 2.0 * T * Din * Dout, TF32_OPS_PER_S)
+        nf, byf = bound_ms(n_bytes, 2.0 * T * Din * Dout, F32_OPS_PER_S)
+        row.update(bound_f32_ms=nf, bound_f32_by=byf)
         fn = lambda wt=w, var=None: grouped_matmul(x, wt, sizes, variant=var)  # noqa: E731
     else:
         plain = ref.grouped_matmul_q4_ref if w.dtype == torch.uint8 else ref.grouped_matmul_q_ref
@@ -954,8 +969,18 @@ def _grouped_timing(label, x, w, sizes, ws=None, a_s=None, cold=False) -> dict:
             row[key] = graph_ms(lambda: fn(bufs[next(it) % n], var), n=2 * n, iters=5)
         del bufs
     row.update(plain_ms=time_ms(plain_fn, iters=10), bound_ms=nb, bound_by=by)
-    tf32 = (f", 3xTF32 bound {row['bound_3xtf32_ms']:.5f} ms ({row['bound_3xtf32_by']})"
-            if f32 else "")
+    tf32 = ""
+    if f32:
+        ends = _group_ends(sizes)
+        row["library_ms"], note, err, lib_wall = _library_ms(
+            lambda: torch._grouped_mm(x, w, offs=ends), plain_fn())
+        row.update(library_call="torch._grouped_mm(x, w, offs=ends)", library_max_abs_err=err,
+                   library_wall_ms=lib_wall)
+        if note:
+            row["library_refused"] = note
+        tf32 = (f" at 3xTF32, f32 FMA bound {nf:.5f} ms ({byf}), torch._grouped_mm "
+                + (f"{row['library_ms']:.4f} ms device (wall {_fmt_ms(lib_wall)}, max err "
+                   f"{err:.3g})" if note is None else f"refused ({note})"))
     print(f"[kernels] grouped {'W4A8' if w.dtype == torch.uint8 else x.dtype} {label} "
           f"{row['shape']}: {row['variant']} {row['ms']:.4f} ms (cold "
           f"{row.get('cold_ms', float('nan')):.4f}), {old} {row[f'{old}_ms']:.4f} ms (cold "
@@ -1856,43 +1881,129 @@ def _wgrad_sizes(T: int, G: int) -> torch.Tensor:
     return torch.tensor(sizes, dtype=torch.int32, device="cuda")
 
 
-def _wgrad_timing(label, x, dy, sizes) -> dict:
-    """The weight-gradient kernel against its plain version (f32, and f64
-    for the error), timed beside it and bounded: 2 T Din Dout operations at
-    the f32 rate (3xTF32 beside it, for a tensor-core design), each input
-    read once and dw written once."""
+def _library_ms(fn, want: torch.Tensor):
+    """Device time of one PyTorch library call (a yardstick the port never
+    calls) and its largest error against ``want``: (ms, None, err, wall),
+    or (None, the message, None, None) where the card's torch refuses the
+    operands. Graph replays where the call can be captured (wall None);
+    where it cannot (a call that copies host data, as torch's per-group
+    fallback of ``_grouped_mm`` does), the device time of its eager calls
+    in a ``torch.profiler`` trace (``_eager_device_ms``), and as ``wall``
+    CUDA events over the eager calls, host gaps included."""
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError, ValueError) as e:
+        return None, f"{type(e).__name__}: {str(e).strip().splitlines()[0][:240]}", None, None
+    err = max_err(got.float(), want)
+    del got
+    try:
+        return graph_ms(fn), None, err, None
+    except RuntimeError as e:
+        print(f"[kernels] library call not capturable ({str(e).splitlines()[0][:120]}): "
+              "device time from a profiler trace of eager calls", flush=True)
+        torch.cuda.synchronize()
+        return _eager_device_ms(fn), None, err, time_ms(fn, iters=10)
+
+
+def _eager_device_ms(fn, n: int = 10) -> float:
+    """Device time per eager call of ``fn``: every kernel and copy it put on
+    the device in a ``torch.profiler`` trace of ``n`` calls (after one
+    warm-up call), summed, over ``n``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.device_time for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time of the library call")
+    return us / n / 1e3
+
+
+def _group_ends(sizes: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(sizes, 0, dtype=torch.int32)
+
+
+def _wgrad_timing(label, x, dy, sizes, path: bool = False) -> dict:
+    """The weight-gradient kernel in each variant that takes the shape
+    against its plain version (f32, and f64 for the error), each variant's
+    two calls bit-equal and empty groups zero; timed (``graph_ms``) beside
+    the plain per-group loop and ``torch._grouped_mm(x.t(), dy, offs=ends)``
+    (``_library_ms``); bounded at 2 T Din Dout operations at the rate of the
+    chosen variant's arithmetic (mma: three dense tf32 passes; fma: f32
+    FMAs; the f32 FMA bound beside it as ``bound_f32_ms``), each input read
+    once and dw written once. With
+    ``path`` (the training shapes) the rule must pick variant 1, and its
+    error against f64 must be no larger than variant 2's."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.expert_linear import grouped_wgrad
+    from repro_torch.kernels.expert_linear import (
+        WGRAD_VARIANTS, choose_wgrad_variant, grouped_wgrad, wgrad_order, wgrad_takes)
 
     T, Din = x.shape
     G, Dout = sizes.shape[0], dy.shape[1]
-    got = grouped_wgrad(x, dy, sizes)
     want = ref.grouped_wgrad_ref(x, dy, sizes)
     want64 = ref.grouped_wgrad_ref(x.double(), dy.double(), sizes)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=lambda m: (
-        f"grouped_wgrad {label} T={T} G={G} {Din}x{Dout}: {m}"))
-    for g in range(G):
-        if int(sizes[g]) == 0 and bool(got[g].any()):
-            raise AssertionError(f"grouped_wgrad {label}: empty group {g} is not zero")
-    if not torch.equal(got, grouped_wgrad(x, dy, sizes)):
-        raise AssertionError(f"grouped_wgrad {label}: two calls differ")
-    n_bytes = 4 * (T * Din + T * Dout + G * Din * Dout)
-    nb, by = bound_ms(n_bytes, 2.0 * T * Din * Dout, F32_OPS_PER_S)
-    nb3, by3 = bound_ms(n_bytes, 3 * 2.0 * T * Din * Dout, TF32_OPS_PER_S)
-    row = {"label": label, "shape": [T, G, Din, Dout], "max_abs_err": max_err(got, want),
-           "f64_max_abs_err": max_err(got.double(), want64),
+    chosen = choose_wgrad_variant(Din, Dout)
+    if path and WGRAD_VARIANTS[chosen] != "mma":
+        raise AssertionError(f"grouped_wgrad {label}: the rule picks {WGRAD_VARIANTS[chosen]}")
+    row = {"label": label, "shape": [T, G, Din, Dout], "variant": WGRAD_VARIANTS[chosen],
+           "order": wgrad_order(sizes.tolist()),
            "plain_f64_max_abs_err": max_err(want.double(), want64)}
-    if T:
-        _one_device_kernel(f"grouped_wgrad {label}", lambda: grouped_wgrad(x, dy, sizes))
-        row.update(ms=graph_ms(lambda: grouped_wgrad(x, dy, sizes)),
-                   plain_ms=time_ms(lambda: ref.grouped_wgrad_ref(x, dy, sizes), iters=5),
-                   bound_ms=nb, bound_by=by, bound_3xtf32_ms=nb3, bound_3xtf32_by=by3)
-        print(f"[kernels] grouped_wgrad {label} {row['shape']}: {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.3f} ms, bound {nb:.5f} ms ({by}), 3xTF32 bound "
-              f"{nb3:.5f} ms ({by3}); max err {row['max_abs_err']:.3g} (vs f64: kernel "
-              f"{row['f64_max_abs_err']:.3g}, plain f32 {row['plain_f64_max_abs_err']:.3g})",
-              flush=True)
+    for v, name in WGRAD_VARIANTS.items():
+        if not wgrad_takes(v, Din, Dout):
+            continue
+        got = grouped_wgrad(x, dy, sizes, variant=v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=lambda m: (
+            f"grouped_wgrad {name} {label} T={T} G={G} {Din}x{Dout}: {m}"))
+        for g in range(G):
+            if int(sizes[g]) == 0 and bool(got[g].any()):
+                raise AssertionError(f"grouped_wgrad {name} {label}: empty group {g} is not zero")
+        if not torch.equal(got, grouped_wgrad(x, dy, sizes, variant=v)):
+            raise AssertionError(f"grouped_wgrad {name} {label}: two calls differ")
+        prefix = "" if v == chosen else f"{name}_"
+        row[f"{prefix}max_abs_err"] = max_err(got, want)
+        row[f"{prefix}f64_max_abs_err"] = max_err(got.double(), want64)
+        if T:
+            _one_device_kernel(f"grouped_wgrad {name} {label}",
+                               lambda: grouped_wgrad(x, dy, sizes, variant=v))
+            row[f"{prefix}ms"] = graph_ms(lambda: grouped_wgrad(x, dy, sizes, variant=v))
+        del got
+    if path and row["f64_max_abs_err"] > row["fma_f64_max_abs_err"]:
+        raise AssertionError(f"grouped_wgrad {label}: mma's error against f64 "
+                             f"{row['f64_max_abs_err']:.3g} exceeds fma's "
+                             f"{row['fma_f64_max_abs_err']:.3g}")
+    if not T:
+        return row
+    n_bytes = 4 * (T * Din + T * Dout + G * Din * Dout)
+    nf, byf = bound_ms(n_bytes, 2.0 * T * Din * Dout, F32_OPS_PER_S)
+    nb, by = (bound_ms(n_bytes, 3 * 2.0 * T * Din * Dout, TF32_OPS_PER_S) if chosen == 1
+              else (nf, byf))
+    ends = _group_ends(sizes)
+    lib_ms, lib_note, lib_err, lib_wall = _library_ms(
+        lambda: torch._grouped_mm(x.t(), dy, offs=ends), want)
+    row.update(plain_ms=time_ms(lambda: ref.grouped_wgrad_ref(x, dy, sizes), iters=5),
+               library_ms=lib_ms, library_wall_ms=lib_wall,
+               library_call="torch._grouped_mm(x.t(), dy, offs=ends)",
+               library_max_abs_err=lib_err, bound_ms=nb, bound_by=by, bound_f32_ms=nf,
+               bound_f32_by=byf)
+    if lib_note:
+        row["library_refused"] = lib_note
+    lib = (f"{lib_ms:.4f} ms device (wall {_fmt_ms(lib_wall)}, max err {lib_err:.3g})"
+           if lib_ms is not None else f"refused ({lib_note})")
+    was = (f", fma (was) {row['fma_ms']:.4f} ms (vs f64 {row['fma_f64_max_abs_err']:.3g})"
+           if "fma_ms" in row else "")
+    print(f"[kernels] grouped_wgrad {label} {row['shape']}: {row['variant']} {row['ms']:.4f} "
+          f"ms{was}; plain {row['plain_ms']:.3f} ms, torch._grouped_mm {lib}; bound "
+          f"{nb:.5f} ms ({by}, {'3xTF32' if chosen == 1 else 'f32 FMA'}), f32 FMA bound "
+          f"{nf:.5f} ms ({byf}); max err {row['max_abs_err']:.3g} (vs f64: kernel "
+          f"{row['f64_max_abs_err']:.3g}, plain f32 {row['plain_f64_max_abs_err']:.3g})",
+          flush=True)
     return row
 
 
@@ -1909,7 +2020,7 @@ def _check_grouped_training(gen) -> list:
     for label, Din, Dout in (("m3vit_fc1", 384, 1536), ("m3vit_fc2", 1536, 384)):
         x = torch.randn((WGRAD_T, Din), generator=gen, device="cuda")
         dy = torch.randn((WGRAD_T, Dout), generator=gen, device="cuda") / math.sqrt(WGRAD_T)
-        rows[label] = _wgrad_timing(label, x, dy, sizes)
+        rows[label] = _wgrad_timing(label, x, dy, sizes, path=True)
         w_t = (torch.randn((WGRAD_G, Din, Dout), generator=gen, device="cuda")
                / math.sqrt(Din)).transpose(1, 2).contiguous()
         err = _check_grouped_f32(dy * math.sqrt(WGRAD_T), w_t, sizes, checked)
@@ -1923,10 +2034,12 @@ def _check_grouped_training(gen) -> list:
                             torch.zeros(G, dtype=torch.int32, device="cuda"))
               for T, G, Din, Dout in WGRAD_RAGGED]
     fc1 = rows["m3vit_fc1"]
-    wgrad_row = {"name": "grouped_wgrad", "mode": "f32", "library_ms": None,
-                 "tolerance": "atol=1e-4, rtol=1e-4; empty group zero; two calls bit-equal",
+    wgrad_row = {"name": "grouped_wgrad", "mode": "f32",
+                 "tolerance": "atol=1e-4, rtol=1e-4 in each variant; empty group zero; two "
+                              "calls bit-equal; at the path's shapes mma's error against f64 "
+                              "no larger than fma's",
                  **fc1, "fc2": rows["m3vit_fc2"], "ragged": ragged}
-    dx_row = {"name": "grouped_matmul_f32[dx]", "mode": "f32", "library_ms": None,
+    dx_row = {"name": "grouped_matmul_f32[dx]", "mode": "f32",
               "tolerance": "atol=1e-5, rtol=1e-5; mma and stream bit-equal",
               **dx["m3vit_fc1"], "fc2": dx["m3vit_fc2"], "checked": checked}
     return [wgrad_row, dx_row]
@@ -2075,15 +2188,16 @@ def phase_serving(smi: str):
     return qcfg, p_int8, counts, calib_counts, {"graph": eng, "eager": eager, "warmup": warm}
 
 
-def phase_lm(smi: str) -> dict:
-    """Full-width OLMoE-1B-7B served from its int8 and W4A8 trees."""
+def _olmoe_trees():
+    """Full-width OLMoE-1B-7B: the fp tree (seed 0), calibrated on two
+    synthetic batches (gate: the calibration's launches), and its int8 and
+    W4A8 trees. Returns (cfg, fp params, qcfg, trees, calibration counts)."""
     from repro_torch.configs import get_config
     from repro_torch.core.quant.ptq import calibrate_model, ptq_model, quantized_config
-    from repro_torch.models import init_model_params, synth_batch, tree_bytes
+    from repro_torch.models import init_model_params, synth_batch
     from repro_torch.serving import serving_config
 
     cfg = serving_config(get_config("olmoe-1b-7b"))
-    t0 = time.perf_counter()
     params = init_model_params(cfg, seed=0, device="cuda")
     calib = [torch.from_numpy(synth_batch(cfg, 2, 32, seed=s)).cuda() for s in (1, 2)]
     _reset_counts()
@@ -2095,6 +2209,15 @@ def phase_lm(smi: str) -> dict:
         raise AssertionError(f"calibration launches {calib_counts}, expected {want}")
     qcfg = quantized_config(cfg)
     trees = {m: ptq_model(qcfg, params, taps, materialize=m) for m in ("int8", "int4")}
+    return cfg, params, qcfg, trees, calib_counts
+
+
+def phase_lm(smi: str) -> dict:
+    """Full-width OLMoE-1B-7B served from its int8 and W4A8 trees."""
+    from repro_torch.models import tree_bytes
+
+    t0 = time.perf_counter()
+    cfg, params, qcfg, trees, calib_counts = _olmoe_trees()
     fp_bytes = tree_bytes(params)
     out = {"calib_counts": calib_counts, "runs": {"fp": _serve_lm_fp(cfg, params, smi)}}
     out["gshard"] = _timed(phase_ep_gshard, cfg, params, smi)
@@ -3019,10 +3142,14 @@ class _StepTimer:
         self.outside: list = []
         self._inside = 0.0
         self._wrapped: set = set()
+        # each replica's step() that returned, in order: (replica, seconds),
+        # the replicas numbered as they were first stepped
+        self.watched: list = []
 
     def _wrap(self, eng) -> None:
         if id(eng) in self._wrapped:
             return
+        k = len(self._wrapped)
         self._wrapped.add(id(eng))
 
         def step(_step=eng.step):
@@ -3030,8 +3157,64 @@ class _StepTimer:
             try:
                 _step()
             finally:
-                self._inside += time.perf_counter() - t0
+                d = time.perf_counter() - t0
+                self._inside += d
+            self.watched.append((k, d))
         eng.step = step
+
+    def replay(self) -> list:
+        """Each replica's step times through a ``ReplicaWatchdog`` of the
+        cluster's ``FaultConfig``, as the cluster's own watchdog reads them
+        (it times the same ``step()`` calls, and this timer wraps each
+        replica before its first): (replica, seconds, EMA before the step or
+        None, armed, stall streak after, verdict or None) a step."""
+        from repro_torch.serving.faults import ReplicaWatchdog
+
+        f, wds, out = self.cluster.faults, {}, []
+        for k, d in self.watched:
+            wd = wds.setdefault(k, ReplicaWatchdog(f, label=f"replica{k}"))
+            st = wd.state()
+            armed = st["step_ema_s"] is not None and st["steps"] + 1 > f.warmup_steps
+            verdict = wd.record_step(d)
+            out.append((k, d, st["step_ema_s"], armed, wd.state()["consecutive_stalls"],
+                        verdict))
+        return out
+
+    def watchdog_trace(self) -> str:
+        """The step times the watchdogs saw against the stall rule: a step
+        counts as a stall over ``stall_threshold`` x the EMA of earlier
+        healthy steps (once armed) and over ``stall_floor_s``, or over
+        ``step_timeout_s``; ``stall_budget`` stalls in a row evict."""
+        f = self.cluster.faults
+        if not self.watched:
+            return "no step was timed"
+        seen = self.replay()
+        ms = np.asarray([d for _, d, *_ in seen]) * 1e3
+        margins = [max(f.stall_threshold * ema, f.stall_floor_s) - d
+                   for _, d, ema, armed, _, _ in seen if armed]
+        worst = max(s for *_, s, _ in seen)
+        return (f"{len(ms)} steps timed, {ms.size - len(margins)} before the EMA was armed; "
+                f"step ms median {np.median(ms):.2f}, p90 {np.quantile(ms, 0.9):.2f}, max "
+                f"{ms.max():.2f}; smallest margin to the stall rule (max({f.stall_threshold} x "
+                f"EMA, {f.stall_floor_s * 1e3:.0f} ms) - step) "
+                f"{(min(margins) * 1e3 if margins else float('nan')):.2f} ms; longest stall "
+                f"streak {worst} (evicts at {f.stall_budget}); step ms in order by replica "
+                f"{[(k, round(d * 1e3, 3)) for k, d, *_ in seen]}")
+
+    def check_evictions(self, tag: str) -> None:
+        """Gate: every eviction in the cluster's ledger is the watchdog's
+        stall rule, and the timed steps show it: replayed through the rule,
+        a replica's trace reaches ``stall_budget`` stalls in a row at the
+        step the eviction names. Any other reason (step errors, OOM) fails."""
+        seen, budget = self.replay(), self.cluster.faults.stall_budget
+        for ev in self.cluster.health()["evicted"]:
+            if ev.get("reason") != "stalled":
+                raise AssertionError(f"[{tag}] a replica was evicted for {ev.get('reason')}: "
+                                     f"{ev}")
+            if not any(v is not None and v["steps"] == ev["steps"]
+                       and v["consecutive_stalls"] >= budget for *_, v in seen):
+                raise AssertionError(f"[{tag}] eviction {ev} is not {budget} steps over the "
+                                     f"stall rule in the timed steps: {self.watchdog_trace()}")
 
     def run_until_idle(self, max_steps: int = 100_000) -> int:
         c = self.cluster
@@ -3052,7 +3235,9 @@ class _StepTimer:
             f"requests still queued or in flight after {max_steps} steps: front-end depth "
             f"{c.depth}, active replicas {len(c.engines)} (loads "
             f"{[e.load for e in c.engines]}), draining {len(c._draining)}, standby "
-            f"{len(c._standby)}; nonzero counters {({k: v for k, v in counters.items() if v})}")
+            f"{len(c._standby)}; nonzero counters {({k: v for k, v in counters.items() if v})}; "
+            f"eviction ledger {c.health()['evicted']}; watchdog trace: "
+            f"{self.watchdog_trace()}")
 
     def summary(self) -> str:
         us = 1e6 * np.asarray(self.outside)
@@ -3797,12 +3982,14 @@ def phase_ep_lm(qcfg, trees: dict, single: dict, smi: str) -> dict:
     nodes equal, per-slot weight operands of 16 experts); the tick and the
     512-token admission profiled at 4 slots and on an engine of 2 slots;
     one eager forward of the W4A8 tree at 2 slots bit-equal to the single
-    path; ``ServingCluster(..., devices=["cuda:0"] * 4)``: one replica over
-    4 slots, the same tokens; a mesh over a second card refused."""
+    path; ``ServingCluster(..., devices=["cuda:0"] * 8, standby=1)``: one
+    replica over 4 slots and a standby over 4 more, the same tokens, every
+    request delivered once, an eviction (the watchdog's stall rule)
+    backfilled; a mesh over a second card refused."""
     from repro_torch.launch.mesh import make_ep_mesh
     from repro_torch.models import synth_batch, transformer
     from repro_torch.distributed.expert_parallel import use_ep_mesh
-    from repro_torch.serving import ServeEngine, ServingCluster
+    from repro_torch.serving import EventLog, ServeEngine, ServingCluster
 
     torch.cuda.reset_peak_memory_stats()
     E = qcfg.moe.num_experts
@@ -3882,14 +4069,26 @@ def phase_ep_lm(qcfg, trees: dict, single: dict, smi: str) -> dict:
     if not w4_same or w4.get("grouped_matmul:w4a8", 0) != 3 * 32:
         raise AssertionError("[ep lm W4A8] the EP forward differs from the single path")
 
-    # the cluster: one EP replica over every entry of devices
+    # the cluster: one EP replica and one standby, each over n slots of
+    # cuda:0 (the device list split into two groups), as phase 9's LM
+    # cluster has a standby. The packed engine's step() returns after its
+    # enqueue, so the watchdog reads steps of a few ms and, now and then, a
+    # step blocked on the device for 50-150 ms; two such steps in a row over
+    # the default stall rule (max(8 x EMA, 50 ms)) evict the replica, in the
+    # port as in the reference (tests/test_torch_faults.py replays this
+    # phase's traces through both). With no standby the cluster then went
+    # degraded and never drained; the standby backfills the eviction and the
+    # gates below hold as they do without one
     ctag = "ep cluster lm"
-    cluster = ServingCluster(cfg, p_int8, devices=["cuda:0"] * n, engine="lm",
-                             batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    shape = [_inner(e).mesh.shape for e in cluster.engines + cluster._standby]
-    print(f"[{ctag}] replicas and their meshes: {shape} (gate: one replica, "
-          f"{{'model': {n}}})", flush=True)
-    if shape != [{"model": n}]:
+    events = EventLog()
+    cluster = ServingCluster(cfg, p_int8, devices=["cuda:0"] * (2 * n), standby=1,
+                             engine="lm", batch_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                             events=events)
+    shape = ([_inner(e).mesh.shape for e in cluster.engines],
+             [_inner(e).mesh.shape for e in cluster._standby])
+    print(f"[{ctag}] replicas and standby with their meshes: {shape} (gate: one replica "
+          f"and one standby, each {{'model': {n}}})", flush=True)
+    if shape != ([{"model": n}], [{"model": n}]):
         raise AssertionError(f"[{ctag}] the EP cluster built {shape}")
     _check_shared_weights(ctag, cluster, p_int8)
     cwarm = _cluster_warmup(ctag, cluster, per, smi)
@@ -3907,6 +4106,15 @@ def phase_ep_lm(qcfg, trees: dict, single: dict, smi: str) -> dict:
     ccounts = _read_counts()
     cc = cluster.metrics.snapshot()["aggregate"]["counters"]
     _check_delivered_once(ctag, creqs, fired)
+    health = cluster.health()
+    backfilled = [e["replacement"] for e in events.events("replica_replaced")]
+    print(f"[{ctag}] health {health['status']}, evictions {len(health['evicted'])} "
+          f"{health['evicted']}, backfilled by {backfilled}, re-dispatched "
+          f"{sorted(r.uid for r in creqs if r.redispatched)}; watchdog ({smi}): "
+          f"{timer.watchdog_trace()}", flush=True)
+    timer.check_evictions(ctag)
+    if health["status"] != "ok" or len(backfilled) != len(health["evicted"]):
+        raise AssertionError(f"[{ctag}] an eviction was not backfilled: {health}")
     cdiffer = [r.uid for r, want in zip(creqs, single["tokens"]) if r.generated != want]
     print(f"[{ctag}] tokens of every request identical to phase 7's engine: {not cdiffer} "
           f"(gate; differing {cdiffer}); smoke figure ({smi}): "
@@ -3915,6 +4123,9 @@ def phase_ep_lm(qcfg, trees: dict, single: dict, smi: str) -> dict:
     if cdiffer or cc.get("retraces", 0):
         raise AssertionError(f"[{ctag}] other tokens or retraces: {cdiffer}, {cc}")
     _check_cluster_launches(ctag, ccounts, cc["prefill_batches"] + cc["decode_ticks"], per)
+    watched = [{"replica": k, "ms": d * 1e3, "ema_ms": None if ema is None else ema * 1e3,
+                "armed": armed, "streak": streak, "verdict": verdict}
+               for k, d, ema, armed, streak, verdict in timer.replay()]
     del cluster, timer
     _release()
 
@@ -3931,7 +4142,8 @@ def phase_ep_lm(qcfg, trees: dict, single: dict, smi: str) -> dict:
     print(f"[ep lm] allocator peak during the phase {peak / 1e9:.2f} GB", flush=True)
     return {"runs": {"engine": counts, "w4a8": w4, "cluster": ccounts},
             "tok_s": tokens / wall, "profiles": profiles, "warmup": warm,
-            "cluster_warmup": cwarm, "peak_bytes": peak}
+            "cluster_warmup": cwarm, "peak_bytes": peak, "cluster_health": health,
+            "watchdog_steps": watched}
 
 
 # ---------------------------------------------------------------------------
@@ -4498,7 +4710,8 @@ def _profile_dense_tick(eng, mat: str, smi: str, per: dict) -> dict:
 
 # device kernel names of the training step's profile (the serving phases'
 # families and the weight gradient)
-TRAIN_KERNEL_NAMES = dict(KERNEL_NAMES, grouped_wgrad=("grouped_wgrad_kernel",))
+TRAIN_KERNEL_NAMES = dict(KERNEL_NAMES, grouped_wgrad=("grouped_wgrad_mma_kernel",
+                                                         "grouped_wgrad_kernel"))
 
 
 def _train_counts(reset: bool = False) -> dict:
@@ -4509,8 +4722,10 @@ def _train_counts(reset: bool = False) -> dict:
     if reset:
         _reset_counts()
         grouped_wgrad.launches = 0
+        grouped_wgrad.launches_by_variant = {}
         return {}
-    return dict(_read_counts(), grouped_wgrad=grouped_wgrad.launches)
+    return dict(_read_counts(), grouped_wgrad=grouped_wgrad.launches,
+                **{f"grouped_wgrad:{v}": n for v, n in grouped_wgrad.launches_by_variant.items()})
 
 
 @contextlib.contextmanager
@@ -4769,6 +4984,11 @@ def phase_train(smi: str) -> dict:
     if not last <= first - TRAIN_LOSS_DROP:
         raise AssertionError(f"[train m3vit] loss fell {first - last:.4f}, expected at least "
                              f"{TRAIN_LOSS_DROP}")
+    wgrad_by = {k: v for k, v in counts.items() if k.startswith("grouped_wgrad:")}
+    print(f"[train m3vit] grouped_wgrad launches by variant {wgrad_by} (gate: every one of "
+          f"the {counts['grouped_wgrad']} on mma)", flush=True)
+    if not counts["grouped_wgrad"] or wgrad_by != {"grouped_wgrad:mma": counts["grouped_wgrad"]}:
+        raise AssertionError(f"[train m3vit] grouped_wgrad off its mma variant: {counts}")
     out["trainer"] = {"first5": first, "last5": last, "step_ms": step_s * 1e3,
                       "images_per_s": TRAIN_BATCH / step_s, "peak_gb": peak / 1e9,
                       "counts": counts, "steps": TRAIN_STEPS}
@@ -4819,8 +5039,10 @@ def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
     ``int8_matmul`` and ``rmsnorm``; the training rows', the Trainer's 40
     steps (the dx row: every f32 grouped launch of those steps, forward,
     recompute and dx)."""
-    if row["name"] in ("grouped_wgrad", "grouped_matmul_f32[dx]"):
-        return train["trainer"]["counts"][row["name"].removesuffix("_f32[dx]")]
+    if row["name"] == "grouped_wgrad":  # the Trainer's launches of the row's variant
+        return train["trainer"]["counts"].get(f"grouped_wgrad:{row['variant']}", 0)
+    if row["name"] == "grouped_matmul_f32[dx]":
+        return train["trainer"]["counts"]["grouped_matmul"]
     runs = ([r["counts"] for r in lm["runs"].values()]
             + [r["counts"] for r in lm["cluster"].values()]
             + list(lm["ep"]["runs"].values()) + [lm["gshard"]["counts"]])
@@ -4891,9 +5113,11 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} | {"shape": row["shape"]}
-                      | {k: row[k] for k in ("variant", "schedule", "bf16_max_abs_err",
-                                             "f32_copy_max_abs_err", "f64_max_abs_err",
-                                             "launches_per_step")
+                      | {k: row[k] for k in ("variant", "schedule", "fma_ms", "bound_f32_ms",
+                                             "library_wall_ms",
+                                             "bf16_max_abs_err", "f32_copy_max_abs_err",
+                                             "f64_max_abs_err", "launches_per_step",
+                                             "library_refused")
                          if k in row}
                       for row in rows]})
     print(smi, flush=True)

@@ -35,7 +35,7 @@ _SIGNATURES = {
     "int8_matmul_stream_launch": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "grouped_matmul_i8_launch": (_I, [_P, _P, _I] + [_P] * 4 + [_I] * 5 + [_P]),
     "grouped_matmul_f32_launch": (_I, [_P] * 4 + [_I] * 5 + [_P]),
-    "grouped_wgrad_launch": (_I, [_P] * 4 + [_I] * 4 + [_P]),
+    "grouped_wgrad_launch": (_I, [_P] * 4 + [_I] * 5 + [_P]),
     "quant_attention_launch": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),
     "lm_attention_launch": (_I, [_P] * 3 + [_I] + [_P] * 7 + [_I] * 11 + [_F] * 2
                             + [_I, _I, _P]),

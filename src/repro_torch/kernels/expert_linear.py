@@ -39,7 +39,19 @@ rounding of the others).
 g]^T @ dy[rows of g] (``csrc/grouped_wgrad.cu``; it replaces no Pallas
 kernel: the reference takes XLA's transpose rule of ``ragged_dot``). Its
 plain version is ``ref.grouped_wgrad_ref``; ``kernels/autograd.py`` calls
-it in the backward of the f32 mode.
+it in the backward of the f32 mode. Two variants, ``choose_wgrad_variant``
+picking one from the widths and the operands' alignment:
+
+  * 1, ``mma``: 3xTF32 tensor-core tiles, one block a group and output
+    tile, the grid's rows taking the groups heaviest first
+    (``wgrad_order``; Din and Dout multiples of 4, operands on the 16-byte
+    grid);
+  * 2, ``fma``: the first design, f32 FMAs, one block a group and output
+    tile walking all of its rows (any width).
+
+Each gives the same bits on the same inputs; the two differ by f32
+rounding. ``grouped_wgrad.launches_by_variant`` counts launches per
+variant.
 """
 from __future__ import annotations
 
@@ -52,6 +64,8 @@ from repro_torch.kernels import _build
 BLOCK_M = 64  # row tile of the work items, every variant
 VARIANTS = {1: "mma", 2: "stream", 3: "dp4a"}  # the integer modes
 F32_VARIANTS = {1: "mma", 2: "stream", 3: "fma"}
+WGRAD_VARIANTS = {1: "mma", 2: "fma"}  # grouped_wgrad
+WGRAD_RANKED = 256  # grouped_wgrad's mma orders at most this many groups
 STREAM_ROWS_PER_GROUP = 2  # variant 2 when T <= 2 G
 MAX_GROUPS = 65535  # variant 2's grid has one row of blocks a group
 
@@ -102,6 +116,33 @@ def takes(variant: int, Din: int, Dout: int, aligned: bool = True, f32: bool = F
         return True
     return (variant in VARIANTS and aligned and Din % (8 if f32 else 16) == 0
             and Dout % 8 == 0)
+
+
+def choose_wgrad_variant(Din: int, Dout: int, aligned: bool = True) -> int:
+    """``grouped_wgrad``'s variant (``WGRAD_VARIANTS``) at these widths: the
+    tensor-core tiles wherever they take the shape, else the FMA tiles."""
+    return 1 if wgrad_takes(1, Din, Dout, aligned) else 2
+
+
+def wgrad_takes(variant: int, Din: int, Dout: int, aligned: bool = True) -> bool:
+    """Whether ``grouped_wgrad``'s ``variant`` computes these widths:
+    variant 2 any; variant 1 Din and Dout multiples of 4 (16-byte rows of x
+    and dy for its cp.async stages and of dw for its stores), every operand
+    on the 16-byte grid."""
+    if variant == 2:
+        return True
+    return variant == 1 and aligned and Din % 4 == 0 and Dout % 4 == 0
+
+
+def wgrad_order(group_sizes) -> list:
+    """The plain enumeration of the groups in the order ``grouped_wgrad``'s
+    variant 1 takes them, one per row of its grid: sizes descending, ties
+    by the lower index (up to ``WGRAD_RANKED`` groups; beyond, index order).
+    Each block derives its row's group from the sizes on the card."""
+    sizes = [int(v) for v in group_sizes]
+    if len(sizes) > WGRAD_RANKED:
+        return list(range(len(sizes)))
+    return sorted(range(len(sizes)), key=lambda g: (-sizes[g], g))
 
 
 def _aligned(*tensors) -> bool:
@@ -191,13 +232,14 @@ grouped_matmul.launches = 0
 grouped_matmul.launches_by_mode = {}
 
 
-def grouped_wgrad(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+def grouped_wgrad(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor, *,
+                  variant: Optional[int] = None) -> torch.Tensor:
     """x [T, Din] and dy [T, Dout] f32, rows sorted by group, group_sizes
     [G] (sum == T) -> dw [G, Din, Dout] f32, dw[g] = x[rows of g]^T @
-    dy[rows of g] (zeros for an empty group). CUDA tensors only. Each output
-    is summed over its group's rows in row order by one thread, with no
-    float atomics: the same inputs give the same bits. One kernel launch a
-    call."""
+    dy[rows of g] (zeros for an empty group). CUDA tensors only. One kernel
+    launch a call, in ``variant`` (default: ``choose_wgrad_variant``). Each
+    output is summed over its group's rows in row order by one block, with
+    no float atomics: the same inputs give the same bits."""
     _build.require_cuda("grouped_wgrad", x, dy, group_sizes)
     if x.dtype != torch.float32 or dy.dtype != torch.float32:
         raise TypeError(f"f32 x and dy required, got {x.dtype}, {dy.dtype}")
@@ -212,13 +254,22 @@ def grouped_wgrad(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) 
     dw = torch.empty((G, Din, Dout), dtype=torch.float32, device=x.device)
     sizes = group_sizes.to(torch.int32).contiguous()
     x, dy = x.contiguous(), dy.contiguous()
+    aligned = _aligned(x, dy, dw)
+    if variant is None:
+        variant = choose_wgrad_variant(Din, Dout, aligned)
+    elif not wgrad_takes(variant, Din, Dout, aligned):
+        raise ValueError(f"grouped_wgrad variant {variant} cannot take Din={Din}, "
+                         f"Dout={Dout} (16-byte aligned: {aligned})")
     with torch.cuda.device(x.device):
         err = _build.library().grouped_wgrad_launch(
             x.data_ptr(), dy.data_ptr(), sizes.data_ptr(), dw.data_ptr(), T, G, Din, Dout,
-            _build.stream(x))
-    _build.check(err, "grouped_wgrad")
+            variant, _build.stream(x))
+    name = WGRAD_VARIANTS[variant]
+    _build.check(err, f"grouped_wgrad ({name})")
     grouped_wgrad.launches += 1
+    grouped_wgrad.launches_by_variant[name] = grouped_wgrad.launches_by_variant.get(name, 0) + 1
     return dw
 
 
 grouped_wgrad.launches = 0
+grouped_wgrad.launches_by_variant = {}

@@ -445,6 +445,151 @@ def test_watchdog_verdicts_match_reference():
     assert reasons == {"oom", "step_errors", "stalled"}
 
 
+# Step times (ms) that the EP cluster's watchdog saw in two runs of
+# chip_smoke.py's phase_ep_lm on an H100 (tools/ep_drain_runs.py: one EP
+# replica over 4 slots, no standby, 16 requests; every one of 10 runs
+# drained). Run 0: the packed engine's step returns after its enqueue (3-4
+# ms) and now and then blocks on the device (40-100 ms); run 3: one step
+# over the stall rule (92.797 ms against max(8 x 11.56 ms EMA, 50 ms)), the
+# next under it. The first step of each is the first admission.
+EP_TRACE_RUN0 = [
+    137.521, 4.009, 4.158, 4.04, 40.084, 3.94, 4.932, 13.863, 8.824, 4.211, 3.598, 84.821,
+    43.306, 10.061, 21.358, 3.644, 4.27, 3.557, 61.378, 34.473, 3.361, 3.539, 2.772, 2.768,
+    76.339, 28.472, 4.961, 3.743, 3.471, 3.27, 75.526, 56.79, 4.509, 3.537, 4.195, 99.119,
+    19.593, 7.25, 3.729, 45.848, 3.664, 4.08, 4.063, 3.773, 3.842, 87.954, 34.161, 4.014,
+    3.808, 4.133, 47.836, 3.525, 3.373, 51.368, 5.506, 33.416, 5.3, 3.176, 3.709, 63.74,
+    3.419, 12.658]
+EP_TRACE_RUN3 = [
+    153.251, 17.683, 22.748, 28.395, 24.052, 22.825, 40.515, 6.593, 23.605, 22.938, 22.584,
+    22.499, 22.668, 23.293, 21.595, 51.405, 7.169, 22.245, 22.478, 23.214, 22.561, 22.836,
+    22.372, 22.304, 22.865, 22.447, 39.821, 6.374, 22.744, 22.991, 23.048, 120.184, 22.886,
+    22.86, 22.735, 22.454, 23.454, 22.543, 39.813, 6.8, 23.542, 22.798, 22.953, 22.8, 22.216,
+    23.211, 22.051, 3.855, 3.733, 3.353, 3.089, 92.797, 23.785, 24.009, 6.153, 24.198, 22.662,
+    22.356, 22.68, 22.177, 23.677, 22.761]
+EP_STALL_STEP = 51  # run 3's stall
+# run 3 with the step after its stall blocked as long as the stall: two
+# stalls in a row, the watchdog's eviction
+EP_TRACE_EVICTING = EP_TRACE_RUN3[:EP_STALL_STEP + 1] + [92.797] + EP_TRACE_RUN3[53:]
+
+
+def _watch(side, trace_ms, idle_every=0):
+    """A trace of step times (ms) through one package's ``ReplicaWatchdog``
+    at the default ``FaultConfig``: every step's verdict and state; with
+    ``idle_every``, an idle tick of 20 us after every that many steps (the
+    pump's no-op steps while a replica waits for work)."""
+    wd, out = side.faults.ReplicaWatchdog(side.FaultConfig(), label="replica0"), []
+    for i, ms in enumerate(trace_ms):
+        out.append((wd.record_step(ms / 1e3), wd.state()))
+        if idle_every and i % idle_every == idle_every - 1:
+            out.append((wd.record_step(20e-6), wd.state()))
+    return out
+
+
+@pytest.mark.parametrize("trace,idle_every", [
+    ("run0", 0), ("run3", 0), ("evicting", 0), ("run0", 3), ("run3", 5)])
+def test_watchdog_verdicts_on_the_ep_cluster_traces_match_reference(trace, idle_every):
+    """The EP cluster's step times from the card (and run 3 with one more
+    blocked step), idle ticks interleaved or not, through the port's and
+    the reference's watchdogs at the default FaultConfig: the same verdict
+    and state at every step. Run 0 never stalls; run 3 stalls once at its
+    step 51 and recovers; two stalls in a row evict on both sides; idle
+    ticks pull the EMA down, and run 0 with one after every 3 steps evicts
+    a replica whose steps were all served."""
+    ms = {"run0": EP_TRACE_RUN0, "run3": EP_TRACE_RUN3, "evicting": EP_TRACE_EVICTING}[trace]
+    ref, port = _watch(REF, ms, idle_every), _watch(PORT, ms, idle_every)
+    assert port == ref
+    verdicts = [i for i, (v, _) in enumerate(port) if v is not None]
+    streaks = [st["consecutive_stalls"] for _, st in port]
+    if (trace, idle_every) == ("run0", 0):
+        assert not verdicts and max(streaks) == 0
+    elif (trace, idle_every) == ("run3", 0):
+        assert not verdicts and streaks.index(1) == EP_STALL_STEP and max(streaks) == 1
+    elif trace == "evicting":
+        assert verdicts == [EP_STALL_STEP + 1]
+        v = port[EP_STALL_STEP + 1][0]
+        assert v["reason"] == "stalled" and v["consecutive_stalls"] == 2
+        assert 0.0115 < v["step_ema_s"] < 0.0116 and v["last_step_s"] == 92.797 / 1e3
+    elif trace == "run0":
+        assert len(verdicts) == 1 and port[verdicts[0]][0]["reason"] == "stalled"
+    else:
+        assert not verdicts and max(streaks) == 1
+
+
+class _TracedReplica(FakeReplica):
+    """A ``FakeReplica`` whose ``step()`` takes the next time of a trace on
+    the fake clock (what the cluster's watchdog reads), then 4 ms a step."""
+
+    def __init__(self, side, placement, clock, trace_ms, **kw):
+        super().__init__(side, placement, clock, **kw)
+        self._trace = iter(trace_ms)
+
+    def step(self):
+        self._clock.advance(next(self._trace, 4.0) / 1e3)
+        super().step()
+
+
+def _ep_cluster_run(side, standby):
+    """One replica replaying the evicting EP trace (and, with ``standby``,
+    a standby stepping 4 ms) behind the cluster at the default FaultConfig;
+    64 requests served one a step, pumped until nothing is queued or in
+    flight (at most 400 steps)."""
+    clock = FakeClock()
+    events = side.EventLog(clock=clock)
+    traces = iter([EP_TRACE_EVICTING, []])
+
+    def factory(placement):
+        return _TracedReplica(side, placement, clock, next(traces), capacity=1,
+                              max_pending=8)
+
+    cluster = side.ServingCluster(None, None, replicas=1, standby=standby, engine=factory,
+                                  clock=clock, events=events, devices=side.devices,
+                                  max_pending_per_replica=8)
+    done = []
+    reqs = [FakeRequest(uid=i, on_done=lambda r: done.append((r.uid, r.status)))
+            for i in range(64)]
+    for r in reqs:
+        cluster.submit(r)
+    steps = 0
+    while cluster.total_load and steps < 400:
+        cluster.step()
+        steps += 1
+    return {"events": events.events(), "done": sorted(done), "steps": steps,
+            "requests": [(r.uid, r.status, r.redispatched) for r in reqs],
+            "health": cluster.health(), "drained": not cluster.total_load,
+            "counters": cluster.metrics.snapshot()["aggregate"]["counters"]}
+
+
+@pytest.mark.parametrize("standby", [1, 0])
+def test_one_replica_cluster_evicted_by_the_stall_rule(standby):
+    """The EP cluster's shape (one replica) on the evicting trace, in both
+    packages with the same outcome: with a standby the eviction is
+    backfilled, the stranded requests re-dispatched, and the cluster drains
+    with every request completed once; with none it goes degraded (no
+    active replica: ``health()`` reads unhealthy) and never drains, what
+    chip_smoke.py's phase_ep_lm hit with no standby."""
+    ref, port = _ep_cluster_run(REF, standby), _ep_cluster_run(PORT, standby)
+    assert [e["type"] for e in port["events"]] == [e["type"] for e in ref["events"]]
+    for a, b in zip(port["events"], ref["events"]):
+        _nan_equal(a, b)
+    for key in ("done", "steps", "requests", "drained", "counters"):
+        assert port[key] == ref[key], key
+    _nan_equal(port["health"], ref["health"])
+    assert port["counters"]["replicas_evicted"] == 1
+    (evicted,) = port["health"]["evicted"]
+    assert evicted["reason"] == "stalled" and evicted["consecutive_stalls"] == 2
+    if standby:
+        assert port["drained"] and port["health"]["status"] == "ok"
+        assert evicted["backfilled"] == "replica1"
+        assert port["done"] == [(i, "completed") for i in range(64)]
+        assert port["counters"].get("cluster_redispatched", 0) >= 1
+    else:
+        assert not port["drained"] and port["steps"] == 400
+        # degraded, with no active replica left: health() reads "unhealthy"
+        assert port["health"]["degraded"] and port["counters"]["cluster_degraded"] == 1
+        assert port["health"]["status"] == "unhealthy" and port["health"]["active"] == 0
+        assert len(port["done"]) < 64
+
+
 def test_oom_classification_covers_cuda_out_of_memory_by_type():
     err = torch.cuda.OutOfMemoryError("CUDA error: allocation failed")
     assert port_faults.is_oom_error(err)

@@ -16,6 +16,7 @@ Tolerances:
 The LM attention modes and grouped W4A8 are held in
 tests/test_torch_attention.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -256,6 +257,8 @@ def test_cpu_tensors_never_reach_a_kernel():
     ("selective_scan.cu", ""), ("selective_scan.cu", "states"),
     ("selective_scan.cu", "lane"), ("quant_attention.cu", "tile"),
     ("quant_attention.cu", "shared memory"), ("rmsnorm.cu", ""), ("rmsnorm.cu", "registers"),
+    ("grouped_wgrad.cu", ""), ("grouped_wgrad.cu", "mma"), ("grouped_wgrad.cu", "fma"),
+    ("grouped_wgrad.cu", "heaviest"),
 ])
 def test_kernel_sources_carry_their_notes(source, mode):
     """Each CUDA source names the TPU kernel it replaces (RMSNorm: the
@@ -322,6 +325,24 @@ def test_grouped_matmul_f32_notes_cover_each_variant(variant):
     if gm.F32_VARIANTS[variant] == "mma":
         assert "tf32" in note and "3xTF32" in head
     assert "not redesigned" not in head and "calibration only" not in head
+
+
+@pytest.mark.parametrize("variant", sorted(gm.WGRAD_VARIANTS))
+def test_grouped_wgrad_notes_cover_each_variant(variant):
+    """The head of grouped_wgrad.cu gives each variant its own bound and
+    design; the tensor-core variant names its tf32 rate, its schedule and
+    what that schedule does at the skewed routing of the training path."""
+    import repro_torch.kernels as K
+
+    text = (Path(K.__file__).parent / "csrc" / "grouped_wgrad.cu").read_text()
+    head = text[:text.index("#include")]
+    start = head.index(f"// Variant {variant}, {gm.WGRAD_VARIANTS[variant]}")
+    nxt = head.find("// Variant ", start + 1)
+    note = head[start:nxt if nxt > 0 else len(head)]
+    assert "Bound on the H100" in note and "Design:" in note
+    if gm.WGRAD_VARIANTS[variant] == "mma":
+        assert "tf32" in note and "Schedule:" in note and "skewed" in note
+        assert "atomic" in note  # says why the sum order is fixed
 
 
 def _m3vit_int8_shapes(B):
@@ -685,6 +706,141 @@ def test_grouped_stream_blocks_read_each_active_strip_once(sizes):
                                   * np.ones((1, strips), np.int64))
     assert (reads[~active] == 0).all()
     assert (reads[np.asarray(sizes) <= 16] <= 1).all()
+
+
+# the path's routing (chip_smoke._wgrad_sizes at 25216 rows over 16
+# experts: one empty, one ~4.3x the mean) and smaller skewed cases
+WGRAD_PATH_SIZES = [856, 1348, 1486, 0, 874, 1926, 769, 6745, 1953, 1513, 1172, 1364, 1568,
+                    1045, 860, 1737]
+WGRAD_CASES = WORK_CASES + [[0, 1, 0, 200, 3], [1], [31, 33, 32, 0, 1, 95],
+                            WGRAD_PATH_SIZES]
+
+
+def _wgrad_block(sizes, y, T, threads=128, ranked=256):
+    """grouped_wgrad.cu's variant 1 work derivation in a block of row y of
+    the grid, step by step: with at most ``ranked`` groups, thread t ranks
+    groups t, t + threads, ... against every group's size in shared memory
+    (larger first, ties to the lower index) and the one of rank y is the
+    block's group; beyond, group y. Then thread t sums sizes t, t +
+    threads, ... below the group, each warp reduces its lanes (xor
+    shuffles), the warps' sums are added in warp order; the group's rows
+    are staged 32 at a time. Returns (group, lo, hi, the stages' row
+    ranges)."""
+    G = len(sizes)
+    g = y
+    if G <= ranked:
+        picks = [e for t in range(threads) for e in range(t, G, threads)
+                 if sum(sizes[f] > sizes[e] or (sizes[f] == sizes[e] and f < e)
+                        for f in range(G)) == y]
+        assert len(picks) == 1  # one thread writes the block's group
+        g = picks[0]
+    lanes = [sum(sizes[e] for e in range(t, g, threads)) for t in range(threads)]
+    warps = []
+    for w in range(threads // 32):
+        v = lanes[32 * w:32 * w + 32]
+        for o in (16, 8, 4, 2, 1):
+            v = [v[i] + v[i ^ o] for i in range(32)]
+        assert len(set(v)) == 1  # every lane holds the warp's sum
+        warps.append(v[0])
+    lo = min(sum(warps), T)
+    hi = min(lo + sizes[g], T)
+    return g, lo, hi, [(r0, min(r0 + 32, hi)) for r0 in range(lo, hi, 32)]
+
+
+@pytest.mark.parametrize("sizes", WGRAD_CASES + [[i % 5 for i in range(300)]])
+def test_grouped_wgrad_work_derived_in_the_block_is_the_plain_enumeration(sizes):
+    """Variant 1's groups, derived in the blocks of each grid row from
+    group_sizes, are ``wgrad_order``'s plain enumeration (heaviest first;
+    index order past ``WGRAD_RANKED`` groups), each group taken by one
+    row; each block walks every row of its group once, in row order, in
+    stages of at most 32; an empty group's blocks stage nothing."""
+    T = sum(sizes)
+    plain = gm.wgrad_order(torch.tensor(sizes, dtype=torch.int32))
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    got = []
+    for y in range(len(sizes)):
+        g, lo, hi, stages = _wgrad_block(sizes, y, T)
+        got.append(g)
+        assert (lo, hi) == (starts[g], starts[g] + sizes[g])
+        assert all(0 < b - a <= 32 for a, b in stages)
+        assert [r for a, b in stages for r in range(a, b)] == list(range(lo, hi))
+        assert bool(stages) == (sizes[g] > 0)
+    assert got == plain and sorted(got) == list(range(len(sizes)))
+
+
+@pytest.mark.parametrize("sizes,order", [
+    ([5, 9, 0, 9, 1], [1, 3, 0, 4, 2]),  # ties to the lower index, the empty group last
+    ([0, 0, 0], [0, 1, 2]), ([4], [0]),
+    ([1] * 256, list(range(256))),
+    (list(range(257)), list(range(257))),  # past WGRAD_RANKED: index order
+    (list(range(256)), list(range(255, -1, -1))),
+])
+def test_grouped_wgrad_order_rule(sizes, order):
+    """The order variant 1's grid rows take the groups in: sizes
+    descending, ties to the lower index, for up to ``WGRAD_RANKED`` groups
+    (the kernel's ``MW_RANKED``); index order beyond."""
+    import repro_torch.kernels as K
+
+    assert gm.wgrad_order(sizes) == order
+    text = (Path(K.__file__).parent / "csrc" / "grouped_wgrad.cu").read_text()
+    assert f"constexpr int MW_RANKED = {gm.WGRAD_RANKED};" in text
+
+
+def test_grouped_wgrad_schedule_at_the_path_routing():
+    """At the training path's routing the skewed expert (6745 rows, ~4.3x
+    the mean) is the grid's first row: at fc1 its 144 tile blocks are the
+    first 144 the card hands out, so they start at once beside the rest;
+    the empty expert's row comes last."""
+    order = gm.wgrad_order(WGRAD_PATH_SIZES)
+    assert order[0] == int(np.argmax(WGRAD_PATH_SIZES)) == 7
+    assert order[-1] == WGRAD_PATH_SIZES.index(0) == 3
+    tiles = (384 // 64) * (1536 // 64)
+    T = sum(WGRAD_PATH_SIZES)
+    first = {_wgrad_block(WGRAD_PATH_SIZES, blk // tiles, T)[0] for blk in range(tiles)}
+    assert first == {7}
+
+
+def test_grouped_wgrad_summation_order_matches_ragged_dot_grad():
+    """A numpy emulation of variant 1's sums (each 32-row stage's products
+    summed exactly and rounded to f32, as the MMA sums a stage from zero;
+    stages added in row order in f32) on the path's skewed routing scaled
+    down, against the weight gradient of ``jax.lax.ragged_dot``: within
+    atol 1e-5, rtol 1e-5 (f32 sums in another order)."""
+    sizes = [s // 32 for s in WGRAD_PATH_SIZES]
+    T, Din, Dout = sum(sizes), 12, 8
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((T, Din)).astype(np.float32)
+    dy = (rng.standard_normal((T, Dout)) / np.sqrt(T)).astype(np.float32)
+    w = np.zeros((len(sizes), Din, Dout), np.float32)
+    f = lambda w: jnp.sum(jax.lax.ragged_dot(jnp.asarray(x), w, jnp.asarray(sizes))  # noqa
+                          * jnp.asarray(dy))
+    want = np.asarray(jax.grad(f)(jnp.asarray(w)))
+    got = np.zeros_like(want)
+    for y in range(len(sizes)):
+        g, _, _, stages = _wgrad_block(sizes, y, T)
+        acc = np.zeros((Din, Dout), np.float32)
+        for a, b in stages:
+            c = (x[a:b].astype(np.float64).T @ dy[a:b].astype(np.float64))
+            acc = (acc + c.astype(np.float32)).astype(np.float32)
+        got[g] = acc
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert not got[sizes.index(0)].any()
+
+
+@pytest.mark.parametrize("Din,Dout,aligned,variant", [
+    (384, 1536, True, 1), (1536, 384, True, 1),  # the training path: fc1, fc2
+    (8, 8, True, 1), (100, 72, True, 1), (64, 64, True, 1),
+    (100, 70, True, 2), (98, 72, True, 2), (384, 1536, False, 2), (6, 8, True, 2),
+])
+def test_grouped_wgrad_variant_rule(Din, Dout, aligned, variant):
+    """Variant 1 (mma) wherever it takes the widths (Din and Dout multiples
+    of 4, operands on the 16-byte grid), else variant 2 (fma), which takes
+    every shape."""
+    assert gm.choose_wgrad_variant(Din, Dout, aligned) == variant
+    assert gm.wgrad_takes(variant, Din, Dout, aligned)
+    assert gm.wgrad_takes(2, Din, Dout, aligned)
+    assert gm.wgrad_takes(1, Din, Dout, aligned) == (variant == 1)
+    assert not gm.wgrad_takes(3, Din, Dout, aligned)
 
 
 def _unpack_word(b):

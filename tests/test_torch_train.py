@@ -279,6 +279,27 @@ def test_grouped_backward_matches_ragged_dot():
     np.testing.assert_allclose(wt.grad.numpy(), jdw, atol=1e-5, rtol=1e-5)
 
 
+def test_grouped_backward_matches_ragged_dot_at_skewed_routing():
+    """The grouped backward (forward, dx, dw through the plain versions)
+    against ``jax.grad`` of ``ragged_dot`` at M3ViT-S's training routing
+    scaled down 64-fold (16 experts, one empty, one ~4.3x the mean) with a
+    single-row group: atol 1e-5, rtol 1e-5."""
+    sizes = np.asarray([13, 21, 23, 0, 13, 30, 12, 105, 30, 23, 18, 21, 24, 16, 13, 1],
+                       np.int32)
+    rng = np.random.default_rng(7)
+    T, Din, Dout = int(sizes.sum()), 24, 16
+    x = rng.standard_normal((T, Din)).astype(np.float32)
+    w = rng.standard_normal((len(sizes), Din, Dout)).astype(np.float32)
+    dy = rng.standard_normal((T, Dout)).astype(np.float32)
+    jdx, jdw = _ragged_dot_grads(x, w, dy, sizes)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    ops.grouped_matmul(xt, wt, torch.from_numpy(sizes)).backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(xt.grad.numpy(), jdx, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(wt.grad.numpy(), jdw, atol=1e-5, rtol=1e-5)
+    assert not wt.grad[3].any()
+
+
 @pytest.mark.parametrize("act,glu", [("silu", True), ("gelu", False)])
 def test_grouped_mlp_ref_matches_reference(act, glu):
     """``ref.grouped_mlp_ref`` against ``repro.kernels.ref.grouped_mlp_ref``
