@@ -31,7 +31,13 @@ caught:
                  and over a wrapped 4096-row ring, its f32 prefill with the
                  window, of 4160 tokens where it masks, its int8 ring
                  prefill; gemma-7b's decode and prefill beside SDPA) and 192
-                 (nemotron's), each hd <= 128 row's time printed beside
+                 (nemotron's), at phase 12's path shapes (zamba2-7b's f32
+                 prefill of 4 x 512 over its 576-row cache and a decode row,
+                 hd 112; seamless-m4t-medium's non-causal encoder over 4 x
+                 1024 frames, its cross-attention of a 16-token prompt and of
+                 a decode row over the memory, Sq != Sk, and its decoder's
+                 causal self-attention at prefill and decode, hd 64), each
+                 hd <= 128 row's time printed beside
                  ``PERF_MD_LM_ATTENTION_MS``
                  (exact-score inputs within 1e-5; with Gaussian q the
                  ``quant_bits=0`` rows within ``GAUSSIAN_QB0_TOL``, the
@@ -288,6 +294,30 @@ caught:
                  sequence. (d) One fp and one int8 tick (8 slots at fill
                  300) profiled as graph replays beside the fp tick's byte
                  bound.
+ 12. families -- after phase 10, before phase 11: the gemma2 trees freed,
+                 the model families the reference drives through their model
+                 API alone (its engine serves neither), at full width with
+                 seeded f32 weights on the card, each freed before the next.
+                 zamba2-7b (``configs/zamba2_7b.py``: 81 Mamba-2 layers, one
+                 shared attention block after every 6th, 13 applications,
+                 27 GB): 4 prompts of 512 tokens, ``prefill`` into 576 rows,
+                 32 greedy ``decode_step``s at a scalar index; exactly 13
+                 ``lm_attention`` and 108 ``rmsnorm`` launches a prefill, a
+                 decode step and a forward. seamless-m4t-medium
+                 (``configs/seamless_m4t_medium.py``: 12 + 12 layers,
+                 LayerNorm, 3.5 GB): 4 utterances of 1024 Gaussian frames,
+                 decoder prompts of 16 tokens, ``prefill`` into 48 rows, 32
+                 greedy decode steps; 36 ``lm_attention`` launches a prefill
+                 and a forward, 24 a decode step. Gates, each model: every
+                 emitted token's logit within ``LM_FP_TF_TOL`` of the
+                 argmax of one teacher-forced ``forward`` over the prompt
+                 and the tokens before it (the median and p90 relative logit
+                 error printed); the attention launches of the runs tallied
+                 by phase-3 row, every row launched. seamless, calibrated on
+                 2 batches of 2 utterances: the fold-only PTQ tree's logits
+                 within ``FOLD_REL_TOL`` of std(logits) of the fp tree's.
+                 One decode step and the prefill of each profiled, eager:
+                 device time, top kernels, one device kernel a gated call.
  11. train   -- last, after every serving phase, so it cannot move their
                  gates, and under ``torch.use_deterministic_algorithms(True)``
                  (``train.trainer.deterministic_mode``). (a) Full-width
@@ -495,6 +525,34 @@ DENSE_FP_TF_LIMITS = (2.7e-2, 3.7e-2)
 # ring 4096), a prompt that wraps the ring in its prefill and one that wraps
 # it in decode, 64 new tokens each
 DENSE_RING_MAX_LEN, DENSE_RING_PROMPTS, DENSE_RING_NEW = 4608, (4100, 4060), 64
+# phase 12: the remaining model families at full width, each driven through
+# its model API (prefill, then greedy decode steps at a scalar index), as
+# the reference drives them (its engine serves neither). zamba2-7b: 81
+# Mamba-2 layers and one shared attention block after every 6th (13
+# applications); per forward, prefill or decode step 13 lm_attention
+# launches and 81 layer norms + 13 x (ln1, ln2) + the final norm RMSNorms
+# (the Mamba-2 gated norm is plain torch, as in the reference)
+HYBRID_ARCH, HYBRID_BATCH, HYBRID_PROMPT, HYBRID_MAX_LEN = "zamba2-7b", 4, 512, 576
+HYBRID_PER_FORWARD = {"int8_matmul": 0, "grouped_matmul": 0, "lm_attention": 13,
+                      "rmsnorm": 108}
+# seamless-m4t-medium: 4 utterances of 1024 frames, decoder prompts of 16
+# tokens, a 48-row self cache; LayerNorm throughout (no RMSNorm launch). A
+# prefill: 12 encoder self-attentions, 12 decoder self, 12 cross; a decode
+# step: 12 self + 12 cross
+ENCDEC_ARCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_MAX_LEN = "seamless-m4t-medium", 1024, 16, 48
+ENCDEC_PER_PREFILL = {"int8_matmul": 0, "grouped_matmul": 0, "lm_attention": 36, "rmsnorm": 0}
+ENCDEC_PER_DECODE = dict(ENCDEC_PER_PREFILL, lm_attention=24)
+FAMILY_DECODE_STEPS = 32
+# the allocation earlier phases may leave at phase 12's start: their
+# returned results hold ~0.9-1.0 GB (0.88 GB at phase 8's start, 1.04 GB
+# after phase 10 on an H100), the gemma2 trees that must be gone 4.39 and
+# 10.46 GB
+FAMILY_LEFT_GB = 2.0
+# teacher-forced gate: each emitted token's logit in one forward over the
+# prompt and the tokens before it within LM_FP_TF_TOL of that forward's
+# argmax; the fold-only tree's logits: max |delta| / std(logits) under
+# FOLD_REL_TOL (the reference's tests/test_quant.py rule)
+FOLD_REL_TOL = 1e-2
 # phase 11: full-width M3ViT-S training. The batch, the Trainer's steps and
 # its learning rate (AdamW, warm-up: TrainerConfig's default 10 steps, then
 # cosine to 0 at step 40); the loss gate is the reference Trainer test's margin
@@ -1550,6 +1608,86 @@ def _check_lm_attention_hd256(grid, randn, gauss, off, f32_tol, bf16_tol) -> lis
     return rows
 
 
+# the generator seed of phase 12's attention rows (``_check_lm_attention_families``)
+FAMILY_ATTENTION_SEED = 12
+
+
+def _check_lm_attention_families(gen) -> list:
+    """``lm_attention`` at the shapes phase 12's path gives it (f32 K/V,
+    ``quant_bits=0``, on its own generator so the rows above keep their
+    inputs): zamba2-7b's shared block (32 heads of 112, one KV head each),
+    its prefill of 4 x 512 over the 576-row cache and a decode row at the
+    scalar index 540; seamless-m4t-medium's (16 heads of 64) non-causal
+    encoder self-attention over 4 x 1024 frames, the cross-attention of the
+    16-token decoder prompt and of a decode row over the 1024-frame memory
+    (Sq != Sk, no mask), and the decoder's causal self-attention, its
+    prompt over the 48-row cache and a decode row at index 40. Every row
+    beside SDPA on the same inputs (the mask of the cache's valid rows
+    where it has one)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    grid = lambda *shape: torch.randint(-3, 4, shape, generator=gen,  # noqa: E731
+                                        device="cuda").float() * 0.25
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    extra = torch.Generator(device="cuda").manual_seed(FAMILY_ATTENTION_SEED + 1)
+    gauss = lambda *shape: torch.randn(shape, generator=extra, device="cuda")  # noqa: E731
+    t = lambda a: a.transpose(1, 2)  # noqa: E731
+    f32_tol, rows = (1e-5, 1e-5), []
+    B = HYBRID_BATCH
+
+    def cache_mask(Sq, Sk, q_off, valid):
+        qpos = q_off + torch.arange(Sq, device="cuda")[:, None]
+        kpos = torch.arange(Sk, device="cuda")[None, :]
+        return (kpos <= qpos) & (kpos < valid)
+
+    # zamba2: the prefill over the cache (valid 512 of 576 rows), a decode row
+    H, hd, L, P = 32, 112, HYBRID_MAX_LEN, HYBRID_PROMPT
+    q, k, v = grid(B, P, H, hd), grid(B, L, H, hd), randn(B, L, H, hd)
+    valid = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    mask = cache_mask(P, L, 0, P)
+    rows.append(_lm_attention_row(
+        "zamba2_prefill_f32", "causal/float32/qb0", q, k, v,
+        dict(causal=True, quant_bits=0, kv_valid_len=valid), f32_tol,
+        sdpa=lambda: sdpa(t(q), t(k), t(v), attn_mask=mask), gaussian=gauss(B, P, H, hd)))
+    idx = 540
+    q = grid(B, 1, H, hd)
+    mask = cache_mask(1, L, idx, idx + 1)
+    rows.append(_lm_attention_row(
+        "zamba2_decode_f32", "causal/float32/qb0/decode", q, k, v,
+        dict(causal=True, q_offset=idx, quant_bits=0,
+             kv_valid_len=torch.full((B,), idx + 1, dtype=torch.int32, device="cuda")),
+        f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v), attn_mask=mask),
+        gaussian=gauss(B, 1, H, hd)))
+    del q, k, v
+
+    # seamless: the encoder, the cross-attention at prefill and decode
+    H, hd, F, P, L = 16, 64, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_MAX_LEN
+    q, k, v = grid(B, F, H, hd), grid(B, F, H, hd), randn(B, F, H, hd)
+    rows.append(_lm_attention_row(
+        "seamless_encoder_f32", "full/float32/qb0", q, k, v,
+        dict(causal=False, quant_bits=0), f32_tol, sdpa=lambda: sdpa(t(q), t(k), t(v)),
+        gaussian=gauss(B, F, H, hd)))
+    for name, mode, Sq in (("seamless_cross_prefill_f32", "full/float32/qb0", P),
+                           ("seamless_cross_decode_f32", "full/float32/qb0/decode", 1)):
+        qx = grid(B, Sq, H, hd)
+        rows.append(_lm_attention_row(
+            name, mode, qx, k, v, dict(causal=False, quant_bits=0), f32_tol,
+            sdpa=lambda: sdpa(t(qx), t(k), t(v)), gaussian=gauss(B, Sq, H, hd)))
+    del q, k, v
+    # the decoder's self-attention over its 48-row cache
+    k, v = grid(B, L, H, hd), randn(B, L, H, hd)
+    for name, mode, Sq, off in (("seamless_prefill_f32", "causal/float32/qb0", P, 0),
+                                ("seamless_decode_f32", "causal/float32/qb0/decode", 1, 40)):
+        qs = grid(B, Sq, H, hd)
+        mask = cache_mask(Sq, L, off, off + Sq)
+        rows.append(_lm_attention_row(
+            name, mode, qs, k, v,
+            dict(causal=True, q_offset=off, quant_bits=0,
+                 kv_valid_len=torch.full((B,), off + Sq, dtype=torch.int32, device="cuda")),
+            f32_tol, sdpa=lambda: sdpa(t(qs), t(k), t(v), attn_mask=mask),
+            gaussian=gauss(B, Sq, H, hd)))
+    return rows
+
+
 # the vision kernel's edges, on exact-score inputs (B, Sq, Sk, H, KVH, hd,
 # quant_bits): hd 16 (the smoke configs') in one key chunk, GQA with Sq !=
 # Sk and ragged chunks, hd 100 (padded to 128), hd 30 (plain loads: rows
@@ -2050,6 +2188,8 @@ def phase_kernels() -> list:
     rows = [_check_int8_matmul(gen), *_check_grouped_matmul(gen), _check_attention(gen),
             _check_grouped_w4a8(gen),
             *_check_lm_attention(torch.Generator(device="cuda").manual_seed(LM_ATTENTION_SEED)),
+            *_check_lm_attention_families(
+                torch.Generator(device="cuda").manual_seed(FAMILY_ATTENTION_SEED)),
             *_check_selective_scan(gen), _check_rmsnorm(gen),
             *_check_grouped_training(torch.Generator(device="cuda").manual_seed(WGRAD_SEED))]
     for row in rows:
@@ -4705,6 +4845,252 @@ def _profile_dense_tick(eng, mat: str, smi: str, per: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the remaining model families
+# ---------------------------------------------------------------------------
+
+FAMILY_ROWS = ("zamba2_prefill_f32", "zamba2_decode_f32", "seamless_encoder_f32",
+               "seamless_cross_prefill_f32", "seamless_cross_decode_f32",
+               "seamless_prefill_f32", "seamless_decode_f32")
+
+
+def _attention_role(Sq: int, Sk: int, hd: int, causal: bool) -> str:
+    """The phase-3 row (``FAMILY_ROWS``) of an attention call on phase 12's
+    path: zamba2's are the hd-112 calls, seamless's the hd-64 ones."""
+    if hd == 112:
+        return "zamba2_decode_f32" if Sq == 1 else "zamba2_prefill_f32"
+    if causal:
+        return "seamless_decode_f32" if Sq == 1 else "seamless_prefill_f32"
+    if Sq == 1:
+        return "seamless_cross_decode_f32"
+    return "seamless_encoder_f32" if Sq == Sk else "seamless_cross_prefill_f32"
+
+
+@contextlib.contextmanager
+def _attention_roles(tally: dict):
+    """Tally ``lm_attention``'s launches through ``ops.attention`` by row
+    (``_attention_role``) while the block runs; their sum is the wrapper's
+    own count, which the caller holds it to."""
+    from repro_torch.kernels import ops
+
+    inner = ops.lm_attention
+
+    def counted(q, k, v, **kw):
+        out = inner(q, k, v, **kw)
+        role = _attention_role(q.shape[1], k.shape[1], q.shape[-1], kw.get("causal", True))
+        tally[role] = tally.get(role, 0) + 1
+        return out
+
+    ops.lm_attention = counted
+    try:
+        yield tally
+    finally:
+        ops.lm_attention = inner
+
+
+def _check_counts(tag: str, counts: dict, per: dict, calls: int) -> None:
+    for name in KERNEL_NAMES:
+        if counts.get(name, 0) != per.get(name, 0) * calls:
+            raise AssertionError(f"[{tag}] {name}: {counts.get(name, 0)} launches in {calls} "
+                                 f"calls, expected {per.get(name, 0)} a call")
+
+
+def _greedy_run(tag: str, mod, params, cfg, tokens, max_len: int, per_prefill: dict,
+                per_decode: dict, **front) -> dict:
+    """``prefill`` of ``tokens`` [B, P] (and the frontend's input) into
+    ``max_len`` rows, then ``FAMILY_DECODE_STEPS`` greedy ``decode_step``s
+    at the scalar index P + j, each gated to launch exactly ``per_decode``
+    (the prefill ``per_prefill``). Returns the emitted tokens [B, steps + 1],
+    the logits behind each [steps + 1, B, V] and the cache."""
+    B, P = tokens.shape
+    with torch.inference_mode():
+        _reset_counts()
+        logits, cache = mod.prefill(params, cfg, tokens, max_len=max_len, **front)
+        _check_counts(f"{tag} prefill", _read_counts(), per_prefill, 1)
+        lg = logits[:, -1]
+        toks, lgs = [], []
+        _reset_counts()
+        for j in range(FAMILY_DECODE_STEPS + 1):
+            tok = torch.argmax(lg, dim=-1)
+            toks.append(tok)
+            lgs.append(lg)
+            if j == FAMILY_DECODE_STEPS:
+                break
+            lg, cache = mod.decode_step(params, cfg, tok[:, None], cache, P + j)
+            lg = lg[:, -1]
+        _check_counts(f"{tag} decode", _read_counts(), per_decode, FAMILY_DECODE_STEPS)
+    return {"tokens": torch.stack(toks, dim=1), "logits": torch.stack(lgs), "cache": cache}
+
+
+def _family_teacher_forced(tag: str, mod, params, cfg, tokens, run: dict, smi: str,
+                           **front) -> dict:
+    """One teacher-forced ``forward`` over the prompt and the emitted tokens
+    before the last (causal: its row P - 1 + j sees exactly the prefix of
+    step j). Gate: every emitted token's logit there within
+    ``LM_FP_TF_TOL`` of the row's argmax. Printed: the median and p90 over
+    the steps of max |decode logit - forward logit| / max |forward logit|."""
+    B, P = tokens.shape
+    seq = torch.cat([tokens, run["tokens"][:, :-1].to(tokens.dtype)], dim=1)
+    with torch.inference_mode():
+        full = mod.forward(params, cfg, seq, **front)[0][:, P - 1:]  # [B, steps + 1, V]
+        got = run["logits"].transpose(0, 1)
+        rel = ((got - full).abs().amax(-1) / full.abs().amax(-1)).cpu().numpy()  # [B, steps]
+        picked = torch.gather(full, -1, run["tokens"][..., None].long())[..., 0]
+        gap = (full.amax(-1) - picked).cpu().numpy()
+        agree = int((run["tokens"] == full.argmax(-1)).sum())
+    out = {"rel_median": float(np.median(rel)), "rel_p90": float(np.quantile(rel, 0.9)),
+           "rel_max": float(rel.max()), "gap_max": float(gap.max()), "agree": agree,
+           "steps": int(rel.size)}
+    print(f"[{tag}] teacher-forced against one forward over the prompt and the tokens ({smi}): "
+          f"{rel.size} emitted tokens, relative logit error median {out['rel_median']:.3g}, "
+          f"p90 {out['rel_p90']:.3g}, max {out['rel_max']:.3g}; forward's argmax at "
+          f"{agree}/{rel.size}, largest gap below it {gap.max():.3g} (gate: "
+          f"{LM_FP_TF_TOL} at every token)", flush=True)
+    if gap.max() > LM_FP_TF_TOL:
+        raise AssertionError(f"[{tag}] an emitted token sits {gap.max():.3g} below the "
+                             "teacher-forced argmax")
+    return out
+
+
+def _family_profiles(tag: str, prefill, decode, per_prefill: dict, per_decode: dict,
+                     smi: str) -> dict:
+    """Eager device time of one decode step and of the prefill, with the top
+    kernels (``_profile``), one device kernel a gated call."""
+    out = {}
+    for label, fn, per in (("decode step", decode, per_decode), ("prefill", prefill, per_prefill)):
+        prof = _profile(f"{tag} profile", f"{label}, eager", smi, 3 if label == "decode step"
+                        else 1, fn, expect=per)
+        _check_kernels_per_call(f"{tag} profile {label}", prof, per)
+        out[label.split()[0]] = prof
+    return out
+
+
+def phase_families(smi: str) -> dict:
+    """Phase 12: full-width zamba2-7b and seamless-m4t-medium through their
+    model API, each freed before the next (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant.ptq import calibrate_model, ptq_model
+    from repro_torch.models import encdec, hybrid, init_model_params, tree_bytes
+
+    t_phase = time.perf_counter()
+    _release()
+    left = torch.cuda.memory_allocated() / 1e9
+    print(f"[families] {left:.2f} GB of earlier phases left on the card (gate: "
+          f"{FAMILY_LEFT_GB})", flush=True)
+    if left > FAMILY_LEFT_GB:  # the gemma2 trees and engines must be gone
+        raise AssertionError(f"[families] {left:.2f} GB of earlier phases still allocated")
+    out = {}
+    roles: dict = {}  # lm_attention launches of the runs below by row (not the profiles)
+
+    # zamba2-7b
+    tag = "families zamba2"
+    cfg = get_config(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    params = init_model_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(27)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT))
+                              .astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} Mamba-2 layers, the shared block after every "
+          f"{cfg.shared_attn_every}th ({hybrid.n_apps(cfg)} applications), f32 tree "
+          f"{tree_bytes(params) / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s ({smi})",
+          flush=True)
+    with _attention_roles(roles):
+        t0 = time.perf_counter()
+        run = _greedy_run(tag, hybrid, params, cfg, tokens, HYBRID_MAX_LEN, HYBRID_PER_FORWARD,
+                          HYBRID_PER_FORWARD)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _reset_counts()
+        tf = _family_teacher_forced(tag, hybrid, params, cfg, tokens, run, smi)
+        _check_counts(f"{tag} forward", _read_counts(), HYBRID_PER_FORWARD, 1)
+    out["zamba2"] = dict(tf, wall_s=wall)
+    out["rmsnorm"] = HYBRID_PER_FORWARD["rmsnorm"] * (FAMILY_DECODE_STEPS + 2)  # as gated
+    print(f"[{tag}] prefill of {HYBRID_BATCH} x {HYBRID_PROMPT} + {FAMILY_DECODE_STEPS} decode "
+          f"steps, eager: {wall:.2f} s; launches a prefill, decode step and forward "
+          f"{HYBRID_PER_FORWARD} (gate: exact)", flush=True)
+    cache, last = run["cache"], run["tokens"][:, -1:]
+    idx = HYBRID_PROMPT + FAMILY_DECODE_STEPS - 1
+    out["zamba2"]["profile"] = _family_profiles(
+        tag, lambda: hybrid.prefill(params, cfg, tokens, max_len=HYBRID_MAX_LEN),
+        lambda: hybrid.decode_step(params, cfg, last, cache, idx),
+        HYBRID_PER_FORWARD, HYBRID_PER_FORWARD, smi)
+    del params, run, cache
+    _release()
+
+    # seamless-m4t-medium
+    tag = "families seamless"
+    cfg = get_config(ENCDEC_ARCH)
+    t0 = time.perf_counter()
+    params = init_model_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(28)
+    frames = torch.from_numpy(rng.standard_normal(
+        (HYBRID_BATCH, ENCDEC_FRAMES, cfg.frontend_dim)).astype(np.float32)).cuda()
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (HYBRID_BATCH, ENCDEC_PROMPT))
+                              .astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.name}: {cfg.encoder_layers} + {cfg.decoder_layers} layers, f32 tree "
+          f"{tree_bytes(params) / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s; "
+          f"{HYBRID_BATCH} utterances of {ENCDEC_FRAMES} frames, prompts of {ENCDEC_PROMPT} "
+          f"tokens ({smi})", flush=True)
+    with _attention_roles(roles):
+        t0 = time.perf_counter()
+        run = _greedy_run(tag, encdec, params, cfg, tokens, ENCDEC_MAX_LEN, ENCDEC_PER_PREFILL,
+                          ENCDEC_PER_DECODE, frontend_embeds=frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _reset_counts()
+        tf = _family_teacher_forced(tag, encdec, params, cfg, tokens, run, smi,
+                                    frontend_embeds=frames)
+        _check_counts(f"{tag} forward", _read_counts(), ENCDEC_PER_PREFILL, 1)
+    out["seamless"] = dict(tf, wall_s=wall)
+    print(f"[{tag}] prefill + {FAMILY_DECODE_STEPS} decode steps, eager: {wall:.2f} s; "
+          f"launches a prefill / forward {ENCDEC_PER_PREFILL}, a decode step "
+          f"{ENCDEC_PER_DECODE} (gate: exact)", flush=True)
+    cache, last = run["cache"], run["tokens"][:, -1:]
+    idx = ENCDEC_PROMPT + FAMILY_DECODE_STEPS - 1
+    out["seamless"]["profile"] = _family_profiles(
+        tag, lambda: encdec.prefill(params, cfg, tokens, frontend_embeds=frames,
+                                    max_len=ENCDEC_MAX_LEN),
+        lambda: encdec.decode_step(params, cfg, last, cache, idx),
+        ENCDEC_PER_PREFILL, ENCDEC_PER_DECODE, smi)
+    # calibration on 2 batches of 2 utterances, then the fold-only tree
+    t0 = time.perf_counter()
+    calib = [{"tokens": tokens[2 * i:2 * i + 2], "frontend_embeds": frames[2 * i:2 * i + 2]}
+             for i in range(2)]
+    taps = calibrate_model(cfg, params, calib)
+    folded = ptq_model(cfg, params, taps, fold_only=True)
+    seq = torch.cat([tokens, run["tokens"][:, :-1].to(tokens.dtype)], dim=1)
+    with torch.inference_mode():
+        fp = encdec.forward(params, cfg, seq, frontend_embeds=frames)[0]
+        got = encdec.forward(folded, cfg, seq, frontend_embeds=frames)[0]
+        rel = float((got - fp).abs().max() / fp.std())
+    out["seamless"]["fold_rel"] = rel
+    print(f"[{tag}] calibration on 2 batches of 2 utterances + the fold-only PTQ tree "
+          f"(LayerNorm: r2 != 0, every consumer's bias corrected; {len(taps.stats)} sites) in "
+          f"{time.perf_counter() - t0:.1f} s: logits max |delta| / std {rel:.3g} against the "
+          f"fp tree's (gate < {FOLD_REL_TOL}) ({smi})", flush=True)
+    if not rel < FOLD_REL_TOL:
+        raise AssertionError(f"[{tag}] the fold-only tree moves the logits by {rel:.3g} of "
+                             "their std")
+    del params, folded, run, cache, fp, got, frames
+    _release()
+
+    # the tally against the wrapper's gated counts: a prefill, the decode
+    # steps and the teacher-forced forward of each model
+    want = (HYBRID_PER_FORWARD["lm_attention"] * (FAMILY_DECODE_STEPS + 2)
+            + 2 * ENCDEC_PER_PREFILL["lm_attention"]
+            + ENCDEC_PER_DECODE["lm_attention"] * FAMILY_DECODE_STEPS)
+    print(f"[families] lm_attention launches of the runs by row: {roles} "
+          f"({sum(roles.values())} in all, gate {want}; every row launched)", flush=True)
+    if sum(roles.values()) != want or any(not roles.get(r) for r in FAMILY_ROWS):
+        raise AssertionError(f"[families] lm_attention launches by row {roles}")
+    out["roles"] = roles
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[families] phase 12 in {out['seconds']:.1f} s ({smi})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 11: training
 # ---------------------------------------------------------------------------
 
@@ -5029,16 +5415,18 @@ def phase_train(smi: str) -> dict:
 
 
 def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
-              dense: dict, train: dict) -> int:
+              dense: dict, families: dict, train: dict) -> int:
     """A row's launches on the main path: the vision serving run and the
     vision cluster's, and for the modes the LM runs, the three OLMoE serving
     runs (fp, int8, W4A8) and the two LM cluster runs (the fp32 grouped row
     also the calibration forwards, the calibration attention row those
     alone); the scan's, the falcon-mamba serving run; the gemma2 rows',
     the gemma2-2b serving runs (fp, int8, ring wrap), which also add to
-    ``int8_matmul`` and ``rmsnorm``; the training rows', the Trainer's 40
-    steps (the dx row: every f32 grouped launch of those steps, forward,
-    recompute and dx)."""
+    ``int8_matmul`` and ``rmsnorm``; phase 12's attention rows', their
+    calls in its runs (a prefill, the decode steps and the teacher-forced
+    forward of each model), and its zamba2 runs add to ``rmsnorm``; the
+    training rows', the Trainer's 40 steps (the dx row: every f32 grouped
+    launch of those steps, forward, recompute and dx)."""
     if row["name"] == "grouped_wgrad":  # the Trainer's launches of the row's variant
         return train["trainer"]["counts"].get(f"grouped_wgrad:{row['variant']}", 0)
     if row["name"] == "grouped_matmul_f32[dx]":
@@ -5048,13 +5436,17 @@ def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
             + list(lm["ep"]["runs"].values()) + [lm["gshard"]["counts"]])
     dense_runs = [r["counts"] for r in dense["runs"].values()]
     name = row["name"]
+    role = name.removeprefix("lm_attention[").removesuffix("]")
+    if role in FAMILY_ROWS:
+        return families["roles"].get(role, 0)
     if name.startswith("lm_attention[gemma2"):
         return sum(c.get("lm_attention:" + row["mode"], 0) for c in dense_runs)
     if name.startswith("selective_scan"):
         return ssm["counts"]["selective_scan"]
     if name == "rmsnorm":
         return (vision["rmsnorm"] + sum(c["rmsnorm"] for c in runs)
-                + ssm["counts"]["rmsnorm"] + sum(c["rmsnorm"] for c in dense_runs))
+                + ssm["counts"]["rmsnorm"] + sum(c["rmsnorm"] for c in dense_runs)
+                + families["rmsnorm"])
     if name == "grouped_matmul_f32":
         return (vision_calib["grouped_matmul"] + lm["calib_counts"]["grouped_matmul:f32"]
                 + sum(c.get("grouped_matmul:f32", 0) for c in runs))
@@ -5096,9 +5488,10 @@ def main() -> None:
     lm = _timed(phase_lm, smi)
     ssm = _timed(phase_ssm, smi)
     dense = _timed(phase_dense, smi)
+    families = _timed(phase_families, smi)
     train = _timed(phase_train, smi)
     for row in rows:
-        row["launches"] = _launches(row, counts, calib_counts, lm, ssm, dense, train)
+        row["launches"] = _launches(row, counts, calib_counts, lm, ssm, dense, families, train)
         if row["name"] in ("grouped_wgrad", "grouped_matmul_f32[dx]"):
             row["launches_per_step"] = row["launches"] / TRAIN_STEPS
     for name in ("int8_matmul", "grouped_matmul", "grouped_matmul_w4a8", "grouped_matmul_f32",
@@ -5106,7 +5499,8 @@ def main() -> None:
                  "lm_attention[packed_prefill_f32]", "lm_attention[decode_bf16]",
                  "lm_attention[gemma2_decode_bf16_512]", "lm_attention[gemma2_decode_int8_512]",
                  "lm_attention[gemma2_prefill_f32]", "lm_attention[gemma2_ring_prefill_int8]",
-                 "selective_scan", "rmsnorm", "grouped_wgrad", "grouped_matmul_f32[dx]"):
+                 "selective_scan", "rmsnorm", "grouped_wgrad", "grouped_matmul_f32[dx]",
+                 *(f"lm_attention[{r}]" for r in FAMILY_ROWS)):
         row = next(r for r in rows if r["name"] == name)
         if row["launches"] == 0:
             raise AssertionError(f"{name} was not launched on the main path")

@@ -1,6 +1,9 @@
-"""Architecture registry of the port: the paper's eight vision configs, the
-MoE LM it serves (OLMoE-1B-7B), the dense LMs (gemma2-2b, gemma-7b,
-llama3-8b) and the Mamba-1 LM (falcon-mamba-7b)."""
+"""Architecture registry of the port: the paper's eight vision configs and
+the reference's ten LM configs -- the MoE LMs (OLMoE-1B-7B,
+qwen3-moe-235b-a22b), the dense LMs (gemma2-2b, gemma-7b, llama3-8b,
+nemotron-4-340b), the Mamba-1 LM (falcon-mamba-7b), the Mamba-2 hybrid
+(zamba2-7b), the encoder-decoder (seamless-m4t-medium) and the VLM
+(internvl2-26b)."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,11 +29,17 @@ from repro_torch.configs.base import (
 from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA_7B
 from repro_torch.configs.gemma2_2b import CONFIG as GEMMA2_2B
 from repro_torch.configs.gemma_7b import CONFIG as GEMMA_7B
+from repro_torch.configs.internvl2_26b import CONFIG as INTERNVL2_26B
 from repro_torch.configs.llama3_8b import CONFIG as LLAMA3_8B
+from repro_torch.configs.nemotron_4_340b import CONFIG as NEMOTRON_4_340B
 from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE_1B_7B
+from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as QWEN3_MOE_235B
+from repro_torch.configs.seamless_m4t_medium import CONFIG as SEAMLESS_M4T_MEDIUM
+from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 
 REGISTRY: Dict[str, ModelConfig] = {cfg.name: cfg for cfg in (
-    OLMOE_1B_7B, FALCON_MAMBA_7B, GEMMA2_2B, GEMMA_7B, LLAMA3_8B)} | _moe_vit.ALL
+    FALCON_MAMBA_7B, QWEN3_MOE_235B, OLMOE_1B_7B, NEMOTRON_4_340B, LLAMA3_8B,
+    GEMMA_7B, GEMMA2_2B, ZAMBA2_7B, SEAMLESS_M4T_MEDIUM, INTERNVL2_26B)} | _moe_vit.ALL
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -51,7 +60,10 @@ def smoke_config(arch: str) -> ModelConfig:
     """A reduced config of the same family for CPU smoke tests (the rules of
     ``repro.configs.smoke_config``): 4 layers, d=64, 4 heads of 16, 8
     experts with d_ff 32, SSM state 8, vocab at most 256, no gradient
-    accumulation; vision configs get 10 classes and 17 tokens."""
+    accumulation; an encoder-decoder 2 + 2 layers, a frontend 48 wide (a
+    patch frontend 8 tokens), the hybrid 5 layers with the shared block
+    every 2 (a remainder on purpose); vision configs get 10 classes and 17
+    tokens."""
     cfg = get_config(arch)
     kw = dict(
         name=cfg.name + "-smoke",
@@ -74,6 +86,16 @@ def smoke_config(arch: str) -> ModelConfig:
         kw["moe"] = dataclasses.replace(
             cfg.moe, num_experts=8, top_k=min(cfg.moe.top_k, 2), d_ff=32
         )
+    if cfg.family == "encdec":
+        kw["num_layers"] = 4
+        kw["encoder_layers"] = 2
+        kw["decoder_layers"] = 2
+    if cfg.frontend:
+        kw["frontend_tokens"] = 8 if cfg.frontend == "patch" else 0
+        kw["frontend_dim"] = 48
+    if cfg.shared_attn_every:
+        kw["shared_attn_every"] = 2
+        kw["num_layers"] = 5  # not a multiple on purpose: layers after the last block
     if cfg.num_classes:
         kw["num_classes"] = 10
         kw["image_tokens"] = 17

@@ -1,7 +1,7 @@
 """Config dataclasses of the PyTorch port.
 
-A copy of the fields of ``repro.configs.base`` that the ViT, LM and SSM
-serving paths and the serving cluster read; the port keeps its own configs
+A copy of the fields of ``repro.configs.base`` that the model families,
+the serving paths and the serving cluster read; the port keeps its own configs
 so that it never imports the JAX package. The names, defaults and meanings
 are the reference's, so a test can compare the two field by field.
 """
@@ -60,7 +60,7 @@ class SSMConfig:
     conv_width: int = 4
     head_dim: int = 64  # mamba2 only
     dt_rank: int = 0  # mamba1; 0 = ceil(d_model / 16)
-    scan_chunk: int = 128  # the reference's chunked-scan length (unused here)
+    scan_chunk: int = 128  # Mamba-2's SSD chunk length (Mamba-1 scans in the kernel)
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
@@ -279,7 +279,9 @@ class FaultConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # moe | dense | ssm | vit | vit_moe (M3ViT: every other block is MoE)
+    # dense | moe | ssm | hybrid | encdec | vlm | vit | vit_moe (M3ViT:
+    # every other block is MoE)
+    family: str
     num_layers: int
     d_model: int
     d_ff: int
@@ -290,6 +292,15 @@ class ModelConfig:
     attn: Optional[AttnConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): one shared attention block applied every N ssm layers
+    shared_attn_every: int = 0
+    # encoder-decoder (seamless)
+    encoder_layers: int = 0
+    decoder_layers: int = 0
+    # modality frontend stub: 'patch' (vlm) | 'frame' (audio) | None
+    frontend: Optional[str] = None
+    frontend_tokens: int = 0  # tokens contributed by the frontend embeds
+    frontend_dim: int = 0  # raw embedding dim provided by the stub
     tie_embeddings: bool = False
     embed_scale: bool = False  # gemma: scale embeds by sqrt(d_model)
     post_block_norm: bool = False  # gemma2 sandwich norms
@@ -318,7 +329,7 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
-    # ---- derived sizes (the reference's formulas, for the port's families) ----
+    # ---- derived sizes (the reference's formulas) ----
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks + head)."""
         d = self.d_model
@@ -326,8 +337,12 @@ class ModelConfig:
         if not self.tie_embeddings and self.family not in ("vit", "vit_moe"):
             n += self.vocab_size * d  # lm head
         layers = self.num_layers
+        if self.family == "encdec":
+            layers = self.encoder_layers + self.decoder_layers
         per_layer = 0
-        if self.attn is not None:
+        # hybrid: attention and MLP live only in the one shared block
+        shared_only = bool(self.shared_attn_every)
+        if self.attn is not None and not shared_only:
             a = self.attn
             per_layer += d * (a.q_dim + 2 * a.kv_dim)  # qkv
             per_layer += a.q_dim * d  # out proj
@@ -351,13 +366,20 @@ class ModelConfig:
             moe_layers = layers // self.moe.moe_every
             n += moe_layers * (self.moe.num_experts * mlp_mult * d * self.moe.d_ff
                                + d * self.moe.num_experts)
-            if self.d_ff:
+            if self.d_ff and not shared_only:
                 n += (layers - moe_layers) * mlp_mult * d * self.d_ff
             n += layers * per_layer
         else:
-            if self.d_ff:
+            if self.d_ff and not shared_only:
                 per_layer += mlp_mult * d * self.d_ff
             n += layers * per_layer
+        if self.family == "encdec":  # the decoder's cross-attention
+            a = self.attn
+            n += self.decoder_layers * (d * (a.q_dim + 2 * a.kv_dim) + a.q_dim * d)
+        if self.shared_attn_every and self.attn is not None:
+            a = self.attn
+            n += d * (a.q_dim + 2 * a.kv_dim) + a.q_dim * d  # the one shared block
+            n += mlp_mult * d * self.d_ff
         if self.num_classes:
             n += d * self.num_classes
         return n

@@ -51,6 +51,9 @@ class ScopedTaps:
     def record(self, site: str, x: torch.Tensor) -> None:
         self.base.record(f"{self.prefix}.{site}", x)
 
+    def scoped(self, prefix: str) -> "ScopedTaps":
+        return ScopedTaps(self.base, f"{self.prefix}.{prefix}")
+
 
 def maybe_record(taps: Optional[TapCollector], site: str, x: torch.Tensor) -> None:
     if taps is not None:

@@ -1,14 +1,18 @@
 """PTQ driver (CoQMoE section 3): calibrate -> reparameterize -> quantize,
 ported from ``repro.core.quant.ptq`` for the vision (vit, vit_moe), LM
-(dense, moe) and Mamba-1 (ssm: fold and fake-quant only) families.
+(dense, moe, vlm) and Mamba (ssm, hybrid) families and the encoder-decoder
+(encdec); ssm, hybrid and encdec fold and fake-quantize only, as in the
+reference.
 
   1. ``calibrate_model`` runs the fp model over a few batches while a
      ``TapCollector`` records per-channel min/max at every post-norm site
      and per-tensor absmax at the other linear inputs.
   2. ``ptq_model`` folds the post-norm reparameterization (Eqs. 10-16)
      into each norm and inversely into its consumers (QKV, MLP fc1, every
-     expert's fc1 and the gate, the Mamba in_proj; RMSNorm models use the symmetric r2 == 0
-     variant, ``(1+g)' = (1+g)/r1 - 1``), inserts the ``a_scale`` /
+     expert's fc1 and the gate, the Mamba in_proj, the hybrid's one shared
+     block, the cross-attention's q and, from the encoder's final norm,
+     every decoder layer's cross k and v; RMSNorm models use the symmetric
+     r2 == 0 variant, ``(1+g)' = (1+g)/r1 - 1``), inserts the ``a_scale`` /
      ``wo_a_scale`` activation scales, and quantizes the weights per output
      channel:
        * ``materialize="fake"``: quantize-dequantize in f32, the oracle
@@ -35,15 +39,17 @@ from repro_torch.core.quant.linear_quant import fake_quant_weight, quantize_weig
 from repro_torch.core.quant.qtypes import ASCALE_SUFFIX, SCALE_SUFFIX, pack_int4, qmax
 
 # Families PTQ folds and fake-quantizes.
-FAMILIES = frozenset({"dense", "moe", "ssm", "vit", "vit_moe"})
+FAMILIES = frozenset({"dense", "moe", "vlm", "ssm", "hybrid", "encdec", "vit", "vit_moe"})
 # Families whose every linear call site routes through ``quant_linear``:
 # the only ones with stored int8 / int4 trees.
-INT8_FAMILIES = frozenset({"dense", "moe", "vit", "vit_moe"})
+INT8_FAMILIES = frozenset({"dense", "moe", "vlm", "vit", "vit_moe"})
 
 # Leaf keys treated as quantizable linear weights (per-out-channel int8).
+# The frontend projection consumes the stub's raw embeddings: weight-only
+# (no activation scale is calibrated for it).
 QUANT_WEIGHT_KEYS = frozenset(
     {"wq", "wk", "wv", "wo", "wi", "gate", "lm_head", "head", "patch_proj",
-     "in_proj", "out_proj"}
+     "frontend_proj", "in_proj", "out_proj"}
 )
 
 MATERIALIZE_MODES = ("fake", "int8", "int4")
@@ -63,8 +69,10 @@ _MLP_SITE = (("ln2",), "post_ln2", [(("mlp", "wi"), "bi")])
 _MOE_SITE = (("ln2",), "post_ln2", [(("moe", "gate"), "gate_b"),
                                     (("moe", "wi"), "bi")])
 _SSM_SITE = (("ln",), "post_ln1", [(("mamba", "in_proj"), "in_bias")])
+_XATTN_SITE = (("lnx",), "post_lnx", [(("xattn", "wq"), "bq")])
 _MID_SITES = [  # (subtree, tap_suffix) -> wo_a_scale insertion points
     (("attn",), "attn_out"),
+    (("xattn",), "x.attn_out"),  # the encoder-decoder's cross-attention
     (("mlp",), "mlp_mid"),
     (("moe",), "moe_mid"),
 ]
@@ -113,8 +121,9 @@ def _check_int4_site(path: Tuple[str, ...]) -> None:
 
 def calibrate_model(cfg: ModelConfig, params, batches: Sequence) -> TapCollector:
     """Run the fp model over calibration batches (patch tensors for the
-    vision families, token tensors for the LM), recording taps. An MoE LM
-    config should be the serving one (grouped experts), as in serving."""
+    vision families, token tensors for the LM, batch dicts with
+    ``frontend_embeds`` for the frontend families), recording taps. An MoE
+    LM config should be the serving one (grouped experts), as in serving."""
     from repro_torch import models
 
     taps = TapCollector()
@@ -259,13 +268,41 @@ def _materialize_stored(tree, bits: int, scheme=None, path: Tuple[str, ...] = ()
 
 def _layer_groups(cfg: ModelConfig, p) -> List[Tuple[str, str, list]]:
     """(params key, tap prefix, norm sites) of each stacked layer group."""
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return [("layers", "L", [_SSM_SITE])]
+    if cfg.family == "encdec":
+        return [("enc_layers", "Lenc", [_ATTN_SITE, _MLP_SITE]),
+                ("dec_layers", "Ldec", [_ATTN_SITE, _XATTN_SITE, _MLP_SITE])]
     return [(key, prefix, [_ATTN_SITE, _MOE_SITE if "moe" in p[key] else _MLP_SITE])
             for key, prefix in (("layers", "L"), ("layers_local", "Llocal"),
                                 ("layers_global", "Lglobal"), ("pairs_dense", "Ldense"),
                                 ("pairs_moe", "Lmoe"))
             if key in p]
+
+
+def _fold_unstacked(sub: dict, scope: str, sites, taps: TapCollector, a_bits: int,
+                    rms: bool, fold_only: bool, ascale: bool, device) -> None:
+    """The fold of one unstacked block (no leading layer dim): the hybrid's
+    shared attention block, whose taps merge every application's."""
+    for norm_path, suffix, consumers in sites:
+        name = f"{scope}.{suffix}"
+        if name not in taps.stats:
+            continue
+        r1, r2, s, s_tilde = _stacked_factors(taps, [name], a_bits, rms, device)
+        _fold_norm(_get(sub, norm_path), r1[0], r2[0], s[0], rms)
+        for w_path, b_key in consumers:
+            _fold_consumer(sub, w_path, b_key, r1[0], (s * r2)[0], add_bias=not rms)
+            if ascale:
+                _insert_ascale(sub, w_path, s_tilde[0])
+        if not fold_only:
+            _get(sub, norm_path)["a_scale"] = s_tilde[0]
+    if not fold_only:
+        for mid_path, suffix in _MID_SITES:
+            name = f"{scope}.{suffix}"
+            node = _get(sub, mid_path)
+            if node is not None and name in taps.stats:
+                node["wo_a_scale"] = torch.tensor(taps.absmax(name) / qmax(a_bits),
+                                                  dtype=torch.float32, device=device)
 
 
 def _n_stack(sub: dict) -> int:
@@ -352,6 +389,11 @@ def ptq_model(cfg: ModelConfig, params, taps: TapCollector, *,
                     [taps.absmax(nm) / qmax(a_bits) for nm in names],
                     dtype=torch.float32, device=device)
 
+    # zamba2's one shared attention + MLP block
+    if cfg.family == "hybrid" and "shared" in p:
+        _fold_unstacked(p["shared"], "shared", [_ATTN_SITE, _MLP_SITE], taps, a_bits,
+                        rms, fold_only, ascale, device)
+
     # Final norm -> head consumer (single, unstacked site).
     if "final_norm" in taps.stats and head_key is not None:
         r1, r2, s, s_tilde = _stacked_factors(taps, ["final_norm"], a_bits, rms,
@@ -368,6 +410,17 @@ def ptq_model(cfg: ModelConfig, params, taps: TapCollector, *,
             p["final_norm"]["a_scale"] = s_tilde[0]
         if ascale:
             p[head_key + ASCALE_SUFFIX] = s_tilde[0]
+
+    # the encoder's final norm feeds every decoder layer's cross K/V
+    if cfg.family == "encdec" and "enc_norm_out" in taps.stats:
+        r1, r2, s, s_tilde = _stacked_factors(taps, ["enc_norm_out"], a_bits, rms, device)
+        _fold_norm(p["enc_norm"], r1[0], r2[0], s[0], rms)
+        for w_path, b_key in ((("xattn", "wk"), "bk"), (("xattn", "wv"), "bv")):
+            _fold_consumer(p["dec_layers"], w_path, b_key, r1, s * r2, add_bias=not rms)
+            if ascale:
+                _insert_ascale(p["dec_layers"], w_path, s_tilde[0])
+        if not fold_only:
+            p["enc_norm"]["a_scale"] = s_tilde[0]
 
     if not fold_only:
         w_bits = cfg.quant.w_bits

@@ -10,9 +10,9 @@ optimization:
   * token LM families: sequences from a fixed random bigram chain (next =
     perm[cur] with p = 0.9, uniform otherwise);
   * vision families: patches whose class is a linear probe of a fixed
-    random projection of the mean patch (linearly separable).
-
-The reference's frontend (audio / VLM) families are not ported.
+    random projection of the mean patch (linearly separable);
+  * frontend (audio / VLM) families: stub embeddings drawn around one of
+    8 fixed Gaussian means each, beside the tokens.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import PATCH_DIM, text_tokens_for
+from repro_torch.models import PATCH_DIM, frontend_tokens, text_tokens_for
 
 
 class SyntheticPipeline:
@@ -45,6 +45,9 @@ class SyntheticPipeline:
         if cfg.num_classes:
             self._probe = structure_rng.standard_normal(
                 (16, cfg.num_classes)).astype(np.float32)
+        if cfg.frontend:
+            self._fe_means = structure_rng.standard_normal(
+                (8, cfg.frontend_dim)).astype(np.float32)
 
     def _rng(self, step: int) -> np.random.Generator:
         return np.random.default_rng(
@@ -71,8 +74,14 @@ class SyntheticPipeline:
             labels = np.argmax(patches.mean(axis=1)[:, :16] @ self._probe, axis=-1)
             return {"patches": patches, "labels": labels.astype(np.int32)}
         toks = self._bigram_tokens(rng, B, text_tokens_for(cfg, self.shape))
-        return {"tokens": toks[:, :-1].astype(np.int32),
-                "labels": toks[:, 1:].astype(np.int32)}
+        out = {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+        if cfg.frontend:  # the frames of an encoder-decoder, a vlm's patches
+            cls = rng.integers(0, 8, B)
+            fe = (self._fe_means[cls][:, None, :] + 0.3 * rng.standard_normal(
+                (B, frontend_tokens(cfg, self.shape), cfg.frontend_dim)))
+            out["frontend_embeds"] = fe.astype(np.float32)
+        return out
 
     def __iter__(self):
         step = 0

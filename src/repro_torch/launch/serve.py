@@ -20,8 +20,10 @@ least-loaded routing, the watchdog, eviction and re-dispatch):
       --quantized --replicas 2 --requests 16 --new-tokens 32 --slots 8 \\
       --max-len 512 [--chaos --chaos-kill 1:20]
 
-The MoE LM and the dense LMs (llama3-8b, gemma-7b) admit through packed
-prefill; gemma2-2b (alternating local/global layers, the local layers' K/V
+The MoE LMs, the dense LMs (llama3-8b, gemma-7b, nemotron-4-340b) and the
+vlm (internvl2-26b, text-only) admit through packed prefill; the hybrid
+(zamba2-7b) and the encoder-decoder (seamless-m4t-medium) are refused, as
+the reference's engine cannot serve them; gemma2-2b (alternating local/global layers, the local layers' K/V
 in a ring of min(max_len, 4096) rows) and falcon-mamba (no packed prefill)
 through the grouped same-length path, falcon-mamba's prefill through the
 selective-scan kernel. Weights are random, drawn on the device from ``--seed``; the
@@ -77,7 +79,7 @@ from repro_torch.distributed.fault_tolerance import PreemptionGuard
 from repro_torch.kernels import autotune
 from repro_torch.models import init_model_params
 from repro_torch.serving.cluster import ServingCluster
-from repro_torch.serving.engine import Request, ServeEngine, serving_config
+from repro_torch.serving.engine import Request, ServeEngine, check_servable, serving_config
 from repro_torch.serving.events import EventLog
 from repro_torch.serving.metrics import ClusterMetrics
 from repro_torch.serving.metrics_server import MetricsServer, cluster_healthz
@@ -221,6 +223,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    check_servable(cfg)  # before the weights are built
     cfg = serving_config(cfg)
     if args.quantized:
         cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, enable=True))

@@ -1,7 +1,8 @@
 """Shared model layers, ported from ``repro.models.layers``: LayerNorm and
 RMSNorm, RoPE, the quantized/full-precision linear seam, the MLP, the int8
-K/V quantizer and the attention block (cache-free, and over a K/V cache
-with per-slot fill positions and packed-prefill segment ids). Plain
+K/V quantizer and the attention block (cache-free, over a K/V cache with
+per-slot fill positions and packed-prefill segment ids, and the
+encoder-decoder's cross-attention over an encoder memory). Plain
 functions over nested dicts of tensors."""
 from __future__ import annotations
 
@@ -166,13 +167,35 @@ def _ring_fill(buf: torch.Tensor, new: torch.Tensor) -> None:
     buf[:, :new.shape[1]] = new.to(buf.dtype)
 
 
+def project_memory_kv(memory: torch.Tensor, p: dict, a: AttnConfig,
+                      cfg: Optional[ModelConfig] = None) -> tuple:
+    """K/V [B, S, KVH, hd] projected from ``memory`` [B, S, D]: a
+    cross-attention's from the encoder output (computed once at prefill,
+    then cached), or a self-attention's from the block's own input."""
+    B, S_enc = memory.shape[0], memory.shape[1]
+    k = quant_linear(memory, p, "wk", cfg).reshape(B, S_enc, a.num_kv_heads, a.head_dim)
+    v = quant_linear(memory, p, "wv", cfg).reshape(B, S_enc, a.num_kv_heads, a.head_dim)
+    if "bk" in p:
+        k = k + p["bk"].reshape(1, 1, a.num_kv_heads, a.head_dim)
+        v = v + p["bv"].reshape(1, 1, a.num_kv_heads, a.head_dim)
+    return k, v
+
+
 def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *,
                     positions: Optional[torch.Tensor] = None, causal: bool = True,
                     local_window: int = 0, cache: Optional[dict] = None,
-                    cache_index=None, segment_ids: Optional[torch.Tensor] = None,
+                    cache_index=None, memory: Optional[torch.Tensor] = None,
+                    memory_kv: Optional[tuple] = None,
+                    segment_ids: Optional[torch.Tensor] = None,
                     segments: Optional[int] = None, taps=None):
     """MSA block: qkv proj -> (QK-norm) -> RoPE -> streaming attention ->
     out proj. Returns (y, cache).
+
+    Cross-attention (the encoder-decoder's): ``memory`` [B, S_enc, D]
+    projects K/V from the encoder output, ``memory_kv`` passes them
+    precomputed (``project_memory_kv``; no QK-norm is applied to them). A
+    cross call is non-causal, takes no RoPE, window or segment ids, and no
+    cache.
 
     cache: {"k", "v": [B, Smax, KVH, hd] (int8 or fp), with int8 also
     "k_scale", "v_scale": [B, Smax, KVH]}. The new K/V rows are written
@@ -198,28 +221,32 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig, a: AttnConfig, *
     kernel's grid hint (``ops.attention``).
     """
     B, S, _ = x.shape
+    cross = memory is not None or memory_kv is not None
+    if cross and cache is not None:
+        raise ValueError("cross-attention takes no cache: pass memory_kv instead")
     q = quant_linear(x, p, "wq", cfg).reshape(B, S, a.num_heads, a.head_dim)
-    k = quant_linear(x, p, "wk", cfg).reshape(B, S, a.num_kv_heads, a.head_dim)
-    v = quant_linear(x, p, "wv", cfg).reshape(B, S, a.num_kv_heads, a.head_dim)
     if "bq" in p:
         q = q + p["bq"].reshape(1, 1, a.num_heads, a.head_dim)
-    if "bk" in p:
-        k = k + p["bk"].reshape(1, 1, a.num_kv_heads, a.head_dim)
-        v = v + p["bv"].reshape(1, 1, a.num_kv_heads, a.head_dim)
+    if memory_kv is not None:
+        k, v = memory_kv
+    else:
+        k, v = project_memory_kv(x if memory is None else memory, p, a, cfg)
     if a.qk_norm:
         q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
-    if positions is not None:
-        q = rope(q, positions, a.rope_theta)
-        k = rope(k, positions, a.rope_theta)
-    elif a.rope_theta > 0:
-        raise ValueError("RoPE needs positions")
+        if memory_kv is None:
+            k = rmsnorm(k, p["k_norm"])
+    if not cross:  # no RoPE over the encoder memory
+        if positions is not None:
+            q = rope(q, positions, a.rope_theta)
+            k = rope(k, positions, a.rope_theta)
+        elif a.rope_theta > 0:
+            raise ValueError("RoPE needs positions")
     quant_bits = cfg.quant.attn_bits if cfg.quant.enable else 0
     if cache is None:
         out = ops.attention(
-            q, k, v, causal=causal, quant_bits=quant_bits,
-            logit_softcap=a.logit_softcap, local_window=local_window,
-            q_segment_ids=(None if segment_ids is None
+            q, k, v, causal=causal and not cross, quant_bits=quant_bits,
+            logit_softcap=a.logit_softcap, local_window=0 if cross else local_window,
+            q_segment_ids=(None if segment_ids is None or cross
                            else segment_ids.to(torch.int32)), segments=segments)
     else:
         smax = cache["k"].shape[1]

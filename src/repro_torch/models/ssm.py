@@ -1,11 +1,18 @@
-"""Mamba-1 (falcon-mamba) block, ported from ``repro.models.ssm``.
+"""Mamba-1 (falcon-mamba) and Mamba-2 (the zamba2 hybrid's backbone)
+blocks, ported from ``repro.models.ssm``.
 
-Prefill runs the selective scan through ``kernels.ops.selective_scan`` (the
-CUDA kernel on the card, its plain version on the CPU); the reference's
-chunked associative scan is its XLA lowering for want of a kernel and is
-not ported. Decode (S = 1) is the single fused recurrence step in plain
-tensor ops, as the reference runs it in plain XLA. Mamba-2 (the hybrid
-family) is not ported.
+Mamba-1's prefill runs the selective scan through
+``kernels.ops.selective_scan`` (the CUDA kernel on the card, its plain
+version on the CPU); the reference's chunked associative scan is its XLA
+lowering for want of a kernel and is not ported. Decode (S = 1) is the
+single fused recurrence step in plain tensor ops, as the reference runs it
+in plain XLA.
+
+Mamba-2 is plain XLA in the reference (no Pallas kernel), so it is plain
+torch here: prefill is the chunked SSD in matrix form (per-head scalar
+decay: a chunk's intra-chunk term is an attention-like [B, C, C, H] score
+product, its inter-chunk term the carried state), decode the one-step
+recurrence.
 """
 from __future__ import annotations
 
@@ -96,5 +103,109 @@ def mamba1_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
         y = torch.einsum("bdn,bn->bd", new_h, cc[:, 0].float())[:, None]
         y = y + xs.float() * p["D"]
     y = y * F.silu(z.float())
+    out = y.to(x.dtype) @ p["out_proj"]
+    return out, {"h": new_h, "conv": new_conv}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (zamba2 backbone): scalar per-head decay, SSD-style
+# ---------------------------------------------------------------------------
+
+def _pad_chunks(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """[B, S, ...] -> [nch, B, C, ...], zero-padded to a chunk multiple."""
+    B, S = x.shape[:2]
+    nch = -(-S // chunk)
+    pad = nch * chunk - S
+    if pad:
+        x = torch.cat([x, x.new_zeros((B, pad) + tuple(x.shape[2:]))], dim=1)
+    return x.reshape((B, nch, chunk) + tuple(x.shape[2:])).movedim(1, 0)
+
+
+def mamba2_pdefs(cfg: ModelConfig) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.num_ssm_heads(d)
+    n = s.state_dim
+    conv_dim = di + 2 * n  # conv over (x, B, C)
+    return {
+        "in_proj": dense(d, 2 * di + 2 * n + nh),
+        "conv_w": PDef((conv_dim, s.conv_width), scale=1.0 / math.sqrt(s.conv_width)),
+        "conv_b": vector(conv_dim),
+        "A_log": vector(nh, "ones"),
+        "dt_bias": vector(nh, "ones"),
+        "D": vector(nh, "ones"),
+        "norm_scale": vector(di, "zeros"),
+        "out_proj": dense(di, d),
+    }
+
+
+def _ssd_chunk(h0, dtc, x, bc, cc, A, tri):
+    """One chunk of the SSD prefill, f32. h0 [B, H, P, N] carried state;
+    dtc [B, C, H], x [B, C, H, P], bc/cc [B, C, N]. Returns (y [B, C, H,
+    P], h). Every exponent is of a non-positive value (decay)."""
+    lam = torch.cumsum(dtc * A, dim=1)  # [B, C, H], non-increasing
+    cb = torch.einsum("btn,bsn->bts", cc, bc)  # [B, C, C]
+    seg = lam[:, :, None, :] - lam[:, None, :, :]  # [B, t, s, H], <= 0 on and below the diagonal
+    # above the diagonal seg > 0 and exp overflows: zero it first (the
+    # reference's double where, which keeps the backward free of inf * 0)
+    seg = torch.where(tri, seg, 0.0)
+    M = torch.where(tri, torch.exp(seg) * dtc[:, None, :, :] * cb[..., None], 0.0)
+    y_intra = torch.einsum("btsh,bshp->bthp", M, x)
+    y_inter = torch.exp(lam)[..., None] * torch.einsum("bcn,bhpn->bchp", cc, h0)
+    dec = torch.exp(lam[:, -1:, :] - lam) * dtc  # [B, C, H]
+    h = (torch.einsum("bshp,bsh,bsn->bhpn", x, dec, bc)
+         + torch.exp(lam[:, -1])[..., None, None] * h0)
+    return y_intra + y_inter, h
+
+
+def mamba2_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                 state: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
+    """SSD block: x [B, S, D] -> ([B, S, D], new state). ``state`` (decode,
+    S = 1): {'h': [B, H, P, N] f32, 'conv': [B, W-1, conv_dim]}; None runs
+    the whole sequence from a zero state in chunks of ``ssm.scan_chunk``
+    (prefill). The carried state stays f32; each chunk's y is cast to the
+    activation dtype, as the reference stacks it. ``in_proj`` is a plain
+    matmul (no site reads the ``in_bias`` leaf the PTQ fold may write: it
+    is zero under the symmetric RMSNorm fold), as in the reference."""
+    s = cfg.ssm
+    B, S, D = x.shape
+    di = s.d_inner(D)
+    nh = s.num_ssm_heads(D)
+    P = s.head_dim
+    n = s.state_dim
+    zxbcdt = x @ p["in_proj"]
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    xbc, new_conv = causal_conv1d(xbc, p["conv_w"], p["conv_b"],
+                                  state=None if state is None else state["conv"])
+    xbc = F.silu(xbc)
+    xs, bc, cc = torch.split(xbc, [di, n, n], dim=-1)
+    dt = softplus(dt + p["dt_bias"])  # [B, S, H]
+    A = -torch.exp(p["A_log"].float())  # [H]
+    xh = xs.reshape(B, S, nh, P)
+    if state is None:
+        chunk = min(s.scan_chunk, S)
+        tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                    device=x.device))[None, :, :, None]
+        chunks = [_pad_chunks(t, chunk) for t in (dt, xh, bc, cc)]
+        new_h = torch.zeros((B, nh, P, n), dtype=torch.float32, device=x.device)
+        ys = []
+        for dtc, xc, bcc, ccc in zip(*chunks):
+            y, new_h = _ssd_chunk(new_h, dtc.float(), xc.float(), bcc.float(), ccc.float(),
+                                  A, tri)
+            ys.append(y.to(xh.dtype))
+        y = torch.stack(ys, dim=1).reshape(B, -1, nh, P)[:, :S]
+    else:
+        a1 = torch.exp(dt[:, 0].float() * A)[..., None, None]  # [B, H, 1, 1]
+        b1 = ((dt[:, 0, :, None] * xh[:, 0].float())[..., None]
+              * bc[:, 0, None, None, :].float())  # [B, H, P, N]
+        new_h = a1 * state["h"] + b1
+        y = torch.einsum("bhpn,bn->bhp", new_h, cc[:, 0].float())[:, None]
+    y = y + xh.float() * p["D"][:, None]
+    y = y.reshape(B, S, di)
+    # gated RMSNorm (Mamba-2): norm(y * silu(z)), eps 1e-6, scale (1 + g)
+    y = y * F.silu(z.float())
+    var = torch.mean(torch.square(y), dim=-1, keepdim=True)
+    y = y * torch.rsqrt(var + 1e-6) * (1.0 + p["norm_scale"])
     out = y.to(x.dtype) @ p["out_proj"]
     return out, {"h": new_h, "conv": new_conv}

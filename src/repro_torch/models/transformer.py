@@ -1,5 +1,8 @@
-"""Decoder-only LM (dense and all-layer MoE families) and the block pieces
-the vision models share, ported from ``repro.models.transformer``.
+"""Decoder-only LM (dense, all-layer MoE and vlm families) and the block
+pieces the vision models share, ported from ``repro.models.transformer``.
+The vlm's frontend stub projects precomputed patch embeddings
+(``frontend_proj``) and prepends them to the token embeddings
+(``_embed_inputs``); the serving engine runs it text-only.
 
 Layers are stacked (a leading layer dim on every leaf under ``layers``) and
 walked by a Python loop, where the reference scans. The K/V cache is one
@@ -126,8 +129,8 @@ def _alternating(cfg: ModelConfig) -> bool:
 
 def abstract_params(cfg: ModelConfig) -> dict:
     """The LM's parameter tree: embedding, stacked layers (alternating
-    archs: ``layers_local`` and ``layers_global``, L/2 each), final norm and
-    (untied) LM head."""
+    archs: ``layers_local`` and ``layers_global``, L/2 each), final norm,
+    (untied) LM head and (vlm) the frontend projection."""
     d = cfg.d_model
     tree: dict = {
         "embed": PDef((cfg.vocab_size, d), init="small_normal"),
@@ -143,6 +146,8 @@ def abstract_params(cfg: ModelConfig) -> dict:
         tree["layers"] = stack_tree(_layer_pdefs(cfg), cfg.num_layers)
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense(d, cfg.vocab_size, scale=0.02)
+    if cfg.frontend:  # the vlm's projection of the stub's patch embeddings
+        tree["frontend_proj"] = dense(cfg.frontend_dim, d)
     return tree
 
 
@@ -286,8 +291,15 @@ def _block(x, p, cfg, *, positions, local_window=0, causal=True, cache=None,
 # Forward (teacher-forced), prefill, decode
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings [B, S, D]; with a frontend (vlm) and its embeds
+    [B, F, frontend_dim], their ``frontend_proj`` projection (through the
+    quant seam) in front: [B, F + S, D]."""
     x = params["embed"][tokens.long()]  # [B, S, D]
+    if cfg.frontend and frontend_embeds is not None:
+        fe = quant_linear(frontend_embeds.to(x.dtype), params, "frontend_proj", cfg)
+        x = torch.cat([fe, x], dim=1)
     if cfg.embed_scale:
         # a fill on the device, not a copy from the host: capture-safe
         x = x * torch.full((), cfg.d_model**0.5, dtype=x.dtype, device=x.device)
@@ -364,40 +376,46 @@ def logits_from_hidden(params, cfg: ModelConfig, x, taps=None):
     return logits
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor, taps=None):
-    """Teacher-forced forward: tokens [B, S] -> (logits [B, S, V], aux)."""
-    x = _embed_inputs(params, cfg, tokens)
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None, taps=None):
+    """Teacher-forced forward: tokens [B, S] -> (logits [B, S, V], aux); a
+    vlm's ``frontend_embeds`` [B, F, frontend_dim] prepend F positions
+    (logits [B, F + S, V])."""
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, aux, _, _ = _run_layers(params, cfg, x, positions=positions, taps=taps)
     return logits_from_hidden(params, cfg, x, taps=taps), aux
 
 
+def kv_cache(cfg: ModelConfig, n: int, batch: int, length: int, dtype, device) -> dict:
+    """Zeroed K/V of ``n`` stacked attention layers [n, batch, length, KVH,
+    hd]: int8 with f32 per-(position, head) scales [n, batch, length, KVH]
+    when ``cfg.quant.enable`` and ``kv_cache_int8``, else ``dtype``."""
+    a = cfg.attn
+    int8 = cfg.quant.enable and cfg.quant.kv_cache_int8
+    shape = (n, batch, length, a.num_kv_heads, a.head_dim)
+    kv_dtype = torch.int8 if int8 else dtype
+    c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+         "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+    if int8:
+        c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return c
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
-    """Zeroed K/V cache [layers, batch, max_len, KVH, hd]: int8 with f32
-    per-(position, head) scales when ``cfg.quant.enable`` and
-    ``kv_cache_int8``, else ``dtype``. Alternating archs: ``{"local": ring
-    of min(max_len, local_window) rows, "global": max_len rows}``, L/2
-    layers each."""
+    """Zeroed K/V cache [layers, batch, max_len, KVH, hd] (``kv_cache``).
+    Alternating archs: ``{"local": ring of min(max_len, local_window)
+    rows, "global": max_len rows}``, L/2 layers each."""
     a = cfg.attn
     device = require_device(device)
-    int8 = cfg.quant.enable and cfg.quant.kv_cache_int8
-    kv_dtype = torch.int8 if int8 else dtype
-
-    def one(n: int, length: int) -> dict:
-        shape = (n, batch, length, a.num_kv_heads, a.head_dim)
-        c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
-             "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
-        if int8:
-            c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-            c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-        return c
-
     if _alternating(cfg):
         n = cfg.num_layers // 2
         local = min(max_len, a.local_window) if a.local_window else max_len
-        return {"local": one(n, local), "global": one(n, max_len)}
-    return one(cfg.num_layers, max_len)
+        return {"local": kv_cache(cfg, n, batch, local, dtype, device),
+                "global": kv_cache(cfg, n, batch, max_len, dtype, device)}
+    return kv_cache(cfg, cfg.num_layers, batch, max_len, dtype, device)
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
@@ -407,10 +425,11 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat1
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            max_len: Optional[int] = None):
-    """Run the prompts [B, S], building a cache of ``max_len`` rows (default
-    S). Returns (last-position logits [B, 1, V], cache)."""
-    x = _embed_inputs(params, cfg, tokens)
+            frontend_embeds: Optional[torch.Tensor] = None, max_len: Optional[int] = None):
+    """Run the prompts [B, S] (a vlm's frontend embeds in front), building a
+    cache of ``max_len`` rows (default the stream's length). Returns
+    (last-position logits [B, 1, V], cache)."""
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     cache = init_cache(cfg, B, max_len or S, dtype=x.dtype, device=x.device)

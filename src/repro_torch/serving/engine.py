@@ -30,6 +30,11 @@ program is a CUDA graph that ``warmup()`` captures (``serving/programs.py``),
 so serving replays graphs and builds nothing; with ``aot_warmup=False``,
 and on the CPU, each runs eagerly through the same code.
 
+The vlm family is served text-only on the packed path, as the reference
+serves it; the hybrid and encoder-decoder families are refused at
+construction (``check_servable``), as the reference's engine cannot serve
+them.
+
 A family without ``prefill_packed``, an alternating local/global arch (its
 ring cache cannot take a packed prefill) or ``serve.packed_prefill=False``
 takes the grouped path instead, as the reference decides it: the polled
@@ -117,6 +122,30 @@ def serving_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.moe is not None and cfg.moe.impl != "grouped":
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, impl="grouped"))
     return cfg
+
+
+# The families the reference's ServeEngine cannot serve (it drives them
+# through the model API alone), with the failure it meets. The port refuses
+# them at construction: serving them would be a feature the reference lacks.
+UNSERVED_FAMILIES = {
+    "hybrid": ("the reference's hybrid.decode_step at the engine's per-slot [B] index "
+               "builds positions = index + arange(1) with no S axis, and its RoPE "
+               "fails ('cannot reshape array ...')"),
+    "encdec": ("the reference engine's grouped prefill passes no encoder frames, and "
+               "encdec.encode fails on frontend_embeds=None ('NoneType' object has no "
+               "attribute 'astype')"),
+}
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a family ``ServeEngine`` does not serve
+    (``UNSERVED_FAMILIES``); drive those through their model API
+    (``forward``, ``prefill``, ``decode_step``)."""
+    why = UNSERVED_FAMILIES.get(cfg.family)
+    if why is not None:
+        raise ValueError(f"ServeEngine does not serve the {cfg.family!r} family "
+                         f"({cfg.name}), as the reference's does not: {why}. Drive it "
+                         "through the model API (prefill, decode_step)")
 
 
 def _pow2_ladder(lo: int, hi: int) -> Tuple[int, ...]:
@@ -260,6 +289,7 @@ class ServeEngine:
                  events: Optional[EventLog] = None,
                  clock: Callable[[], float] = time.monotonic,
                  device="cuda", keep_logits: bool = False, mesh=None) -> None:
+        check_servable(cfg)
         self.cfg = cfg = serving_config(cfg)
         self.mod = module_for(cfg)
         if not hasattr(self.mod, "decode_step"):

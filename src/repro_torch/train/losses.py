@@ -28,6 +28,9 @@ def loss_and_metrics(params, cfg: ModelConfig, batch: dict):
 
     logits, aux = models.forward(params, cfg, batch)
     labels = batch["labels"]
+    if logits.dim() == 3 and logits.shape[1] != labels.shape[1]:
+        # frontend families: the frontend positions (prefix) carry no labels
+        logits = logits[:, -labels.shape[1]:, :]
     xent = softmax_xent(logits, labels)
     loss = xent
     if cfg.moe is not None:

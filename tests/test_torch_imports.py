@@ -46,7 +46,11 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.distributed.expert_parallel, "
             "repro_torch.launch.mesh, repro_torch.launch.train, repro_torch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
-            "repro_torch.kernels.autograd; "
+            "repro_torch.kernels.autograd, repro_torch.models.hybrid, "
+            "repro_torch.models.encdec, repro_torch.models.ssm, "
+            "repro_torch.configs.zamba2_7b, repro_torch.configs.seamless_m4t_medium, "
+            "repro_torch.configs.internvl2_26b, repro_torch.configs.nemotron_4_340b, "
+            "repro_torch.configs.qwen3_moe_235b_a22b; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'repro' not in sys.modules, 'repro imported'; "
             "assert 'ml_dtypes' not in sys.modules, 'ml_dtypes imported'")
@@ -92,7 +96,14 @@ def test_launch_serve_writes_a_trace_and_metrics_on_the_cpu(tmp_path, replicas):
 def _entry_points():
     from repro_torch.configs import TRAIN_4K, smoke_config
     from repro_torch.launch.serve import main as serve_main
-    from repro_torch.models import ViTClassifier, init_model_params, ssm_lm, transformer
+    from repro_torch.models import (
+        ViTClassifier,
+        encdec,
+        hybrid,
+        init_model_params,
+        ssm_lm,
+        transformer,
+    )
     from repro_torch.launch.train import main as train_main
     from repro_torch.optim import adamw, constant
     from repro_torch.serving import ServeEngine, ServingCluster, VisionEngine, replica_devices
@@ -102,6 +113,9 @@ def _entry_points():
     lm = smoke_config("olmoe-1b-7b")
     ssm = smoke_config("falcon-mamba-7b")
     dense = smoke_config("gemma2-2b")
+    hyb = smoke_config("zamba2-7b")
+    ed = smoke_config("seamless-m4t-medium")
+    vlm = smoke_config("internvl2-26b")
     return {
         "init_model_params": lambda: init_model_params(cfg),
         "ViTClassifier": lambda: ViTClassifier(cfg),
@@ -126,6 +140,12 @@ def _entry_points():
                                                                            device="cpu")),
         "init_cache[dense]": lambda: transformer.init_cache(dense, 2, 8),
         "launch.serve[dense]": lambda: serve_main(["--arch", "gemma2-2b", "--smoke"]),
+        "init_model_params[hybrid]": lambda: init_model_params(hyb),
+        "init_cache[hybrid]": lambda: hybrid.init_cache(hyb, 2, 8),
+        "init_model_params[encdec]": lambda: init_model_params(ed),
+        "init_cache[encdec]": lambda: encdec.init_cache(ed, 2, 8),
+        "ServeEngine[vlm]": lambda: ServeEngine(vlm, init_model_params(vlm, device="cpu")),
+        "launch.serve[vlm]": lambda: serve_main(["--arch", "internvl2-26b", "--smoke"]),
         "init_train_state": lambda: init_train_state(cfg, adamw(constant(1e-3))),
         "Trainer": lambda: Trainer(cfg, TRAIN_4K, None, TrainerConfig()),
         "launch.train": lambda: train_main(["--arch", "m3vit-small", "--smoke", "--steps", "1"]),
@@ -140,6 +160,9 @@ def _entry_points():
                                   "ServingCluster[vision]", "replica_devices",
                                   "launch.serve[replicas]", "ServeEngine[dense]",
                                   "init_cache[dense]", "launch.serve[dense]",
+                                  "init_model_params[hybrid]", "init_cache[hybrid]",
+                                  "init_model_params[encdec]", "init_cache[encdec]",
+                                  "ServeEngine[vlm]", "launch.serve[vlm]",
                                   "init_train_state", "Trainer", "launch.train"])
 def test_entry_points_default_to_the_card_and_refuse_without_one(name):
     if torch.cuda.is_available():
