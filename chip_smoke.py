@@ -359,6 +359,27 @@ caught:
                  device time from a profiler trace of eager calls); and the f32 grouped kernel at the
                  shapes of the expert layers' dx (``torch._grouped_mm``
                  beside it, as beside every f32 grouped row).
+ 13. train_ssm -- after phase 11, deterministic: the selective scan's
+                 backward kernel (``csrc/selective_scan_bwd.cu``) against
+                 ``ref.selective_scan_bwd_ref`` at ``SCAN_BWD_SHAPES`` (N 4
+                 to 512, a ragged last chunk, with and without dh_last) and
+                 at the training shape ``SCAN_BWD_TRAIN`` (each output within
+                 ``SCAN_BWD_TOL`` of the plain version relative to its
+                 largest value, two calls bit-equal; device time by graph
+                 replay beside the forward kernel's, the plain version's
+                 and the bound). Then full-width falcon-mamba-7b (remat,
+                 AdamW, f32) cut to ``TRAIN_SSM_LAYERS`` of 64 layers:
+                 (a) step-0 gradients at 2 x ``TRAIN_SSM_GATE_SEQ`` tokens
+                 with the kernels against the plain versions (phase 11's
+                 rule, every leaf held to the relative bound); (b) the same
+                 batch on a mesh of 2 pod slots of ``cuda:0`` with
+                 ``grad_compress``: the updated params bit-equal to the
+                 composition written out in ``_pod_step_check``; (c) two
+                 ``Trainer`` runs of ``TRAIN_SSM_STEPS`` steps at 2 x 4096
+                 tokens: every loss finite, the last below the first, the
+                 runs bit-equal; step device time, tokens/s, peak memory;
+                 (d) one step profiled: the scan forward's and backward's
+                 share of its device time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and the line before that
@@ -401,6 +422,8 @@ REPLACES = {
     "rmsnorm": "src/repro/models/layers.py:21",  # plain XLA, not a Pallas kernel
     # XLA's transpose rule of ragged_dot, not a Pallas kernel
     "grouped_wgrad": "src/repro/kernels/ops.py:233",
+    # not a Pallas kernel: the reference differentiates its scan with XLA
+    "selective_scan_bwd": "XLA autodiff of src/repro/models/ssm.py:158-177",
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/kernels/csrc/int8_matmul.cu",
@@ -410,6 +433,7 @@ SOURCES = {
     "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
     "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
     "grouped_wgrad": "src/repro_torch/kernels/csrc/grouped_wgrad.cu",
+    "selective_scan_bwd": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
 }
 # kernel launches per int8 forward of M3ViT-S: 6 dense layers x (q, k, v, o,
 # fc1, fc2) + 6 MoE layers x (q, k, v, o, gate) + head; 6 MoE layers x (fc1,
@@ -580,6 +604,31 @@ TRAIN_LM_ARCH, TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_SEQ = "olmoe-1b-7b", 2,
 WGRAD_T, WGRAD_G, WGRAD_EMPTY, WGRAD_SKEWED = TRAIN_BATCH * 197 * 2, 16, 3, 7
 WGRAD_RAGGED = [(37, 3, 100, 70), (1, 1, 8, 8), (0, 4, 64, 64)]  # (T, G, Din, Dout)
 WGRAD_SEED = 13  # the training rows draw their own operands: earlier checks keep theirs
+# phase 13: falcon-mamba-7b training. The scan's backward against its plain
+# version at (B, S, di, N, with dh_last): S with a ragged last chunk (16
+# steps a chunk up to N 128), several blocks along di, every (states a
+# thread, lanes) scan_bwd_layout takes (N 4, 5, 16, 32, 64, 100, 200, 512);
+# then at the training shape, without dh_last as the model calls it
+SCAN_BWD_SHAPES = [(2, 37, 256, 4, True), (2, 37, 300, 16, False), (2, 37, 300, 16, True),
+                   (2, 23, 70, 5, False), (1, 21, 40, 32, True), (1, 50, 130, 64, True),
+                   (1, 19, 24, 100, False), (1, 13, 20, 200, True), (1, 9, 10, 512, True)]
+SCAN_BWD_TRAIN = (2, 4096, 8192, 16)
+SCAN_BWD_SEED = 17
+# each output's max |kernel - plain| / max |plain|: dx and ddt sum the n
+# terms in another order (a thread's fma chain over 4 states, then lane
+# shuffles; torch's sum over N), a few roundings of the terms' size; db and
+# dc sum over every channel (8192 at the training shape: per-block warp
+# sums, then the blocks in order; torch's reduction), da over the steps and
+# rows in the plain version's order but from fma-free products that may
+# still round apart; dd is the same torch reduction on both sides
+SCAN_BWD_TOL = {"dx": 1e-5, "ddt": 1e-5, "db": 1e-4, "dc": 1e-4, "da": 1e-4, "dd": 0.0}
+SCAN_BWD_OPS = 20  # f32 operations a (b, t, d, n) state step (see _check_selective_scan_bwd)
+# the model: full-width falcon-mamba-7b (remat, AdamW, f32) cut to 16 of 64
+# layers (AdamW in f32 holds 16 bytes a parameter: ~112 GB at 64 layers,
+# ~31 GB at 16), TRAIN_4K's 4096 tokens at global batch 2; the gradient
+# gate and the pod step at 2 x 512 tokens, where the plain loop is cheap
+TRAIN_SSM_ARCH, TRAIN_SSM_LAYERS, TRAIN_SSM_BATCH = "falcon-mamba-7b", 16, 2
+TRAIN_SSM_GATE_SEQ, TRAIN_SSM_STEPS = 512, 10
 
 
 def emit(obj) -> None:
@@ -5097,20 +5146,25 @@ def phase_families(smi: str) -> dict:
 # device kernel names of the training step's profile (the serving phases'
 # families and the weight gradient)
 TRAIN_KERNEL_NAMES = dict(KERNEL_NAMES, grouped_wgrad=("grouped_wgrad_mma_kernel",
-                                                         "grouped_wgrad_kernel"))
+                                                         "grouped_wgrad_kernel"),
+                          selective_scan_bwd=("scan_bwd_states_kernel", "scan_bwd_kernel",
+                                              "scan_bwd_reduce_kernel"))
 
 
 def _train_counts(reset: bool = False) -> dict:
-    """The wrappers' launch counts and the weight-gradient kernel's (read,
-    or with ``reset`` set to 0)."""
+    """The wrappers' launch counts, the weight-gradient kernel's and the
+    scan backward's (read, or with ``reset`` set to 0)."""
     from repro_torch.kernels.expert_linear import grouped_wgrad
+    from repro_torch.kernels.selective_scan import selective_scan_bwd
 
     if reset:
         _reset_counts()
         grouped_wgrad.launches = 0
         grouped_wgrad.launches_by_variant = {}
+        selective_scan_bwd.launches = 0
         return {}
     return dict(_read_counts(), grouped_wgrad=grouped_wgrad.launches,
+                selective_scan_bwd=selective_scan_bwd.launches,
                 **{f"grouped_wgrad:{v}": n for v, n in grouped_wgrad.launches_by_variant.items()})
 
 
@@ -5118,12 +5172,14 @@ def _train_counts(reset: bool = False) -> dict:
 def _plain_kernels():
     """Every kernel entry of ``kernels/ops.py`` on the training path (the
     grouped f32 mode and its weight gradient, both attention routes,
-    RMSNorm) replaced by its plain version, so that CUDA tensors run the
-    plain path on the card through the same autograd Functions."""
+    RMSNorm, the selective scan and its backward) replaced by its plain
+    version, so that CUDA tensors run the plain path on the card through the
+    same autograd Functions."""
     from repro_torch.kernels import ops, ref
 
     saved = {n: getattr(ops, n) for n in ("_gmm_kernel", "_wgrad_kernel", "streaming_attention",
-                                          "lm_attention", "_rmsnorm_kernel")}
+                                          "lm_attention", "_rmsnorm_kernel", "_scan_kernel",
+                                          "_scan_bwd_kernel")}
     ops._gmm_kernel = lambda x, w, gs, **kw: ref.grouped_matmul_ref(x, w, gs)
     ops._wgrad_kernel = ref.grouped_wgrad_ref
     ops.streaming_attention = lambda q, k, v, quant_bits: ref.flash_attention_ref(
@@ -5131,6 +5187,8 @@ def _plain_kernels():
     ops.lm_attention = lambda q, k, v, segments=None, schedule=None, **kw: (
         ref.flash_attention_ref(q, k, v, **kw))
     ops._rmsnorm_kernel = ref.rmsnorm_ref
+    ops._scan_kernel = ref.selective_scan_ref
+    ops._scan_bwd_kernel = ref.selective_scan_bwd_ref
     try:
         yield
     finally:
@@ -5157,7 +5215,7 @@ def _perturbed(params, seed: int):
         p.shape, generator=gen, device=p.device)), params)
 
 
-def _grad_parity(tag: str, cfg, params, batch, smi: str) -> dict:
+def _grad_parity(tag: str, cfg, params, batch, smi: str, small_rel: bool = False) -> dict:
     """Gate: step-0 loss and gradients with the kernels against the plain
     versions on the card. The plain gradient is taken again at
     ``TRAIN_CONTROLS`` perturbed copies of the params (``_perturbed``):
@@ -5168,7 +5226,9 @@ def _grad_parity(tag: str, cfg, params, batch, smi: str) -> dict:
     (``TRAIN_LOSS_REL``) and ``TRAIN_CONTROL_FACTOR`` times the largest
     control's; the leaves zero in exact arithmetic to ``TRAIN_NOISE`` of
     the global norm; every leaf with a nonzero plain gradient is nonzero
-    with the kernels."""
+    with the kernels. ``small_rel``: a leaf under the noise floor that is
+    not zero in exact arithmetic (every leaf of a model without attention
+    biases) is held to the relative rule like the others."""
     from repro_torch.train.train_step import value_and_grad
 
     _train_counts(reset=True)
@@ -5196,7 +5256,7 @@ def _grad_parity(tag: str, cfg, params, batch, smi: str) -> dict:
     for k in gp:
         if norm[k] > 0 and not bool(gk[k].any()):
             detached.append(k)
-        if norm[k] <= TRAIN_NOISE * total:
+        if norm[k] <= TRAIN_NOISE * total and not (small_rel and norm[k] > 0):
             noise[k] = (norm[k] / total, float(torch.linalg.vector_norm(gk[k].double())) / total)
             continue
         rows.append((rel(gk, k), max(rel(c, k) for c in gc), k))
@@ -5220,18 +5280,25 @@ def _grad_parity(tag: str, cfg, params, batch, smi: str) -> dict:
     if bad:
         raise AssertionError(f"[{tag}] leaves under the noise floor that should not be "
                              f"(or kernels above it): {bad}")
+    by_controls = sum(TRAIN_CONTROL_FACTOR * c > TRAIN_GRAD_REL for _, c, _ in rows)
     print(f"[{tag}] gradient parity: the loss and every leaf within max({TRAIN_LOSS_REL} / "
           f"{TRAIN_GRAD_REL}, {TRAIN_CONTROL_FACTOR} x the controls), none detached; worst "
-          f"leaf {worst[2]} {worst[0]:.3g} (gate)", flush=True)
+          f"leaf {worst[2]} {worst[0]:.3g}; the bound of {len(rows) - by_controls} of "
+          f"{len(rows)} leaves the flat {TRAIN_GRAD_REL}, of {by_controls} the controls' "
+          f"(gate)", flush=True)
     return {"loss": float(m_k["loss"]), "loss_plain": loss_p, "loss_rel": loss_rel,
             "loss_control_rel": loss_ctl, "worst_leaf": worst[2], "worst_rel": worst[0],
-            "worst_control_rel": worst[1], "counts": counts}
+            "worst_control_rel": worst[1], "leaves_by_controls": by_controls,
+            "leaves": len(rows), "counts": counts}
 
 
-def _train_step_profile(tag: str, step_fn, state, batch, smi: str) -> dict:
+def _train_step_profile(tag: str, step_fn, state, batch, smi: str,
+                        required=("grouped_matmul", "grouped_wgrad", "streaming_attention"),
+                        top: int = 0) -> dict:
     """One training step under ``torch.profiler``: every device kernel by
-    name and count, the hand kernels' families beside the launches their
-    wrappers counted in the step."""
+    name and count (the ``top`` slowest names, or all), the hand kernels'
+    families beside the launches their wrappers counted in the step; each
+    of ``required`` must appear."""
     from torch.profiler import ProfilerActivity, profile
 
     step_fn(state, batch)  # warm
@@ -5253,12 +5320,16 @@ def _train_step_profile(tag: str, step_fn, state, batch, smi: str) -> dict:
           f"{sum(n for _, n in by_name.values())} kernels, {device_ms:.2f} ms device time; "
           f"hand kernels in the trace {fam}, wrapper launches "
           f"{ {f: counts.get(f, 0) for f in TRAIN_KERNEL_NAMES} }", flush=True)
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (us, n) in ranked[:top or len(ranked)]:
         print(f"[{tag}] {us / 1e3:9.3f} ms {n:5d} x  {name[:100]}", flush=True)
-    for f in ("grouped_matmul", "grouped_wgrad", "streaming_attention"):
+    for f in required:
         if fam[f] == 0:
             raise AssertionError(f"[{tag}] no {f} kernel in the profiled step")
-    return {"device_ms": device_ms, "kernels": by_name, "families": fam, "counts": counts}
+    fam_ms = {f: sum(us for name, (us, _) in by_name.items() if any(k in name for k in ks)) / 1e3
+              for f, ks in TRAIN_KERNEL_NAMES.items()}
+    return {"device_ms": device_ms, "kernels": by_name, "families": fam,
+            "family_ms": fam_ms, "counts": counts}
 
 
 def _leaves_equal(a, b) -> bool:
@@ -5414,8 +5485,271 @@ def phase_train(smi: str) -> dict:
     return out
 
 
+def _pod_step_check(cfg, shape, params, batch, smi: str) -> dict:
+    """Gate: ``build_train_step`` on a mesh of 2 pod slots of ``cuda:0`` with
+    ``grad_compress`` updates the params bit for bit as the composition
+    written out here: the single-pod gradient of each half of the batch,
+    each leaf coded as the reference's cross-pod branch codes it (scale =
+    max over the pods of max |g| / 127, + 1e-30; codes clip(round(g /
+    scale), -127, 127); their int32 sum; times scale / 2), the global-norm
+    clip and the optimizer's update, leaf by leaf (one leaf's AdamW state
+    at a time: the card holds the step's params, its state and the
+    composition's gradients at once)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.train.train_step import value_and_grad
+
+    tag = "train mamba pod"
+    opt = make_optimizer(cfg.optimizer, constant(TRAIN_LR))
+    mesh = Mesh(np.array([torch.device("cuda:0")] * 2, dtype=object).reshape(2, 1, 1),
+                ("pod", "data", "model"))
+    state = init_train_state(cfg, opt, params=params, grad_compress=True)
+    _train_counts(reset=True)
+    t0 = time.perf_counter()
+    new, metrics = build_train_step(cfg, shape, mesh, opt, grad_compress=True)(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _train_counts()
+    got = _flat_leaves(new.params)
+    residual_kept = _leaves_equal(new.compress.residual, state.compress.residual)
+    del new, state
+    torch.cuda.empty_cache()
+    half = shape.global_batch // 2
+    per = [value_and_grad(params, cfg, {k: v[i * half:(i + 1) * half] for k, v in batch.items()})
+           for i in range(2)]
+    g0, g1 = (_flat_leaves(g) for g, _ in per)
+    loss = (per[0][1]["loss"] + per[1][1]["loss"]) / 2
+    del per
+
+    def decode(k):
+        scale = torch.maximum(torch.amax(torch.abs(g0[k])) / 127.0,
+                              torch.amax(torch.abs(g1[k])) / 127.0) + 1e-30
+        total = (torch.clamp(torch.round(g0[k] / scale), -127, 127).to(torch.int32)
+                 + torch.clamp(torch.round(g1[k] / scale), -127, 127).to(torch.int32))
+        return total.to(torch.float32) * (scale / 2)
+
+    grads = {k: decode(k) for k in g0}
+    del g0, g1
+    norm = torch.sqrt(torch.sum(torch.stack(  # global_norm's order: _flat_leaves'
+        [torch.sum(torch.square(g)) for g in grads.values()])))
+    clip = torch.clamp(1.0 / torch.clamp(norm, min=1e-12), max=1.0)
+    flat_p = _flat_leaves(params)
+    step0 = torch.zeros((), dtype=torch.int32, device="cuda")
+    differ = []
+    for k in list(grads):
+        g = {k: (grads.pop(k) * clip).to(torch.float32)}
+        want, _ = opt.update(g, opt.init({k: flat_p[k]}), {k: flat_p[k]}, step0)
+        if not torch.equal(want[k], got[k]):
+            differ.append(k)
+    ok = not differ and residual_kept and torch.equal(metrics["grad_norm"], norm) \
+        and torch.equal(metrics["loss"], loss)
+    print(f"[{tag}] 2 pod slots of cuda:0, grad_compress, {shape.global_batch} x "
+          f"{shape.seq_len} tokens: loss {float(metrics['loss']):.6f}, grad norm "
+          f"{float(metrics['grad_norm']):.6f}, {wall:.2f} s wall; launches "
+          f"{({k: v for k, v in counts.items() if v and ':' not in k})}; updated params bit-equal "
+          f"to the written-out composition: {not differ} (differ: {differ[:5]}); metrics equal, "
+          f"residuals kept: {ok} (gate; {smi})", flush=True)
+    if not ok:
+        raise AssertionError(f"[{tag}] the pod step is not its composition: {differ[:5]}, "
+                             f"residuals kept {residual_kept}")
+    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "wall_s": wall, "counts": counts}
+
+
+def phase_train_ssm(smi: str) -> dict:
+    """Phase 13 (see the module docstring): the scan's backward kernel,
+    then full-width falcon-mamba-7b cut to ``TRAIN_SSM_LAYERS`` layers:
+    gradient parity at ``TRAIN_SSM_GATE_SEQ`` tokens a row, the pod step,
+    two ``Trainer`` runs of ``TRAIN_SSM_STEPS`` steps at 2 x 4096 tokens,
+    one step profiled."""
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.data import SyntheticPipeline, batch_to
+    from repro_torch.models import init_model_params
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.trainer import deterministic_mode
+
+    deterministic_mode()
+    out: dict = {"row": _check_selective_scan_bwd(
+        torch.Generator(device="cuda").manual_seed(SCAN_BWD_SEED))}
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_SSM_ARCH).replace(num_layers=TRAIN_SSM_LAYERS)
+    if not (cfg.remat and cfg.optimizer == "adamw"):
+        raise AssertionError(f"[train mamba] {TRAIN_SSM_ARCH}: remat {cfg.remat}, optimizer "
+                             f"{cfg.optimizer}")
+    gate_shape = TRAIN_4K.replace(seq_len=TRAIN_SSM_GATE_SEQ, global_batch=TRAIN_SSM_BATCH)
+    params = init_model_params(cfg, 0, "cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"[train mamba] {TRAIN_SSM_ARCH} at full width, {TRAIN_SSM_LAYERS} of 64 layers: "
+          f"{n_params / 1e9:.3f} B params, {4 * n_params / 1e9:.2f} GB f32", flush=True)
+    batch = batch_to(SyntheticPipeline(cfg, gate_shape, seed=0).batch_for_step(0), "cuda")
+    out["parity"] = _grad_parity("train mamba", cfg, params, batch, smi, small_rel=True)
+    out["pod"] = _pod_step_check(cfg, gate_shape, params, batch, smi)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    shape = TRAIN_4K.replace(global_batch=TRAIN_SSM_BATCH)
+    tokens = shape.global_batch * shape.seq_len
+    tc = TrainerConfig(total_steps=TRAIN_SSM_STEPS, lr=TRAIN_LR, warmup_steps=2,
+                       log_every=1000, device="cuda")
+    runs = []
+    for run in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        _train_counts(reset=True)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, shape, None, tc)
+        state = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [h["loss"] for h in tr.history]
+        runs.append({"losses": losses, "counts": _train_counts(),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "wall_s": wall,
+                     "step_s": sorted(h["step_time_s"] for h in tr.history[1:])})
+        if run == 0:
+            first = [p.cpu() for p in tree_leaves(state.params)]
+            del state, tr
+            torch.cuda.empty_cache()
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(first, tree_leaves(state.params)))
+    same = same and runs[0]["losses"] == runs[1]["losses"]
+    del first
+    r = runs[0]
+    step_s = r["step_s"][len(r["step_s"]) // 2]
+    per_step = {k: v / TRAIN_SSM_STEPS for k, v in r["counts"].items() if v and ":" not in k}
+    print(f"[train mamba] Trainer, {TRAIN_SSM_STEPS} steps at {shape.global_batch} x "
+          f"{shape.seq_len} tokens, lr {TRAIN_LR} (2 warm-up steps, cosine), deterministic: "
+          f"losses {[round(x, 4) for x in r['losses']]}; step device time median "
+          f"{step_s * 1e3:.2f} ms (min {r['step_s'][0] * 1e3:.2f}, max "
+          f"{r['step_s'][-1] * 1e3:.2f}), {tokens / step_s:.1f} tokens/s, peak memory "
+          f"{r['peak_gb']:.2f} GB, wall {r['wall_s']:.1f} s; launches a step {per_step}; a "
+          f"second run bit-equal in every param and loss: {same} ({smi})", flush=True)
+    losses = r["losses"]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"[train mamba] losses not finite or not falling: {losses}")
+    if not same:
+        raise AssertionError("[train mamba] two runs differ")
+    if not (r["counts"]["selective_scan"] and r["counts"]["selective_scan_bwd"]):
+        raise AssertionError(f"[train mamba] the scan kernels did not run: {r['counts']}")
+    prof = _train_step_profile("train mamba", tr.step_fn, state,
+                               tr.pipeline.batch_for_step(TRAIN_SSM_STEPS), smi,
+                               required=("selective_scan", "selective_scan_bwd", "rmsnorm"),
+                               top=15)
+    share = {f: prof["family_ms"][f] / prof["device_ms"]
+             for f in ("selective_scan", "selective_scan_bwd", "rmsnorm")}
+    print(f"[train mamba] profiled step: {prof['device_ms']:.2f} ms device, "
+          f"{sum(n for _, n in prof['kernels'].values())} kernels; scan forward "
+          f"{prof['family_ms']['selective_scan']:.2f} ms ({100 * share['selective_scan']:.2f}%), "
+          f"backward {prof['family_ms']['selective_scan_bwd']:.2f} ms "
+          f"({100 * share['selective_scan_bwd']:.2f}%), rmsnorm "
+          f"{prof['family_ms']['rmsnorm']:.2f} ms ({smi})", flush=True)
+    del state, tr
+    torch.cuda.empty_cache()
+    out["trainer"] = {"losses": losses, "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+                      "peak_gb": r["peak_gb"], "counts": r["counts"], "steps": TRAIN_SSM_STEPS}
+    out["profile"] = {"device_ms": prof["device_ms"], "family_ms": prof["family_ms"],
+                      "share": share, "kernels": sum(n for _, n in prof["kernels"].values())}
+    return out
+
+
+SCAN_BWD_NAMES = ("dx", "ddt", "db", "dc", "da", "dd")
+
+
+def _scan_bwd_errors(got, want) -> dict:
+    """Each output's max |got - want| / max |want| (0 where want is 0)."""
+    out = {}
+    for name, g, w in zip(SCAN_BWD_NAMES, got, want):
+        top = float(w.abs().max()) if w.numel() else 0.0
+        out[name] = max_err(g, w) / top if top else max_err(g, w)
+    return out
+
+
+def _check_scan_bwd_once(args, dy, dh) -> dict:
+    """Gate one backward call against its plain version (``SCAN_BWD_TOL``)
+    and against a second call (bit-equal); returns the errors, the plain
+    call's CUDA-event ms and the largest absolute error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan_bwd
+
+    got = selective_scan_bwd(*args, dy, dh)
+    again = selective_scan_bwd(*args, dy, dh)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = ref.selective_scan_bwd_ref(*args, dy, dh)
+    stop.record()
+    stop.synchronize()
+    shape = list(args[0].shape) + [args[2].shape[-1]]
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"selective_scan_bwd {shape}: two calls differ")
+    errs = _scan_bwd_errors(got, want)
+    over = {k: v for k, v in errs.items() if v > SCAN_BWD_TOL[k]}
+    if over:
+        raise AssertionError(f"selective_scan_bwd {shape} dh_last {dh is not None}: over "
+                             f"SCAN_BWD_TOL: {over} (all {errs})")
+    return {"errors": errs, "plain_ms": start.elapsed_time(stop),
+            "max_abs_err": max(max_err(g, w) for g, w in zip(got, want))}
+
+
+def _check_selective_scan_bwd(gen) -> dict:
+    """The scan's backward kernel at ``SCAN_BWD_SHAPES`` and at the training
+    shape ``SCAN_BWD_TRAIN``: each output within ``SCAN_BWD_TOL`` of the
+    plain version, two calls bit-equal. At the training shape: device time
+    by graph replay (and eager), the device work a call enqueues, the
+    forward kernel's time on the same inputs, the plain version's time
+    (CUDA events, one call), and the bound: the bytes the function must
+    move (x, dt, dy read and dx, ddt written, [B, S, di] f32 each; b, c,
+    a, d read and db, dc, da, dd written) over 3.35 TB/s, against
+    ``SCAN_BWD_OPS`` f32 operations a state step (exp(dt A) and the state
+    update: 5; g's update and carry: 3; q: 2; the n sums of dx and ddt: 4;
+    da: 2; db and dc: 4) over the f32 rate. No PyTorch call computes the
+    function (``library_ms`` None)."""
+    from repro_torch.kernels.selective_scan import (
+        scan_bwd_layout,
+        selective_scan,
+        selective_scan_bwd,
+    )
+
+    checked = {}
+    for B, S, di, N, with_dh in SCAN_BWD_SHAPES:
+        args = _scan_operands(gen, B, S, di, N, torch.float32)
+        dy = torch.randn((B, S, di), generator=gen, device="cuda")
+        dh = torch.randn((B, di, N), generator=gen, device="cuda") if with_dh else None
+        res = _check_scan_bwd_once(args, dy, dh)
+        checked[f"{B}x{S}x{di}x{N}{'+dh' if with_dh else ''}"] = res["errors"]
+    B, S, di, N = SCAN_BWD_TRAIN
+    args = _scan_operands(gen, B, S, di, N, torch.float32)
+    dy = torch.randn((B, S, di), generator=gen, device="cuda") / math.sqrt(di)
+    res = _check_scan_bwd_once(args, dy, None)
+    call = lambda: selective_scan_bwd(*args, dy)  # noqa: E731
+    n_bytes = 4 * (5 * B * S * di + 4 * B * S * N + 2 * di * N + 2 * di)
+    nb, by = bound_ms(n_bytes, SCAN_BWD_OPS * B * S * di * N, F32_OPS_PER_S)
+    row = {"name": "selective_scan_bwd", "shape": [B, S, di, N], "mode": "f32",
+           "layout": scan_bwd_layout(N), "max_abs_err": res["max_abs_err"],
+           "errors": res["errors"], "small_shapes": checked,
+           "tolerance": "max |kernel - plain| / max |plain| per output: " + ", ".join(
+               f"{k} {v:g}" for k, v in SCAN_BWD_TOL.items()) + "; two calls bit-equal",
+           "device_work": _device_work(call), "ms": graph_ms(call, n=3, iters=5),
+           "eager_ms": time_ms(call, iters=5, warmup=1),
+           "forward_ms": graph_ms(lambda: selective_scan(*args), n=3, iters=5),
+           "plain_ms": res["plain_ms"], "bound_ms": nb, "bound_by": by, "library_ms": None,
+           "route": "cuda", "source": SOURCES["selective_scan_bwd"],
+           "replaces": REPLACES["selective_scan_bwd"]}
+    for shape, errs in checked.items():
+        print(f"[kernels] selective_scan_bwd {shape}: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+    print(f"[kernels] selective_scan_bwd {row['shape']} (states a thread, lanes "
+          f"{row['layout']}): {row['ms']:.4f} ms (eager {row['eager_ms']:.4f}; "
+          f"{row['device_work']} device launches a call), the forward kernel "
+          f"{row['forward_ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); errors " + ", ".join(
+              f"{k} {v:.3g}" for k, v in row["errors"].items())
+          + f"; {len(checked) + 1} shapes within SCAN_BWD_TOL, repeats bit-equal (gate)",
+          flush=True)
+    emit({"kernel": row})
+    return row
+
+
 def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
-              dense: dict, families: dict, train: dict) -> int:
+              dense: dict, families: dict, train: dict, train_ssm: dict) -> int:
     """A row's launches on the main path: the vision serving run and the
     vision cluster's, and for the modes the LM runs, the three OLMoE serving
     runs (fp, int8, W4A8) and the two LM cluster runs (the fp32 grouped row
@@ -5426,11 +5760,15 @@ def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
     calls in its runs (a prefill, the decode steps and the teacher-forced
     forward of each model), and its zamba2 runs add to ``rmsnorm``; the
     training rows', the Trainer's 40 steps (the dx row: every f32 grouped
-    launch of those steps, forward, recompute and dx)."""
+    launch of those steps, forward, recompute and dx); the scan's rows add
+    phase 13's first run of 10 falcon-mamba steps (forward and recompute),
+    the scan backward's row is that run's backward calls."""
     if row["name"] == "grouped_wgrad":  # the Trainer's launches of the row's variant
         return train["trainer"]["counts"].get(f"grouped_wgrad:{row['variant']}", 0)
     if row["name"] == "grouped_matmul_f32[dx]":
         return train["trainer"]["counts"]["grouped_matmul"]
+    if row["name"] == "selective_scan_bwd":
+        return train_ssm["trainer"]["counts"]["selective_scan_bwd"]
     runs = ([r["counts"] for r in lm["runs"].values()]
             + [r["counts"] for r in lm["cluster"].values()]
             + list(lm["ep"]["runs"].values()) + [lm["gshard"]["counts"]])
@@ -5442,7 +5780,7 @@ def _launches(row: dict, vision: dict, vision_calib: dict, lm: dict, ssm: dict,
     if name.startswith("lm_attention[gemma2"):
         return sum(c.get("lm_attention:" + row["mode"], 0) for c in dense_runs)
     if name.startswith("selective_scan"):
-        return ssm["counts"]["selective_scan"]
+        return ssm["counts"]["selective_scan"] + train_ssm["trainer"]["counts"]["selective_scan"]
     if name == "rmsnorm":
         return (vision["rmsnorm"] + sum(c["rmsnorm"] for c in runs)
                 + ssm["counts"]["rmsnorm"] + sum(c["rmsnorm"] for c in dense_runs)
@@ -5490,16 +5828,22 @@ def main() -> None:
     dense = _timed(phase_dense, smi)
     families = _timed(phase_families, smi)
     train = _timed(phase_train, smi)
+    train_ssm = _timed(phase_train_ssm, smi)
+    rows.append(train_ssm["row"])
     for row in rows:
-        row["launches"] = _launches(row, counts, calib_counts, lm, ssm, dense, families, train)
+        row["launches"] = _launches(row, counts, calib_counts, lm, ssm, dense, families, train,
+                                    train_ssm)
         if row["name"] in ("grouped_wgrad", "grouped_matmul_f32[dx]"):
             row["launches_per_step"] = row["launches"] / TRAIN_STEPS
+        if row["name"] == "selective_scan_bwd":
+            row["launches_per_step"] = row["launches"] / TRAIN_SSM_STEPS
     for name in ("int8_matmul", "grouped_matmul", "grouped_matmul_w4a8", "grouped_matmul_f32",
                  "lm_attention[packed_prefill]", "lm_attention[decode_int8]",
                  "lm_attention[packed_prefill_f32]", "lm_attention[decode_bf16]",
                  "lm_attention[gemma2_decode_bf16_512]", "lm_attention[gemma2_decode_int8_512]",
                  "lm_attention[gemma2_prefill_f32]", "lm_attention[gemma2_ring_prefill_int8]",
                  "selective_scan", "rmsnorm", "grouped_wgrad", "grouped_matmul_f32[dx]",
+                 "selective_scan_bwd",
                  *(f"lm_attention[{r}]" for r in FAMILY_ROWS)):
         row = next(r for r in rows if r["name"] == name)
         if row["launches"] == 0:

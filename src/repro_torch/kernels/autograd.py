@@ -10,6 +10,11 @@ requires grad and grad mode is on:
     transposed stack (copied to a contiguous ``[G, Dout, Din]``); ``dw``
     the grouped weight-gradient kernel (``expert_linear.grouped_wgrad``).
     This is the backward of the reference's ``jax.lax.ragged_dot``;
+  * the selective scan, ``SelectiveScan``: forward the scan kernel, saving
+    its inputs; backward the scan's backward kernel
+    (``selective_scan.selective_scan_bwd``), which rebuilds the states from
+    saved chunk starts. The reference differentiates its chunked
+    associative scan with XLA;
   * attention and RMSNorm, ``Recompute``: forward through the kernel,
     saving the inputs; the backward runs the plain version
     (``kernels/ref.py``) again on detached copies with grad enabled and
@@ -21,12 +26,12 @@ requires grad and grad mode is on:
     straight-through estimator) and its tie rule (``amax`` splits a tie's
     gradient evenly, as ``jnp.max`` does). A hand-written backward kernel
     for these is later speed work;
-  * every other kernel (the integer modes, ``int8_matmul``,
-    ``selective_scan``) raises ``NotImplementedError`` on a CUDA tensor
-    that requires grad (``no_backward``): an output with no ``grad_fn``
-    would freeze the weights behind it without a word.
+  * every other kernel (the integer modes of the grouped matmul,
+    ``int8_matmul``) raises ``NotImplementedError`` on a CUDA tensor that
+    requires grad (``no_backward``): an output with no ``grad_fn`` would
+    freeze the weights behind it without a word.
 
-On the CPU the same two Functions run with the plain versions in the
+On the CPU the same Functions run with the plain versions in the
 kernels' place (``ops.py`` hands them in), so the CPU tests hold the
 backward's structure against the reference.
 """
@@ -75,6 +80,29 @@ class GroupedMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = ctx.wgrad(x, dy, group_sizes)
         return dx, dw, None, None, None
+
+
+class SelectiveScan(torch.autograd.Function):
+    """(y, h_last) = scan(x, dt, b, c, a, d), the backward from
+    ``scan_bwd(x, dt, b, c, a, d, dy, dh_last)`` on the saved inputs.
+    ``scan`` and ``scan_bwd`` are the device dispatches of
+    ``kernels/ops.py``. An output whose gradient is not needed gets None
+    (h_last's in a training step): dy then runs as zeros, dh_last is
+    skipped."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b, c, a, d, scan: Callable, scan_bwd: Callable):
+        ctx.save_for_backward(x, dt, b, c, a, d)
+        ctx.scan_bwd = scan_bwd
+        ctx.set_materialize_grads(False)
+        return scan(x, dt, b, c, a, d)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, b, c, a, d = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy
+        grads = ctx.scan_bwd(x, dt, b, c, a, d, dy, dh_last)
+        return (*grads, None, None)
 
 
 class Recompute(torch.autograd.Function):

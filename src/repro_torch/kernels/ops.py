@@ -16,10 +16,11 @@ replays, so the ranges name kernels in eager steps (``aot_warmup=False``)
 only; under replay the hand kernels' own device names say which ran.
 
 Gradients (``kernels/autograd.py``): under grad the f32 grouped matmul,
-attention and RMSNorm go through ``torch.autograd.Function``s (the grouped
-kernel and the weight-gradient kernel in the backward; attention and
-RMSNorm recompute their plain version there); every other kernel raises on
-a CUDA tensor that requires grad.
+the selective scan, attention and RMSNorm go through
+``torch.autograd.Function``s (the grouped kernel and the weight-gradient
+kernel in the grouped matmul's backward, the scan's backward kernel in the
+scan's; attention and RMSNorm recompute their plain version there); the
+integer kernels raise on a CUDA tensor that requires grad.
 
 Autotuning (``kernels/autotune.py``): ``attention`` and ``grouped_matmul``
 resolve their call's shape-bucket key before the device branch, so a
@@ -54,6 +55,7 @@ from repro_torch.kernels.quant_attention import (
     streaming_attention,
 )
 from repro_torch.kernels.selective_scan import selective_scan as _scan_kernel
+from repro_torch.kernels.selective_scan import selective_scan_bwd as _scan_bwd_kernel
 
 _ANNOTATE = False
 
@@ -237,10 +239,26 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, a: torch.Tensor, d: torch.Tensor):
     """Mamba-1 selective scan, the state on-chip for the whole sequence
     (O(S d) device-memory traffic). Returns (y [B, S, di], h_last
-    [B, di, N] f32)."""
+    [B, di, N] f32). Under grad through ``autograd.SelectiveScan``, whose
+    backward is ``selective_scan_bwd``."""
     with _scope(lambda: (f"selective_scan[B={x.shape[0]},S={x.shape[1]},"
                          f"di={x.shape[2]},N={a.shape[-1]}]")):
+        scan = _scan_kernel if x.is_cuda else _ref.selective_scan_ref
+        if autograd.needs_grad(x, dt, b, c, a, d):
+            if any(t.dtype != torch.float32 for t in (x, dt, b, c, a, d)):
+                raise TypeError("selective_scan's backward takes f32 operands, got "
+                                f"{[str(t.dtype) for t in (x, dt, b, c, a, d)]}")
+            return autograd.SelectiveScan.apply(x, dt, b, c, a, d, scan, selective_scan_bwd)
+        return scan(x, dt, b, c, a, d)
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                       dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None):
+    """The scan's backward: (dx, ddt, db, dc, da, dd); the kernel on the
+    card, its plain version on the CPU."""
+    with _scope(lambda: (f"selective_scan_bwd[B={x.shape[0]},S={x.shape[1]},"
+                         f"di={x.shape[2]},N={a.shape[-1]}]")):
         if x.is_cuda:
-            autograd.no_backward("selective_scan", x, dt, b, c, a, d)
-            return _scan_kernel(x, dt, b, c, a, d)
-        return _ref.selective_scan_ref(x, dt, b, c, a, d)
+            return _scan_bwd_kernel(x, dt, b, c, a, d, dy, dh_last)
+        return _ref.selective_scan_bwd_ref(x, dt, b, c, a, d, dy, dh_last)

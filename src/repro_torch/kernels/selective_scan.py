@@ -15,6 +15,13 @@ tensors. Two variants compute the same h_last bit for bit:
 
 ``selective_scan.launches`` counts every launch and
 ``selective_scan.launches_by_mode[name]`` the launches of each variant.
+
+The backward, ``selective_scan_bwd`` (``csrc/selective_scan_bwd.cu``),
+replaces no TPU kernel: the reference's gradient is XLA's autodiff of its
+chunked associative scan. Its plain version is ``ref.selective_scan_bwd_ref``;
+``kernels/autograd.py:SelectiveScan`` pairs it with the forward.
+``selective_scan_bwd.launches`` counts its calls (each four device
+launches: the chunk-start states, the reverse walk, two ordered sums).
 """
 from __future__ import annotations
 
@@ -123,3 +130,83 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
 
 selective_scan.launches = 0
 selective_scan.launches_by_mode = {}
+
+BWD_THREADS = 256  # threads of a backward block (csrc/selective_scan_bwd.cu)
+BWD_STATES_PER_THREAD = 4
+
+
+def scan_bwd_layout(N: int) -> tuple[int, int]:
+    """The backward's (states a thread, lanes a channel) at state size N:
+    4 states a thread while N padded to a power of two >= 4 takes at most
+    32 lanes (N <= 128; the most threads for a sequential walk), else 32
+    lanes."""
+    if not 0 < N <= MAX_STATE:
+        raise ValueError(f"selective_scan_bwd: state size {N} not in 1..{MAX_STATE}")
+    padded = max(4, 1 << (N - 1).bit_length())
+    spt = max(BWD_STATES_PER_THREAD, padded // MAX_LANES)
+    return spt, padded // spt
+
+
+def scan_bwd_chunk(spt: int) -> int:
+    """Time steps between two saved states of the backward, which its
+    block holds in shared memory at once: 64 state steps a thread."""
+    return 64 // spt
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                       dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None):
+    """The scan's backward on the card, ``ref.selective_scan_bwd_ref``'s
+    contract: f32 x, dt, dy [B, S, di], b, c [B, S, N], a [di, N], d [di],
+    dh_last [B, di, N] or None -> (dx, ddt [B, S, di], db, dc [B, S, N],
+    da [di, N], dd [di]); other dtypes raise. Sums in a fixed order: two
+    calls are bit-equal. ``dd`` is one torch reduction, as in the plain
+    version. Workspace: the chunk-start states [B, ceil(S / K), di, N] and
+    the per-block partials of db and dc, [2, ceil(di / channels a block),
+    B, S, N]. Bound at falcon-mamba's training shape [2, 4096, 8192, 16]:
+    the larger of the bytes (x, dt, dy read, dx, ddt written: 1.35 GB,
+    0.40 ms at 3.35 TB/s) and the operations (~20 f32 operations a state
+    step over 1.07e9 state steps, 0.32 ms at 67 TFLOP/s), so 0.40 ms,
+    bound by bytes: see ``csrc/selective_scan_bwd.cu``."""
+    ins = (x, dt, b, c, a, d, dy) + (() if dh_last is None else (dh_last,))
+    if any(t.dtype != torch.float32 for t in ins):
+        raise TypeError("selective_scan_bwd takes f32 operands, got "
+                        f"{[str(t.dtype) for t in ins]}")
+    B, S, di = x.shape
+    N = b.shape[-1]
+    if (dt.shape != x.shape or dy.shape != x.shape or b.shape != (B, S, N)
+            or c.shape != (B, S, N) or a.shape != (di, N) or d.shape != (di,)
+            or (dh_last is not None and dh_last.shape != (B, di, N))):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, dt {tuple(dt.shape)}, b {tuple(b.shape)}, "
+            f"c {tuple(c.shape)}, a {tuple(a.shape)}, d {tuple(d.shape)}, dy "
+            f"{tuple(dy.shape)}, dh_last {None if dh_last is None else tuple(dh_last.shape)}")
+    spt, lanes = scan_bwd_layout(N)
+    _build.require_cuda("selective_scan_bwd", *ins)
+    x, dt, b, c, a, d, dy = (t.contiguous() for t in (x, dt, b, c, a, d, dy))
+    dh_last = None if dh_last is None else dh_last.contiguous()
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dbc = x.new_empty((2, B, S, N))
+    da = x.new_empty((di, N))
+    if x.numel() == 0:  # nothing to walk: no launch
+        for t in (dx, ddt, dbc, da):
+            t.zero_()
+        return dx, ddt, dbc[0], dbc[1], da, (dy * x).sum((0, 1))
+    nck = -(-S // scan_bwd_chunk(spt))
+    blocks = -(-di // (BWD_THREADS // lanes))
+    hs = x.new_empty(B * nck * di * N)
+    part = x.new_empty(blocks * 2 * B * S * N)
+    da_part = x.new_empty(B * di * N)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.selective_scan_bwd_launch(
+            *(t.data_ptr() for t in (x, dt, b, c, a, d, dy)),
+            None if dh_last is None else dh_last.data_ptr(),
+            *(t.data_ptr() for t in (hs, part, da_part, dx, ddt, dbc, da)),
+            B, S, di, N, spt, lanes, _build.stream(x))
+    _build.check(err, "selective_scan_bwd")
+    selective_scan_bwd.launches += 1
+    return dx, ddt, dbc[0], dbc[1], da, (dy * x).sum((0, 1))
+
+
+selective_scan_bwd.launches = 0

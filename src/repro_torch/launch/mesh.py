@@ -9,7 +9,10 @@ slot: several shards then run on one card (or on the CPU), the counterpart
 of the reference tests' fake host devices
 (``--xla_force_host_platform_device_count``).
 
-``make_production_mesh`` (the TPU pod layout) is not ported.
+A ``("pod", "data", "model")`` mesh (``Mesh(devices, axis_names)``, its
+slots on one card) runs ``train/train_step.py``'s cross-pod INT8
+reduction. ``make_production_mesh`` (the TPU pods' 256- and 512-chip
+layouts) is not ported.
 """
 from __future__ import annotations
 

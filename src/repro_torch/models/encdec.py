@@ -58,13 +58,14 @@ def abstract_params(cfg: ModelConfig) -> dict:
         "mlp": _mlp_pdefs(cfg, cfg.d_ff, bias=True),
     }
     return {
-        "embed": PDef((cfg.vocab_size, cfg.d_model), init="small_normal"),
-        "frontend_proj": dense(cfg.frontend_dim, cfg.d_model),
+        "embed": PDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                      init="small_normal"),
+        "frontend_proj": dense(cfg.frontend_dim, cfg.d_model, None, "embed"),
         "enc_layers": stack_tree(enc_layer, cfg.encoder_layers),
         "enc_norm": _norm_pdefs(cfg),
         "dec_layers": stack_tree(dec_layer, cfg.decoder_layers),
         "final_norm": _norm_pdefs(cfg),
-        "lm_head": dense(cfg.d_model, cfg.vocab_size, scale=0.02),
+        "lm_head": dense(cfg.d_model, cfg.vocab_size, "embed", "vocab", scale=0.02),
     }
 
 

@@ -47,7 +47,8 @@ def n_apps(cfg: ModelConfig) -> int:
 
 def abstract_params(cfg: ModelConfig) -> dict:
     tree = {
-        "embed": PDef((cfg.vocab_size, cfg.d_model), init="small_normal"),
+        "embed": PDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                      init="small_normal"),
         "layers": stack_tree({"ln": _norm_pdefs(cfg), "mamba": mamba2_pdefs(cfg)},
                              cfg.num_layers),
         "shared": {
@@ -59,7 +60,8 @@ def abstract_params(cfg: ModelConfig) -> dict:
         "final_norm": _norm_pdefs(cfg),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = PDef((cfg.d_model, cfg.vocab_size), init="small_normal")
+        tree["lm_head"] = PDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                               init="small_normal")
     return tree
 
 

@@ -18,23 +18,30 @@ class PDef:
     """Declarative parameter definition."""
 
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis per dim (None = replicated)
     init: str = "normal"  # normal | zeros | ones | small_normal
     scale: Optional[float] = None  # stddev override for normal init
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and logical axes {self.axes} differ in rank")
+
 
 def stack_tree(tree, n: int):
-    """Prepend a stacked-layers dim to every PDef of ``tree``."""
+    """Prepend a stacked-layers dim (logical axis ``layers``) to every PDef
+    of ``tree``."""
     if isinstance(tree, dict):
         return {k: stack_tree(v, n) for k, v in tree.items()}
-    return dataclasses.replace(tree, shape=(n,) + tree.shape)
+    return dataclasses.replace(tree, shape=(n,) + tree.shape, axes=("layers",) + tree.axes)
 
 
-def dense(d_in: int, d_out: int, scale: Optional[float] = None) -> PDef:
-    return PDef((d_in, d_out), scale=scale)
+def dense(d_in: int, d_out: int, ax_in: Optional[str], ax_out: Optional[str],
+          scale: Optional[float] = None) -> PDef:
+    return PDef((d_in, d_out), (ax_in, ax_out), scale=scale)
 
 
-def vector(d: int, init: str = "zeros") -> PDef:
-    return PDef((d,), init=init)
+def vector(d: int, ax: Optional[str], init: str = "zeros") -> PDef:
+    return PDef((d,), (ax,), init=init)
 
 
 def require_device(device) -> torch.device:

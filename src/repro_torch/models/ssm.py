@@ -1,10 +1,11 @@
 """Mamba-1 (falcon-mamba) and Mamba-2 (the zamba2 hybrid's backbone)
 blocks, ported from ``repro.models.ssm``.
 
-Mamba-1's prefill runs the selective scan through
+Mamba-1's prefill and training forward run the selective scan through
 ``kernels.ops.selective_scan`` (the CUDA kernel on the card, its plain
-version on the CPU); the reference's chunked associative scan is its XLA
-lowering for want of a kernel and is not ported. Decode (S = 1) is the
+version on the CPU; under grad its backward is the scan's backward kernel,
+``kernels/autograd.py:SelectiveScan``); the reference's chunked associative
+scan is its XLA lowering for want of a kernel and is not ported. Decode (S = 1) is the
 single fused recurrence step in plain tensor ops, as the reference runs it
 in plain XLA.
 
@@ -60,15 +61,16 @@ def mamba1_pdefs(cfg: ModelConfig) -> dict:
     dtr = s.dt_rank or -(-d // 16)
     n = s.state_dim
     return {
-        "in_proj": dense(d, 2 * di),
-        "conv_w": PDef((di, s.conv_width), scale=1.0 / math.sqrt(s.conv_width)),
-        "conv_b": vector(di),
-        "x_proj": dense(di, dtr + 2 * n),
-        "dt_proj": dense(dtr, di),
-        "dt_bias": vector(di, "ones"),
-        "A_log": PDef((di, n), init="ones"),
-        "D": vector(di, "ones"),
-        "out_proj": dense(di, d),
+        "in_proj": dense(d, 2 * di, "embed", "ssm_inner"),
+        "conv_w": PDef((di, s.conv_width), ("ssm_inner", None),
+                       scale=1.0 / math.sqrt(s.conv_width)),
+        "conv_b": vector(di, "ssm_inner"),
+        "x_proj": dense(di, dtr + 2 * n, "ssm_inner", None),
+        "dt_proj": dense(dtr, di, None, "ssm_inner"),
+        "dt_bias": vector(di, "ssm_inner", "ones"),
+        "A_log": PDef((di, n), ("ssm_inner", None), init="ones"),
+        "D": vector(di, "ssm_inner", "ones"),
+        "out_proj": dense(di, d, "ssm_inner", "embed"),
     }
 
 
@@ -129,14 +131,15 @@ def mamba2_pdefs(cfg: ModelConfig) -> dict:
     n = s.state_dim
     conv_dim = di + 2 * n  # conv over (x, B, C)
     return {
-        "in_proj": dense(d, 2 * di + 2 * n + nh),
-        "conv_w": PDef((conv_dim, s.conv_width), scale=1.0 / math.sqrt(s.conv_width)),
-        "conv_b": vector(conv_dim),
-        "A_log": vector(nh, "ones"),
-        "dt_bias": vector(nh, "ones"),
-        "D": vector(nh, "ones"),
-        "norm_scale": vector(di, "zeros"),
-        "out_proj": dense(di, d),
+        "in_proj": dense(d, 2 * di + 2 * n + nh, "embed", "ssm_inner"),
+        "conv_w": PDef((conv_dim, s.conv_width), ("ssm_inner", None),
+                       scale=1.0 / math.sqrt(s.conv_width)),
+        "conv_b": vector(conv_dim, "ssm_inner"),
+        "A_log": vector(nh, "ssm_inner", "ones"),
+        "dt_bias": vector(nh, "ssm_inner", "ones"),
+        "D": vector(nh, "ssm_inner", "ones"),
+        "norm_scale": vector(di, "ssm_inner", "zeros"),
+        "out_proj": dense(di, d, "ssm_inner", "embed"),
     }
 
 

@@ -66,37 +66,37 @@ from repro_torch.models.param import (
 def _norm_pdefs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     if cfg.norm == "layernorm":
-        return {"scale": vector(d, "ones"), "bias": vector(d, "zeros")}
-    return {"scale": vector(d, "zeros")}  # rmsnorm (1+g) convention
+        return {"scale": vector(d, "embed", "ones"), "bias": vector(d, "embed", "zeros")}
+    return {"scale": vector(d, "embed", "zeros")}  # rmsnorm (1+g) convention
 
 
 def _attn_pdefs(cfg: ModelConfig, bias: bool = False) -> dict:
     a = cfg.attn
     d = cfg.d_model
     p = {
-        "wq": dense(d, a.q_dim),
-        "wk": dense(d, a.kv_dim),
-        "wv": dense(d, a.kv_dim),
-        "wo": dense(a.q_dim, d),
+        "wq": dense(d, a.q_dim, "embed", "qkv"),
+        "wk": dense(d, a.kv_dim, "embed", "qkv"),
+        "wv": dense(d, a.kv_dim, "embed", "qkv"),
+        "wo": dense(a.q_dim, d, "qkv", "embed"),
     }
     if bias:
-        p["bq"] = vector(a.q_dim)
-        p["bk"] = vector(a.kv_dim)
-        p["bv"] = vector(a.kv_dim)
-        p["bo"] = vector(d)
+        p["bq"] = vector(a.q_dim, "qkv")
+        p["bk"] = vector(a.kv_dim, "qkv")
+        p["bv"] = vector(a.kv_dim, "qkv")
+        p["bo"] = vector(d, "embed")
     if a.qk_norm:
-        p["q_norm"] = vector(a.head_dim)
-        p["k_norm"] = vector(a.head_dim)
+        p["q_norm"] = vector(a.head_dim, None)
+        p["k_norm"] = vector(a.head_dim, None)
     return p
 
 
 def _mlp_pdefs(cfg: ModelConfig, d_ff: int, bias: bool = False) -> dict:
     d = cfg.d_model
     hid = 2 * d_ff if cfg.glu else d_ff
-    p = {"wi": dense(d, hid), "wo": dense(d_ff, d)}
+    p = {"wi": dense(d, hid, "embed", "mlp"), "wo": dense(d_ff, d, "mlp", "embed")}
     if bias:
-        p["bi"] = vector(hid)
-        p["bo"] = vector(d)
+        p["bi"] = vector(hid, "mlp")
+        p["bo"] = vector(d, "embed")
     return p
 
 
@@ -105,9 +105,9 @@ def _moe_pdefs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     hid = 2 * m.d_ff if cfg.glu else m.d_ff
     return {
-        "gate": dense(d, m.num_experts, scale=0.02),
-        "wi": PDef((m.num_experts, d, hid)),
-        "wo": PDef((m.num_experts, m.d_ff, d)),
+        "gate": dense(d, m.num_experts, "embed", None, scale=0.02),
+        "wi": PDef((m.num_experts, d, hid), ("expert", "embed", "mlp")),
+        "wo": PDef((m.num_experts, m.d_ff, d), ("expert", "mlp", "embed")),
     }
 
 
@@ -133,7 +133,7 @@ def abstract_params(cfg: ModelConfig) -> dict:
     (untied) LM head and (vlm) the frontend projection."""
     d = cfg.d_model
     tree: dict = {
-        "embed": PDef((cfg.vocab_size, d), init="small_normal"),
+        "embed": PDef((cfg.vocab_size, d), ("vocab", "embed"), init="small_normal"),
         "final_norm": _norm_pdefs(cfg),
     }
     if _alternating(cfg):
@@ -145,9 +145,9 @@ def abstract_params(cfg: ModelConfig) -> dict:
     else:
         tree["layers"] = stack_tree(_layer_pdefs(cfg), cfg.num_layers)
     if not cfg.tie_embeddings:
-        tree["lm_head"] = dense(d, cfg.vocab_size, scale=0.02)
+        tree["lm_head"] = dense(d, cfg.vocab_size, "embed", "vocab", scale=0.02)
     if cfg.frontend:  # the vlm's projection of the stub's patch embeddings
-        tree["frontend_proj"] = dense(cfg.frontend_dim, d)
+        tree["frontend_proj"] = dense(cfg.frontend_dim, d, None, "embed")
     return tree
 
 

@@ -54,10 +54,10 @@ def _vit_layer_pdefs(cfg: ModelConfig, moe: bool) -> dict:
     }
     if moe:
         m = _moe_pdefs(cfg)
-        m["gate_b"] = vector(cfg.moe.num_experts)
+        m["gate_b"] = vector(cfg.moe.num_experts, None)
         hid = 2 * cfg.moe.d_ff if cfg.glu else cfg.moe.d_ff
-        m["bi"] = PDef((cfg.moe.num_experts, hid))
-        m["bo"] = PDef((cfg.moe.num_experts, cfg.d_model))
+        m["bi"] = PDef((cfg.moe.num_experts, hid), ("expert", "mlp"))
+        m["bo"] = PDef((cfg.moe.num_experts, cfg.d_model), ("expert", "embed"))
         p["moe"] = m
     else:
         p["mlp"] = _mlp_pdefs(cfg, cfg.d_ff, bias=True)
@@ -67,13 +67,13 @@ def _vit_layer_pdefs(cfg: ModelConfig, moe: bool) -> dict:
 def abstract_params(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     tree: dict = {
-        "patch_proj": dense(PATCH_DIM, d),
-        "patch_bias": vector(d),
-        "cls_token": PDef((1, 1, d), init="small_normal"),
-        "pos_embed": PDef((cfg.image_tokens, d), init="small_normal"),
+        "patch_proj": dense(PATCH_DIM, d, None, "embed"),
+        "patch_bias": vector(d, "embed"),
+        "cls_token": PDef((1, 1, d), (None, None, "embed"), init="small_normal"),
+        "pos_embed": PDef((cfg.image_tokens, d), (None, "embed"), init="small_normal"),
         "final_norm": _norm_pdefs(cfg),
-        "head": dense(d, cfg.num_classes, scale=0.02),
-        "head_b": vector(cfg.num_classes),
+        "head": dense(d, cfg.num_classes, "embed", None, scale=0.02),
+        "head_b": vector(cfg.num_classes, None),
     }
     if cfg.family == "vit_moe":
         n_pairs = cfg.num_layers // 2

@@ -5,6 +5,8 @@ from repro_torch.optim.compress import (
     compress_grads,
     decompress_sum,
     init_compress_state,
+    pod_compress,
+    pod_decompress,
 )
 from repro_torch.optim.optimizers import (
     Optimizer,

@@ -2,10 +2,11 @@
 tensors), ported from ``repro.optim.optimizers``.
 
 AdamW for the small and medium archs; Adafactor (factored second moment,
-no momentum) for the largest, whose optimizer state must stay small. The
-reference's ``state_specs`` (opt-state shardings for GSPMD) is not ported:
-on one card every placement is replicated. Every update is functional: new
-tensors, the old state untouched.
+no momentum) for the largest, whose optimizer state must stay small. Each
+also gives ``state_specs(param_specs, param_shapes)``, the sharding specs
+of its state (``distributed/sharding_rules.py``'s tuples): AdamW's m and v
+take their param's spec, Adafactor's factored vectors are replicated. Every
+update is functional: new tensors, the old state untouched.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.models.param import tree_leaves, tree_map, tree_unzip
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, torch.Tensor], tuple]  # (g, s, p, step)
+    state_specs: Callable[[Any, Any], Any]  # (param specs, param shapes) -> state specs
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -60,7 +62,10 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         new_p, m, v = tree_unzip(tree_map(upd, params, grads, state["m"], state["v"]), 3)
         return new_p, {"m": m, "v": v}
 
-    return Optimizer(init=init, update=update)
+    def state_specs(param_specs, param_shapes):
+        return {"m": param_specs, "v": param_specs}
+
+    return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +116,15 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
         new_p, v = tree_unzip(tree_map(upd, params, grads, state["v"]), 2)
         return new_p, {"v": v}
 
-    return Optimizer(init=init, update=update)
+    def state_specs(param_specs, param_shapes):
+        def one(spec, shape):
+            if _factored(tuple(getattr(shape, "shape", shape))):
+                return {"vr": (), "vc": ()}  # tiny: replicated
+            return {"v": spec}
+
+        return {"v": tree_map(one, param_specs, param_shapes)}
+
+    return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
 def make_optimizer(name: str, schedule, **kw) -> Optimizer:

@@ -1,15 +1,22 @@
 """The train step, ported from ``repro.train.train_step``: gradients of
 ``loss_and_metrics`` (microbatch accumulation when the config asks for it),
-the single-pod error-feedback INT8 compression, global-norm clipping and
-the optimizer update.
+the single-pod error-feedback INT8 compression, the cross-pod INT8
+reduction, global-norm clipping and the optimizer update.
 
-On one card every placement is replicated: the reference's GSPMD
-shardings (``distributed/sharding_rules.py``) and its cross-pod compressed
-reduction (a ``shard_map`` over a ``pod`` mesh axis) are not ported, and a
-mesh with a ``pod`` axis larger than 1 raises ``NotImplementedError``.
-Gradients reach the weights through the hand kernels' backward
+On a mesh whose ``pod`` axis is n > 1, with ``grad_compress``, each pod
+slot takes its 1/n slice of the batch and computes its gradients, which are
+coded and summed as the reference codes them for its one cross-pod
+all-reduce (``optim.pod_compress`` / ``pod_decompress``). The port drives
+every slot from one process and the slots share one card (as
+expert-parallel slots do): the sum is a loop over the slots' codes, not a
+collective. Without ``grad_compress`` the
+pod axis is plain data parallelism, the gradient of the whole batch.
+``state_specs`` gives the sharding specs of a ``TrainState``
+(``distributed/sharding_rules.py``); on one card every placement is
+replicated. Gradients reach the weights through the hand kernels' backward
 (``kernels/autograd.py``); with ``cfg.remat`` each block is recomputed in
-the backward pass (``models/transformer.py``, ``models/vit.py``).
+the backward pass (``models/transformer.py``, ``models/vit.py``,
+``models/ssm_lm.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import torch
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import batch_to
+from repro_torch.distributed.sharding_rules import param_specs
+from repro_torch.launch.mesh import single_device
 from repro_torch.models.param import require_device, tree_leaves, tree_map
 from repro_torch.optim import (
     CompressState,
@@ -28,6 +37,8 @@ from repro_torch.optim import (
     compress_grads,
     decompress_sum,
     init_compress_state,
+    pod_compress,
+    pod_decompress,
 )
 from repro_torch.train.losses import loss_and_metrics
 
@@ -57,6 +68,17 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, seed: int = 0, *,
     )
 
 
+def state_specs(cfg: ModelConfig, optimizer: Optimizer, mesh=None, *,
+                grad_compress: bool = False) -> TrainState:
+    """The sharding specs of a ``TrainState``: the params' from the rules,
+    the optimizer's from its ``state_specs``, the step replicated, the
+    error-feedback residuals as the params."""
+    p_specs = param_specs(cfg, mesh)
+    shapes = tree_map(lambda p: tuple(p.shape), models.abstract_params(cfg))
+    return TrainState(params=p_specs, opt_state=optimizer.state_specs(p_specs, shapes),
+                      step=(), compress=CompressState(residual=p_specs) if grad_compress else None)
+
+
 def value_and_grad(params, cfg: ModelConfig, batch: dict):
     """(grads, metrics) of ``loss_and_metrics`` at ``params``: the
     reference's ``jax.value_and_grad(loss_and_metrics, has_aux=True)``.
@@ -78,7 +100,11 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, optimizer: Opti
     cut into that many-row microbatches in order, and their gradients are
     added as ``g / n_micro`` in f32 in microbatch order; the metrics are
     the last microbatch's. ``mesh`` (the port's ``launch.mesh.Mesh``, or
-    None): a ``pod`` axis larger than 1 raises ``NotImplementedError``."""
+    None): with ``grad_compress``, a ``pod`` axis of n > 1 runs the
+    cross-pod reduction (see the module docstring), each pod slot on its
+    1/n slice, the metrics averaged over the pods, the error-feedback
+    residuals left as they were (the reference's branch); the slots must
+    share one device."""
     micro = cfg.microbatch_size
     n_micro = 1
     if micro and shape.global_batch > micro:
@@ -86,15 +112,16 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, optimizer: Opti
             raise ValueError(f"global batch {shape.global_batch} is not a multiple of "
                              f"the microbatch {micro}")
         n_micro = shape.global_batch // micro
-    if mesh is not None and mesh.shape.get("pod", 1) > 1:
-        raise NotImplementedError(
-            "the cross-pod compressed-gradient reduction (a pod mesh axis) is not "
-            "ported; the port trains on one card")
+    n_pods = 1 if mesh is None else mesh.shape.get("pod", 1)
+    if grad_compress and n_pods > 1:
+        single_device(mesh)  # the slots share one device
+        if shape.global_batch % n_pods:
+            raise ValueError(f"global batch {shape.global_batch} over {n_pods} pods")
 
     def grads_fn(params, batch):
         if n_micro == 1:
             return value_and_grad(params, cfg, batch)
-        size = shape.global_batch // n_micro
+        size = len(next(iter(batch.values()))) // n_micro
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                        params)
         for i in range(n_micro):
@@ -106,10 +133,20 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, optimizer: Opti
     def step_fn(state: TrainState, batch: dict):
         dev = state.step.device
         batch = batch_to(batch, dev)
-        grads, metrics = grads_fn(state.params, batch)
+        if grad_compress and n_pods > 1:
+            size = shape.global_batch // n_pods
+            per = [grads_fn(state.params, {k: v[i * size:(i + 1) * size]
+                                           for k, v in batch.items()})
+                   for i in range(n_pods)]
+            with torch.no_grad():
+                grads = pod_decompress(*pod_compress([g for g, _ in per]), n_pods)
+            metrics = {k: sum(m[k] for _, m in per) / n_pods for k in per[0][1]}
+            del per  # the pods' gradients, before the update allocates its own
+        else:
+            grads, metrics = grads_fn(state.params, batch)
         with torch.no_grad():
             new_compress = state.compress
-            if grad_compress and state.compress is not None:
+            if grad_compress and n_pods == 1 and state.compress is not None:
                 # single-pod: the compressor's quantize-dequantize with error
                 # feedback (the reduction's byte saving needs the pod axis)
                 codes, scales, new_compress = compress_grads(grads, state.compress)

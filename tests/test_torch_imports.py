@@ -60,6 +60,28 @@ def test_importing_the_port_leaves_jax_unloaded():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_training_slice_imports_without_jax_triton_or_nvcc(tmp_path):
+    """The scan's backward, the sharding rules, the reparameterization and
+    the pod-aware train step import with no ``nvcc`` on the PATH, load
+    neither ``jax`` nor ``triton``, and build nothing."""
+    from repro_torch.kernels import _build
+
+    before = sorted(_build.BUILD_DIR.glob("*.so")) if _build.BUILD_DIR.exists() else []
+    code = ("import sys, repro_torch.kernels.selective_scan as ss, "
+            "repro_torch.distributed.sharding_rules, repro_torch.core.quant, "
+            "repro_torch.core.quant.reparam, repro_torch.train.train_step, "
+            "repro_torch.optim.compress, repro_torch.kernels.autograd; "
+            "assert callable(ss.selective_scan_bwd); "
+            "assert not {'jax', 'repro', 'triton'} & set(sys.modules), sys.modules.keys()")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH=str(tmp_path),
+               CUDA_HOME=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    after = sorted(_build.BUILD_DIR.glob("*.so")) if _build.BUILD_DIR.exists() else []
+    assert after == before
+
+
 @pytest.mark.parametrize("replicas", [0, 2])
 def test_launch_serve_writes_a_trace_and_metrics_on_the_cpu(tmp_path, replicas):
     """``python -m repro_torch.launch.serve --smoke --device cpu --trace-out

@@ -140,3 +140,129 @@ def test_layernorm_and_gelu_match_reference():
         atol=1e-5)
     np.testing.assert_allclose(act_fn("gelu")(torch.from_numpy(x)).numpy(),
                                np.asarray(jax_act_fn("gelu")(jnp.asarray(x))), atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# post-norm reparameterization (Eqs. 10-16): core/quant/reparam.py
+# ---------------------------------------------------------------------------
+
+from repro.core.quant import reparam as jrp  # noqa: E402
+
+from repro_torch.core import quant as tq  # noqa: E402
+
+
+def _post_norm_samples(seed, n=64, d=12):
+    """Channels with their own spread and offset (some not straddling 0)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)) * rng.uniform(0.1, 5, d)
+            + rng.uniform(-3, 3, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_reparam_calibration_matches_reference(bits):
+    """Per-channel asymmetric (s, z) and symmetric s: exact (the same f32
+    min / max, division and round)."""
+    x = _post_norm_samples(bits)
+    js, jz = jrp.calibrate_per_channel_asym(jnp.asarray(x), bits)
+    ts, tz = tq.calibrate_per_channel_asym(torch.from_numpy(x), bits)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+    np.testing.assert_array_equal(tq.calibrate_per_channel_sym(torch.from_numpy(x), bits).numpy(),
+                                  np.asarray(jrp.calibrate_per_channel_sym(jnp.asarray(x), bits)))
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_reparam_factors_match_reference(symmetric):
+    """``factors_from_minmax`` and ``reparam_factors``: r1, r2, s, s_tilde
+    within rtol 1e-6 (s_tilde is a mean, summed in another order)."""
+    x = _post_norm_samples(3)
+    xmin, xmax = x.min(0), x.max(0)
+    want = jrp.factors_from_minmax(jnp.asarray(xmin), jnp.asarray(xmax), 8, symmetric)
+    got = tq.factors_from_minmax(torch.from_numpy(xmin), torch.from_numpy(xmax), 8, symmetric)
+    assert isinstance(got, tq.ReparamFactors)
+    for name in tq.ReparamFactors._fields:
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   rtol=1e-6, atol=0, err_msg=name)
+    if symmetric:
+        assert not got.r2.any()
+    s, z = jrp.calibrate_per_channel_asym(jnp.asarray(x), 8)
+    want = jrp.reparam_factors(s, None if symmetric else z, 8)
+    got = tq.reparam_factors(torch.tensor(np.asarray(s)),
+                             None if symmetric else torch.tensor(np.asarray(z)), 8)
+    for name in tq.ReparamFactors._fields:
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   rtol=1e-6, atol=0, err_msg=name)
+
+
+def test_reparam_folds_match_reference():
+    """``apply_to_layernorm``, ``apply_to_rmsnorm``, ``apply_to_consumer``
+    (with and without a bias) and ``transform_activation`` on the same
+    factors: rtol 1e-6, atol 1e-6."""
+    rng = np.random.default_rng(4)
+    x = _post_norm_samples(4)
+    d = x.shape[1]
+    s, z = jrp.calibrate_per_channel_asym(jnp.asarray(x), 8)
+    jf = jrp.reparam_factors(s, z, 8)
+    tf = tq.ReparamFactors(*(torch.tensor(np.asarray(v)) for v in jf))
+    gamma = rng.uniform(0.5, 2, d).astype(np.float32)
+    beta = rng.standard_normal(d).astype(np.float32)
+    w = rng.standard_normal((d, 5)).astype(np.float32)
+    b = rng.standard_normal(5).astype(np.float32)
+    tol = dict(rtol=1e-6, atol=1e-6)
+    pairs = [
+        (tq.apply_to_layernorm(torch.from_numpy(gamma), torch.from_numpy(beta), tf),
+         jrp.apply_to_layernorm(jnp.asarray(gamma), jnp.asarray(beta), jf)),
+        ((tq.apply_to_rmsnorm(torch.from_numpy(gamma), tf),),
+         (jrp.apply_to_rmsnorm(jnp.asarray(gamma), jf),)),
+        (tq.apply_to_consumer(torch.from_numpy(w), torch.from_numpy(b), tf),
+         jrp.apply_to_consumer(jnp.asarray(w), jnp.asarray(b), jf)),
+        (tq.apply_to_consumer(torch.from_numpy(w), None, tf),
+         jrp.apply_to_consumer(jnp.asarray(w), None, jf)),
+        ((tq.transform_activation(torch.from_numpy(x), tf),),
+         (jrp.transform_activation(jnp.asarray(x), jf),)),
+    ]
+    for got, want in pairs:
+        for g, v in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(v), **tol)
+
+
+@pytest.mark.parametrize("d,n", [(2, 4), (7, 19), (16, 32)])
+def test_reparam_linear_equivalence(d, n):
+    """Eq. 13 on the port: X W + b == X' (diag(r1) W) + (b - W^T (s r2)),
+    rtol = atol = 2e-4 (the reference test's tolerance)."""
+    rng = np.random.default_rng(d * 100 + n)
+    x = torch.from_numpy((rng.standard_normal((n, d)) * rng.uniform(0.1, 5, d)
+                          + rng.uniform(-3, 3, d)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((d, 3)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(3).astype(np.float32))
+    f = tq.reparam_factors(*tq.calibrate_per_channel_asym(x, 8), 8)
+    w_p, b_p = tq.apply_to_consumer(w, b, f)
+    np.testing.assert_allclose((x @ w + b).numpy(),
+                               (tq.transform_activation(x, f) @ w_p + b_p).numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_reparam_integer_grid_alignment():
+    """round(X' / s_tilde) is the per-channel asymmetric integer grid of X
+    shifted by 2^(b-1), within one code (the reference test's bound)."""
+    x = torch.from_numpy(_post_norm_samples(0, n=256, d=8))
+    s, z = tq.calibrate_per_channel_asym(x, 8)
+    f = tq.reparam_factors(s, z, 8)
+    grid_sym = torch.round(tq.transform_activation(x, f) / f.s_tilde)
+    grid_asym = torch.round(x / s) + z - 2.0**7
+    np.testing.assert_allclose(grid_sym.numpy(), grid_asym.numpy(), atol=1 + 1e-5)
+
+
+def test_reparam_layernorm_fold():
+    """Folding into (gamma, beta) gives X' with no run-time op (Eq. 11),
+    through the port's ``layernorm``: rtol = atol = 2e-4."""
+    rng = np.random.default_rng(1)
+    d, n = 16, 64
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    gamma = torch.from_numpy(rng.uniform(0.5, 2, d).astype(np.float32))
+    beta = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    y = layernorm(x, gamma, beta)
+    f = tq.reparam_factors(*tq.calibrate_per_channel_asym(y, 8), 8)
+    g_p, b_p = tq.apply_to_layernorm(gamma, beta, f)
+    np.testing.assert_allclose(layernorm(x, g_p, b_p).numpy(),
+                               tq.transform_activation(y, f).numpy(), rtol=2e-4, atol=2e-4)

@@ -178,7 +178,8 @@ def test_step0_gradients_match_reference(grad_case, remat):
 # the train step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,layers", [("m3vit-small", 4), ("olmoe-1b-7b", 2)])
+@pytest.mark.parametrize("arch,layers", [("m3vit-small", 4), ("olmoe-1b-7b", 2),
+                                         ("falcon-mamba-7b", 2)])
 def test_five_steps_match_reference_train_step(arch, layers):
     """Oracle (a): the reference's ``build_train_step`` with its state passed
     back through numpy after every step."""
@@ -232,13 +233,160 @@ def test_microbatch_accumulation_matches_full_batch():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-5, rtol=1e-4)
 
 
-def test_pod_mesh_raises():
+# the reference's pod branch (``_pod_compressed_grads``: a shard_map over the
+# pod axis) on two fake CPU devices, in a process of its own; it writes the
+# params it starts from, the batch, its metrics, the updated params, each
+# pod's gradients (``jax.value_and_grad(loss_and_metrics)`` on its half) and
+# their coding in the branch's per-leaf arithmetic, its collectives written
+# out over the two pods (pmax: a max; psum of int32: an exact sum)
+_POD_ORACLE = r"""
+import sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_shape, smoke_config
+from repro.data import SyntheticPipeline
+from repro.optim import constant, make_optimizer
+from repro.train.losses import loss_and_metrics
+from repro.train.train_step import build_train_step, init_train_state
+
+cfg = smoke_config("llama3-8b").replace(num_layers=2)
+shape = get_shape("train_4k").replace(seq_len=64, global_batch=4)
+mesh = jax.make_mesh((2, 1, 1), ("pod", "data", "model"))
+opt = make_optimizer("adamw", constant(1e-3))
+batch = SyntheticPipeline(cfg, shape, seed=0).batch_for_step(0)
+with mesh:
+    state = init_train_state(cfg, opt, jax.random.PRNGKey(0), grad_compress=True)
+    step = build_train_step(cfg, shape, mesh, opt, grad_compress=True, donate=False)
+    new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()})
+
+def flat(tree, prefix):
+    leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {prefix + "/".join(str(k.key) for k in path): np.asarray(v) for path, v in leaves}
+
+grad = jax.jit(jax.value_and_grad(lambda p, b: loss_and_metrics(p, cfg, b), has_aux=True))
+pod_grads = [grad(state.params, {k: jnp.asarray(v[2 * i:2 * i + 2]) for k, v in batch.items()})[1]
+             for i in range(2)]
+
+@jax.jit
+def coding(g0, g1):
+    def one(a, b):
+        scale = jnp.maximum(jnp.max(jnp.abs(a)) / 127.0, jnp.max(jnp.abs(b)) / 127.0) + 1e-30
+        s = sum(jnp.clip(jnp.round(g / scale), -127, 127).astype(jnp.int32) for g in (a, b))
+        return s, s.astype(jnp.float32) * (scale / 2)
+    out = jax.tree.map(one, g0, g1)
+    return (jax.tree.map(lambda o: o[0], out, is_leaf=lambda x: isinstance(x, tuple)),
+            jax.tree.map(lambda o: o[1], out, is_leaf=lambda x: isinstance(x, tuple)))
+
+sums, dec = coding(*pod_grads)
+np.savez(sys.argv[1], **flat(state.params, "p0:"), **flat(new.params, "p1:"),
+         **flat(pod_grads[0], "g0:"), **flat(pod_grads[1], "g1:"), **flat(sums, "s:"),
+         **flat(dec, "d:"),
+         **{"m:" + k: np.asarray(v) for k, v in metrics.items()},
+         **{"b:" + k: v for k, v in batch.items()})
+"""
+
+
+def _unflat(arrays: dict, prefix: str) -> dict:
+    out: dict = {}
+    for key, v in arrays.items():
+        if key.startswith(prefix):
+            *path, leaf = key[len(prefix):].split("/")
+            node = out
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = v
+    return out
+
+
+def _pod_mesh(n):
     from repro_torch.launch.mesh import Mesh
 
+    return Mesh(np.array(CPU * n, dtype=object).reshape(n, 1, 1), ("pod", "data", "model"))
+
+
+def test_pod_compressed_grads_match_reference(tmp_path):
+    """Two pods with ``grad_compress``. (1) Fed the reference's own per-pod
+    gradients (``jax.value_and_grad(loss_and_metrics)`` on each half of the
+    batch), ``optim.pod_compress`` / ``pod_decompress`` give the reference's
+    int32 sums and decoded gradients bit for bit. (2) The whole step against
+    the reference's branch run on two fake CPU devices (a subprocess): loss
+    and grad norm within rtol 1e-4, every updated param within atol 5e-5,
+    rtol 1e-4 (the five-step test's tolerance; the packages' gradients round
+    apart, so a code may differ by one)."""
+    from repro_torch.optim import pod_compress, pod_decompress
+
+    out = tmp_path / "pod.npz"
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=2",
+               JAX_PLATFORMS="cpu", REPRO_PALLAS="ref",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    subprocess.run([sys.executable, "-c", _POD_ORACLE, str(out)], check=True, env=env,
+                   timeout=300)
+    arrays = dict(np.load(out))
+    p0, p1 = _unflat(arrays, "p0:"), _unflat(arrays, "p1:")
+    batch = {k[2:]: v for k, v in arrays.items() if k.startswith("b:")}
+    _, tcfg = _cfgs("llama3-8b", 2)
+
+    # (1) the coding, on the reference's per-pod gradients
+    pod_grads = [_flat_np(_unflat(arrays, f"g{i}:")) for i in range(2)]
+    want_sums, want_dec = _flat_np(_unflat(arrays, "s:")), _flat_np(_unflat(arrays, "d:"))
+    sums, scales = pod_compress([{k: torch.tensor(v) for k, v in g.items()}
+                                 for g in pod_grads])
+    dec = pod_decompress(sums, scales, 2)
+    for k in want_sums:
+        assert sums[k].dtype == torch.int32
+        np.testing.assert_array_equal(sums[k].numpy(), want_sums[k], err_msg=k)
+        np.testing.assert_array_equal(dec[k].numpy(), want_dec[k], err_msg=k)
+
+    # (2) the whole step
+    opt = make_optimizer("adamw", constant(1e-3))
+    state = init_train_state(tcfg, opt, params=bridge.params_from_numpy(p0, "cpu"),
+                             grad_compress=True)
+    new, metrics = build_train_step(tcfg, SHAPE, _pod_mesh(2), opt, grad_compress=True)(
+        state, batch)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[k]), float(arrays["m:" + k]), rtol=1e-4,
+                                   err_msg=k)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(new.compress.residual),
+                                                 tree_leaves(state.compress.residual)))
+    want, got = _flat_np(p1), _flat_np(new.params)
+    assert sorted(want) == sorted(got)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=5e-5, rtol=1e-4, err_msg=k)
+
+
+def test_pod_step_without_compress_is_the_single_pod_step():
+    """Without ``grad_compress`` the pod axis is data parallelism: the step
+    on a 2-pod mesh is the step without a mesh, bit for bit; the metrics too."""
     _, cfg = _cfgs("llama3-8b", 2)
-    mesh = Mesh(np.array(CPU * 2, dtype=object).reshape(2, 1, 1), ("pod", "data", "model"))
-    with pytest.raises(NotImplementedError, match="pod"):
-        build_train_step(cfg, SHAPE, mesh, make_optimizer("adamw", constant(1e-3)),
+    opt = make_optimizer("adamw", constant(1e-3))
+    batch = SyntheticPipeline(cfg, SHAPE, seed=0).batch_for_step(0)
+    s0 = init_train_state(cfg, opt, 0, device="cpu")
+    a, ma = build_train_step(cfg, SHAPE, _pod_mesh(2), opt)(s0, batch)
+    b, mb = build_train_step(cfg, SHAPE, None, opt)(s0, batch)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)))
+    assert all(torch.equal(ma[k], mb[k]) for k in mb)
+
+
+def test_pod_step_is_its_written_out_composition():
+    """The pod step on the port alone: two single-pod gradient calls on the
+    halves, the coding, clip and AdamW, bit for bit (what chip_smoke.py's
+    phase 13 holds on the card); the metrics the mean over the pods."""
+    from repro_torch.optim import clip_by_global_norm, pod_compress, pod_decompress
+
+    _, cfg = _cfgs("llama3-8b", 2)
+    opt = make_optimizer("adamw", constant(1e-3))
+    batch = batch_to(SyntheticPipeline(cfg, SHAPE, seed=0).batch_for_step(0), "cpu")
+    s0 = init_train_state(cfg, opt, 0, device="cpu", grad_compress=True)
+    new, metrics = build_train_step(cfg, SHAPE, _pod_mesh(2), opt, grad_compress=True)(s0, batch)
+    per = [value_and_grad(s0.params, cfg, {k: v[2 * i:2 * i + 2] for k, v in batch.items()})
+           for i in range(2)]
+    grads = pod_decompress(*pod_compress([g for g, _ in per]), 2)
+    grads, norm = clip_by_global_norm(grads, 1.0)
+    want, _ = opt.update(grads, s0.opt_state, s0.params, s0.step)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(new.params), tree_leaves(want)))
+    assert torch.equal(metrics["grad_norm"], norm)
+    assert torch.equal(metrics["loss"], (per[0][1]["loss"] + per[1][1]["loss"]) / 2)
+    with pytest.raises(ValueError, match="pods"):
+        build_train_step(cfg, SHAPE.replace(global_batch=3), _pod_mesh(2), opt,
                          grad_compress=True)
 
 
@@ -386,23 +534,18 @@ def test_recompute_backward_is_the_plain_versions_gradient():
 
 
 def test_kernels_without_backward_raise_on_the_card(monkeypatch):
-    """On the card a kernel with no backward raises under grad (an output
-    with no grad_fn would freeze the weights behind it); under no_grad it
-    launches."""
+    """On the card a kernel with no backward (the integer ones) raises under
+    grad (an output with no grad_fn would freeze the weights behind it);
+    under no_grad it launches. The selective scan has a backward
+    (tests/test_torch_scan_grad.py)."""
     launched = []
     monkeypatch.setattr(ops, "_int8_kernel", lambda *a: launched.append("int8") or a[0].float())
-    monkeypatch.setattr(ops, "_scan_kernel", lambda *a: launched.append("scan") or a)
     monkeypatch.setattr(ops, "_gmm_kernel", lambda *a, **k: launched.append("gmm") or a[0].float())
     x_q = _card(torch.ones((2, 4), dtype=torch.int8))
     w_q = _card(torch.ones((4, 3), dtype=torch.int8))
     scale = _card(torch.ones(3)).requires_grad_()
     with pytest.raises(NotImplementedError, match="int8_matmul"):
         ops.int8_matmul(x_q, w_q, 0.5, scale)
-    xs = [_card(torch.ones((1, 4, 2))).requires_grad_() for _ in range(2)]
-    bc = [_card(torch.ones((1, 4, 3))) for _ in range(2)]
-    a, d = _card(-torch.ones((2, 3))), _card(torch.ones(2))
-    with pytest.raises(NotImplementedError, match="selective_scan"):
-        ops.selective_scan(*xs, *bc, a, d)
     wq = _card(torch.ones((2, 4, 3), dtype=torch.int8))
     gs = _card(torch.tensor([1, 1], dtype=torch.int32))
     xf = _card(torch.ones((2, 4))).requires_grad_()
@@ -411,10 +554,9 @@ def test_kernels_without_backward_raise_on_the_card(monkeypatch):
                            a_scale=_card(torch.tensor(0.1)))
     with torch.no_grad():
         ops.int8_matmul(x_q, w_q, 0.5, scale)
-        ops.selective_scan(*xs, *bc, a, d)
         ops.grouped_matmul(xf, wq, gs, w_scale=_card(torch.ones((2, 3))),
                            a_scale=_card(torch.tensor(0.1)))
-    assert launched == ["int8", "scan", "gmm"]
+    assert launched == ["int8", "gmm"]
     with pytest.raises(NotImplementedError, match="no backward"):
         autograd.no_backward("k", torch.ones(1, requires_grad=True))
     autograd.no_backward("k", torch.ones(1))
