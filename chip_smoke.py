@@ -360,15 +360,24 @@ caught:
                  shapes of the expert layers' dx (``torch._grouped_mm``
                  beside it, as beside every f32 grouped row).
  13. train_ssm -- after phase 11, deterministic: the selective scan's
-                 backward kernel (``csrc/selective_scan_bwd.cu``) against
-                 ``ref.selective_scan_bwd_ref`` at ``SCAN_BWD_SHAPES`` (N 4
-                 to 512, a ragged last chunk, with and without dh_last) and
-                 at the training shape ``SCAN_BWD_TRAIN`` (each output within
-                 ``SCAN_BWD_TOL`` of the plain version relative to its
-                 largest value, two calls bit-equal; device time by graph
-                 replay beside the forward kernel's, the plain version's
-                 and the bound). Then full-width falcon-mamba-7b (remat,
-                 AdamW, f32) cut to ``TRAIN_SSM_LAYERS`` of 64 layers:
+                 backward kernel in both variants (``saved``,
+                 ``csrc/selective_scan_bwd.cu``; ``recompute``, the first
+                 design) against ``ref.selective_scan_bwd_ref`` at
+                 ``SCAN_BWD_SHAPES`` (N 4 to 512, one chunk or a ragged last
+                 one, with and without dh_last) and at the training shape
+                 ``SCAN_BWD_TRAIN`` (each output within ``SCAN_BWD_TOL`` of
+                 the plain version relative to its largest value, dA and dD
+                 bit-equal there, two calls bit-equal, ``saved`` from the
+                 forward kernel's states bit-equal to its call alone; the
+                 forward kernel saving the states: y and h_last bit-equal
+                 to the serving kernel's, h_last to the plain version's;
+                 device time by graph replay of ``saved`` alone and from
+                 the states, beside ``recompute`` in the same run (alone at
+                 most half of it), the forward kernel with and without the
+                 states, the plain version's time and the bound; the
+                 layout's warps an SM). Then
+                 full-width falcon-mamba-7b (remat, AdamW, f32) cut to
+                 ``TRAIN_SSM_LAYERS`` of 64 layers:
                  (a) step-0 gradients at 2 x ``TRAIN_SSM_GATE_SEQ`` tokens
                  with the kernels against the plain versions (phase 11's
                  rule, every leaf held to the relative bound); (b) the same
@@ -434,6 +443,8 @@ SOURCES = {
     "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
     "grouped_wgrad": "src/repro_torch/kernels/csrc/grouped_wgrad.cu",
     "selective_scan_bwd": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+    "selective_scan_bwd[recompute]":
+        "src/repro_torch/kernels/csrc/selective_scan_bwd_recompute.cu",
 }
 # kernel launches per int8 forward of M3ViT-S: 6 dense layers x (q, k, v, o,
 # fc1, fc2) + 6 MoE layers x (q, k, v, o, gate) + head; 6 MoE layers x (fc1,
@@ -452,7 +463,7 @@ KERNEL_NAMES = {
                        "gmm_f32_mma_kernel", "gmm_f32_stream_kernel", "gmm_f32_fma_kernel"),
     "streaming_attention": ("quant_attention_kernel",),
     "lm_attention": ("lm_decode_kernel", "lm_tile_kernel"),
-    "selective_scan": ("selective_scan_kernel",),
+    "selective_scan": ("selective_scan_kernel", "selective_scan_save_kernel"),
     "rmsnorm": ("rmsnorm_kernel",),
 }
 # per forward of the fp tree served as launch/serve.py serves it: the dense
@@ -606,10 +617,11 @@ WGRAD_RAGGED = [(37, 3, 100, 70), (1, 1, 8, 8), (0, 4, 64, 64)]  # (T, G, Din, D
 WGRAD_SEED = 13  # the training rows draw their own operands: earlier checks keep theirs
 # phase 13: falcon-mamba-7b training. The scan's backward against its plain
 # version at (B, S, di, N, with dh_last): S with a ragged last chunk (16
-# steps a chunk up to N 128), several blocks along di, every (states a
-# thread, lanes) scan_bwd_layout takes (N 4, 5, 16, 32, 64, 100, 200, 512);
-# then at the training shape, without dh_last as the model calls it
-SCAN_BWD_SHAPES = [(2, 37, 256, 4, True), (2, 37, 300, 16, False), (2, 37, 300, 16, True),
+# steps a chunk up to N 128) or within one chunk (no saved states), several
+# blocks along di, every (states a thread, lanes) scan_bwd_layout takes (N
+# 4, 5, 16, 32, 64, 100, 200, 512); then at the training shape, without
+# dh_last as the model calls it
+SCAN_BWD_SHAPES = [(2, 12, 64, 16, True), (2, 37, 256, 4, True), (2, 37, 300, 16, False), (2, 37, 300, 16, True),
                    (2, 23, 70, 5, False), (1, 21, 40, 32, True), (1, 50, 130, 64, True),
                    (1, 19, 24, 100, False), (1, 13, 20, 200, True), (1, 9, 10, 512, True)]
 SCAN_BWD_TRAIN = (2, 4096, 8192, 16)
@@ -622,7 +634,11 @@ SCAN_BWD_SEED = 17
 # rows in the plain version's order but from fma-free products that may
 # still round apart; dd is the same torch reduction on both sides
 SCAN_BWD_TOL = {"dx": 1e-5, "ddt": 1e-5, "db": 1e-4, "dc": 1e-4, "da": 1e-4, "dd": 0.0}
-SCAN_BWD_OPS = 20  # f32 operations a (b, t, d, n) state step (see _check_selective_scan_bwd)
+# f32 operations a (b, t, d, n) state step (see _check_selective_scan_bwd):
+# the bound's. The saved variant's compiled walk issues ~62 instructions a
+# state step at (4, 4), 31 of them this work (tools/sass_mix.py;
+# csrc/selective_scan_bwd.cu's header)
+SCAN_BWD_OPS = 20
 # the model: full-width falcon-mamba-7b (remat, AdamW, f32) cut to 16 of 64
 # layers (AdamW in f32 holds 16 bytes a parameter: ~112 GB at 64 layers,
 # ~31 GB at 16), TRAIN_4K's 4096 tokens at global batch 2; the gradient
@@ -5147,7 +5163,8 @@ def phase_families(smi: str) -> dict:
 # families and the weight gradient)
 TRAIN_KERNEL_NAMES = dict(KERNEL_NAMES, grouped_wgrad=("grouped_wgrad_mma_kernel",
                                                          "grouped_wgrad_kernel"),
-                          selective_scan_bwd=("scan_bwd_states_kernel", "scan_bwd_kernel",
+                          selective_scan_bwd=("scan_bwd_walk_kernel", "scan_bwd_sum_kernel",
+                                              "scan_bwd_states_kernel", "scan_bwd_kernel",
                                               "scan_bwd_reduce_kernel"))
 
 
@@ -5162,10 +5179,13 @@ def _train_counts(reset: bool = False) -> dict:
         grouped_wgrad.launches = 0
         grouped_wgrad.launches_by_variant = {}
         selective_scan_bwd.launches = 0
+        selective_scan_bwd.launches_by_mode = {}
         return {}
     return dict(_read_counts(), grouped_wgrad=grouped_wgrad.launches,
                 selective_scan_bwd=selective_scan_bwd.launches,
-                **{f"grouped_wgrad:{v}": n for v, n in grouped_wgrad.launches_by_variant.items()})
+                **{f"grouped_wgrad:{v}": n for v, n in grouped_wgrad.launches_by_variant.items()},
+                **{f"selective_scan_bwd:{m}": n
+                   for m, n in selective_scan_bwd.launches_by_mode.items()})
 
 
 @contextlib.contextmanager
@@ -5187,8 +5207,8 @@ def _plain_kernels():
     ops.lm_attention = lambda q, k, v, segments=None, schedule=None, **kw: (
         ref.flash_attention_ref(q, k, v, **kw))
     ops._rmsnorm_kernel = ref.rmsnorm_ref
-    ops._scan_kernel = ref.selective_scan_ref
-    ops._scan_bwd_kernel = ref.selective_scan_bwd_ref
+    ops._scan_kernel = lambda *args, save_states=False: ref.selective_scan_ref(*args)
+    ops._scan_bwd_kernel = lambda *args, states=None: ref.selective_scan_bwd_ref(*args)
     try:
         yield
     finally:
@@ -5630,6 +5650,11 @@ def phase_train_ssm(smi: str) -> dict:
         raise AssertionError("[train mamba] two runs differ")
     if not (r["counts"]["selective_scan"] and r["counts"]["selective_scan_bwd"]):
         raise AssertionError(f"[train mamba] the scan kernels did not run: {r['counts']}")
+    by_mode = {m: r["counts"].get(f"selective_scan_bwd:{m}", 0) for m in ("saved", "recompute")}
+    print(f"[train mamba] selective_scan_bwd launches by variant: {by_mode} (gate: every "
+          "call on the saved variant)", flush=True)
+    if by_mode["saved"] != r["counts"]["selective_scan_bwd"] or by_mode["recompute"]:
+        raise AssertionError(f"[train mamba] scan backward calls off the saved variant: {by_mode}")
     prof = _train_step_profile("train mamba", tr.step_fn, state,
                                tr.pipeline.batch_for_step(TRAIN_SSM_STEPS), smi,
                                required=("selective_scan", "selective_scan_bwd", "rmsnorm"),
@@ -5663,47 +5688,86 @@ def _scan_bwd_errors(got, want) -> dict:
     return out
 
 
-def _check_scan_bwd_once(args, dy, dh) -> dict:
-    """Gate one backward call against its plain version (``SCAN_BWD_TOL``)
-    and against a second call (bit-equal); returns the errors, the plain
-    call's CUDA-event ms and the largest absolute error."""
+def _check_scan_bwd_once(args, dy, dh, bit_equal_da=False) -> dict:
+    """Gate each variant of the backward (``BWD_VARIANTS``) against the
+    plain version (``SCAN_BWD_TOL``; with ``bit_equal_da`` dA and dD bit
+    for bit) and against a second call (bit-equal), and the saved variant
+    from the forward kernel's saved states against its call alone
+    (bit-equal); the forward kernel saving those states against the serving
+    kernel (y and h_last bit-equal; phase 3 holds the serving kernel's y
+    to the plain version) and the plain forward (h_last bit-equal). Returns each variant's errors and largest
+    absolute error and the plain call's CUDA-event ms."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.selective_scan import selective_scan_bwd
+    from repro_torch.kernels.selective_scan import (
+        BWD_VARIANTS,
+        selective_scan,
+        selective_scan_bwd,
+    )
 
-    got = selective_scan_bwd(*args, dy, dh)
-    again = selective_scan_bwd(*args, dy, dh)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     want = ref.selective_scan_bwd_ref(*args, dy, dh)
     stop.record()
     stop.synchronize()
     shape = list(args[0].shape) + [args[2].shape[-1]]
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError(f"selective_scan_bwd {shape}: two calls differ")
-    errs = _scan_bwd_errors(got, want)
-    over = {k: v for k, v in errs.items() if v > SCAN_BWD_TOL[k]}
-    if over:
-        raise AssertionError(f"selective_scan_bwd {shape} dh_last {dh is not None}: over "
-                             f"SCAN_BWD_TOL: {over} (all {errs})")
-    return {"errors": errs, "plain_ms": start.elapsed_time(stop),
-            "max_abs_err": max(max_err(g, w) for g, w in zip(got, want))}
+    out = {"plain_ms": start.elapsed_time(stop)}
+    for variant, mode in BWD_VARIANTS.items():
+        got = selective_scan_bwd(*args, dy, dh, variant=variant)
+        again = selective_scan_bwd(*args, dy, dh, variant=variant)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"selective_scan_bwd ({mode}) {shape}: two calls differ")
+        if variant == 1:
+            y_s, h_s, states = selective_scan(*args, save_states=True)
+            y0, h0 = selective_scan(*args)
+            hr = ref.selective_scan_ref(*args)[1]
+            if not (torch.equal(y_s, y0) and torch.equal(h_s, h0) and torch.equal(h_s, hr)):
+                raise AssertionError(f"selective_scan {shape} saving the states: y or h_last "
+                                     "not bit-equal to the serving kernel's, or h_last to "
+                                     f"the plain version's (max err {max_err(h_s, hr)})")
+            del y_s, h_s, y0, h0, hr
+            from_states = selective_scan_bwd(*args, dy, dh, states=states)
+            if not all(torch.equal(a, b) for a, b in zip(got, from_states)):
+                raise AssertionError(f"selective_scan_bwd (saved) {shape}: from the forward's "
+                                     "states differs from the call alone")
+            del states, from_states
+        errs = _scan_bwd_errors(got, want)
+        over = {k: v for k, v in errs.items() if v > SCAN_BWD_TOL[k]}
+        if bit_equal_da:
+            over |= {k: errs[k] for k in ("da", "dd") if errs[k]}
+        if over:
+            raise AssertionError(f"selective_scan_bwd ({mode}) {shape} dh_last {dh is not None}: "
+                                 f"over SCAN_BWD_TOL{' or dA / dD not bit-equal' * bit_equal_da}"
+                                 f": {over} (all {errs})")
+        out[mode] = {"errors": errs, "max_abs_err": max(max_err(g, w) for g, w in zip(got, want))}
+        del got, again
+    return out
 
 
 def _check_selective_scan_bwd(gen) -> dict:
-    """The scan's backward kernel at ``SCAN_BWD_SHAPES`` and at the training
-    shape ``SCAN_BWD_TRAIN``: each output within ``SCAN_BWD_TOL`` of the
-    plain version, two calls bit-equal. At the training shape: device time
-    by graph replay (and eager), the device work a call enqueues, the
-    forward kernel's time on the same inputs, the plain version's time
-    (CUDA events, one call), and the bound: the bytes the function must
-    move (x, dt, dy read and dx, ddt written, [B, S, di] f32 each; b, c,
-    a, d read and db, dc, da, dd written) over 3.35 TB/s, against
-    ``SCAN_BWD_OPS`` f32 operations a state step (exp(dt A) and the state
-    update: 5; g's update and carry: 3; q: 2; the n sums of dx and ddt: 4;
-    da: 2; db and dc: 4) over the f32 rate. No PyTorch call computes the
-    function (``library_ms`` None)."""
+    """The scan's backward in both variants at ``SCAN_BWD_SHAPES`` and at
+    the training shape ``SCAN_BWD_TRAIN`` (``_check_scan_bwd_once``; at the
+    training shape dA and dD bit-equal to the plain version too). At the
+    training shape, device time by graph replay (and eager) and the device
+    work a call enqueues: the saved variant called alone (the forward kernel
+    for the states, then the walk: the row's ``ms``) and from the forward's
+    saved states (``walk_ms``, the training step's call), the recompute
+    variant in the same run (``was_ms``), the forward kernel with and
+    without the states; the layout's blocks an SM (the occupancy
+    calculator), the workspace bytes
+    of each variant, the plain version's time (CUDA events, one call), and
+    the bound: the bytes the function must move (x, dt, dy read and dx,
+    ddt written, [B, S, di] f32 each; b, c, a, d read and db, dc, da, dd
+    written) over 3.35 TB/s, against ``SCAN_BWD_OPS`` f32 operations a
+    state step (exp(dt A) and the state update: 5; g's update and carry:
+    3; q: 2; the n sums of dx and ddt: 4; da: 2; db and dc: 4) over the f32
+    rate. No PyTorch call computes the function (``library_ms`` None)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.selective_scan import (
+        BWD_THREADS,
+        H100_SMS,
         scan_bwd_layout,
+        scan_bwd_smem_bytes,
+        scan_bwd_workspace,
         selective_scan,
         selective_scan_bwd,
     )
@@ -5714,37 +5778,86 @@ def _check_selective_scan_bwd(gen) -> dict:
         dy = torch.randn((B, S, di), generator=gen, device="cuda")
         dh = torch.randn((B, di, N), generator=gen, device="cuda") if with_dh else None
         res = _check_scan_bwd_once(args, dy, dh)
-        checked[f"{B}x{S}x{di}x{N}{'+dh' if with_dh else ''}"] = res["errors"]
+        for mode in ("saved", "recompute"):
+            checked[f"{B}x{S}x{di}x{N}{'+dh' if with_dh else ''} {mode}"] = res[mode]["errors"]
     B, S, di, N = SCAN_BWD_TRAIN
     args = _scan_operands(gen, B, S, di, N, torch.float32)
     dy = torch.randn((B, S, di), generator=gen, device="cuda") / math.sqrt(di)
-    res = _check_scan_bwd_once(args, dy, None)
-    call = lambda: selective_scan_bwd(*args, dy)  # noqa: E731
+    res = _check_scan_bwd_once(args, dy, None, bit_equal_da=True)
+    states = selective_scan(*args, save_states=True)[2]
+    alone = lambda: selective_scan_bwd(*args, dy)  # noqa: E731
+    walk = lambda: selective_scan_bwd(*args, dy, states=states)  # noqa: E731
+    was = lambda: selective_scan_bwd(*args, dy, variant=2)  # noqa: E731
+    layout = scan_bwd_layout(N)
+    per_sm = _build.library().selective_scan_bwd_blocks_per_sm(*layout)
+    blocks = B * -(-di // (BWD_THREADS[1] // layout[1]))
     n_bytes = 4 * (5 * B * S * di + 4 * B * S * N + 2 * di * N + 2 * di)
     nb, by = bound_ms(n_bytes, SCAN_BWD_OPS * B * S * di * N, F32_OPS_PER_S)
     row = {"name": "selective_scan_bwd", "shape": [B, S, di, N], "mode": "f32",
-           "layout": scan_bwd_layout(N), "max_abs_err": res["max_abs_err"],
-           "errors": res["errors"], "small_shapes": checked,
+           "variant": "saved", "layout": layout,
+           "smem_bytes": scan_bwd_smem_bytes(*layout), "blocks_per_sm": per_sm,
+           "warps_per_sm": min(per_sm, -(-blocks // H100_SMS)) * BWD_THREADS[1] // 32,
+           "max_abs_err": res["saved"]["max_abs_err"], "errors": res["saved"]["errors"],
+           "small_shapes": checked,
            "tolerance": "max |kernel - plain| / max |plain| per output: " + ", ".join(
-               f"{k} {v:g}" for k, v in SCAN_BWD_TOL.items()) + "; two calls bit-equal",
-           "device_work": _device_work(call), "ms": graph_ms(call, n=3, iters=5),
-           "eager_ms": time_ms(call, iters=5, warmup=1),
+               f"{k} {v:g}" for k, v in SCAN_BWD_TOL.items())
+           + "; dA, dD bit-equal at the training shape; two calls bit-equal",
+           "device_work": _device_work(alone), "ms": graph_ms(alone, n=3, iters=5),
+           "eager_ms": time_ms(alone, iters=5, warmup=1),
+           "walk_device_work": _device_work(walk), "walk_ms": graph_ms(walk, n=3, iters=5),
+           "walk_eager_ms": time_ms(walk, iters=5, warmup=1),
+           "workspace_bytes": {m: 4 * sum(scan_bwd_workspace(v, B, S, di, N).values())
+                               for v, m in ((1, "saved"), (2, "recompute"))},
+           "walk_workspace_bytes": 4 * (sum(scan_bwd_workspace(1, B, S, di, N).values())
+                                        - scan_bwd_workspace(1, B, S, di, N)["states"]),
            "forward_ms": graph_ms(lambda: selective_scan(*args), n=3, iters=5),
+           "forward_states_ms": graph_ms(lambda: selective_scan(*args, save_states=True),
+                                         n=3, iters=5),
            "plain_ms": res["plain_ms"], "bound_ms": nb, "bound_by": by, "library_ms": None,
            "route": "cuda", "source": SOURCES["selective_scan_bwd"],
            "replaces": REPLACES["selective_scan_bwd"]}
+    row |= {"was_ms": graph_ms(was, n=3, iters=5),
+            "was_eager_ms": time_ms(was, iters=5, warmup=1), "was_device_work": _device_work(was)}
+    was_row = {"name": "selective_scan_bwd[recompute]", "shape": row["shape"], "mode": "f32",
+               "variant": "recompute", "layout": layout, "ms": row["was_ms"],
+               "eager_ms": row["was_eager_ms"], "device_work": row["was_device_work"],
+               "max_abs_err": res["recompute"]["max_abs_err"],
+               "errors": res["recompute"]["errors"],
+               "workspace_bytes": row["workspace_bytes"]["recompute"],
+               "plain_ms": res["plain_ms"], "bound_ms": nb, "bound_by": by, "library_ms": None,
+               "route": "cuda", "source": SOURCES["selective_scan_bwd[recompute]"],
+               "replaces": REPLACES["selective_scan_bwd"]}
+    del states
     for shape, errs in checked.items():
         print(f"[kernels] selective_scan_bwd {shape}: " + ", ".join(
             f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
-    print(f"[kernels] selective_scan_bwd {row['shape']} (states a thread, lanes "
-          f"{row['layout']}): {row['ms']:.4f} ms (eager {row['eager_ms']:.4f}; "
-          f"{row['device_work']} device launches a call), the forward kernel "
-          f"{row['forward_ms']:.4f} ms, plain {row['plain_ms']:.1f} ms, bound "
+    gb = {m: v / 1e9 for m, v in row["workspace_bytes"].items()}
+    print(f"[kernels] selective_scan_bwd {row['shape']} saved variant (states a thread, lanes "
+          f"{row['layout']}; {row['smem_bytes']} B of shared memory, "
+          f"{per_sm} blocks an SM: {row['warps_per_sm']} warps an SM walk together): "
+          f"{row['ms']:.4f} ms called alone (eager {row['eager_ms']:.4f}; "
+          f"{row['device_work']} device launches a call), {row['walk_ms']:.4f} ms from the "
+          f"forward's states (eager {row['walk_eager_ms']:.4f}; {row['walk_device_work']} "
+          f"launches: the training step's call); (was) the recompute variant "
+          f"{row['was_ms']:.4f} ms (eager {row['was_eager_ms']:.4f}; "
+          f"{row['was_device_work']} launches) in the same run, ratio "
+          f"{row['ms'] / row['was_ms']:.3f} (gate 0.5); workspace "
+          f"{row['walk_workspace_bytes'] / 1e9:.3f} GB from the forward's states, "
+          f"{gb['saved']:.3f} alone (was {gb['recompute']:.3f}); the forward kernel "
+          f"{row['forward_ms']:.4f} ms, writing "
+          f"the states {row['forward_states_ms']:.4f} ms; plain {row['plain_ms']:.1f} ms, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}); errors " + ", ".join(
               f"{k} {v:.3g}" for k, v in row["errors"].items())
-          + f"; {len(checked) + 1} shapes within SCAN_BWD_TOL, repeats bit-equal (gate)",
-          flush=True)
+          + " (recompute: " + ", ".join(
+              f"{k} {v:.3g}" for k, v in was_row["errors"].items())
+          + f"); {len(SCAN_BWD_SHAPES) + 1} shapes within SCAN_BWD_TOL in both variants, "
+          "repeats bit-equal, dA and dD bit-equal at the training shape; the forward saving "
+          "the states: y, h_last bit-equal to the serving kernel's (gate)", flush=True)
+    if row["ms"] > 0.5 * row["was_ms"]:
+        raise AssertionError(f"selective_scan_bwd: the saved variant {row['ms']:.4f} ms is over "
+                             f"half the recompute variant's {row['was_ms']:.4f} ms")
     emit({"kernel": row})
+    emit({"kernel": was_row})
     return row
 
 
@@ -5852,6 +5965,7 @@ def main() -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} | {"shape": row["shape"]}
                       | {k: row[k] for k in ("variant", "schedule", "fma_ms", "bound_f32_ms",
+                                             "walk_ms", "was_ms",
                                              "library_wall_ms",
                                              "bf16_max_abs_err", "f32_copy_max_abs_err",
                                              "f64_max_abs_err", "launches_per_step",

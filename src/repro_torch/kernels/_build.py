@@ -41,8 +41,11 @@ _SIGNATURES = {
                             + [_I, _I, _P]),
     "lm_attention_smem_bytes": (_SZ, [_I] * 6),
     "selective_scan_launch": (_I, [_P] * 8 + [_I] * 7 + [_P]),
+    "selective_scan_save_launch": (_I, [_P] * 9 + [_I] * 7 + [_P]),
     "selective_scan_lane_launch": (_I, [_P] * 8 + [_I] * 4 + [_P]),
     "selective_scan_bwd_launch": (_I, [_P] * 15 + [_I] * 6 + [_P]),
+    "selective_scan_bwd_recompute_launch": (_I, [_P] * 15 + [_I] * 6 + [_P]),
+    "selective_scan_bwd_blocks_per_sm": (_I, [_I] * 2),
     "rmsnorm_launch": (_I, [_P] * 3 + [_I] * 2 + [_LL] + [_I] * 2 + [_F, _P]),
 }
 

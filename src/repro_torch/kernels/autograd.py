@@ -86,22 +86,26 @@ class SelectiveScan(torch.autograd.Function):
     """(y, h_last) = scan(x, dt, b, c, a, d), the backward from
     ``scan_bwd(x, dt, b, c, a, d, dy, dh_last)`` on the saved inputs.
     ``scan`` and ``scan_bwd`` are the device dispatches of
-    ``kernels/ops.py``. An output whose gradient is not needed gets None
-    (h_last's in a training step): dy then runs as zeros, dh_last is
+    ``kernels/ops.py``. Where ``scan`` returns a third output (the kernel's
+    chunk-start states), it is saved with the inputs and handed to
+    ``scan_bwd`` as ``states``. An output whose gradient is not needed gets
+    None (h_last's in a training step): dy then runs as zeros, dh_last is
     skipped."""
 
     @staticmethod
     def forward(ctx, x, dt, b, c, a, d, scan: Callable, scan_bwd: Callable):
-        ctx.save_for_backward(x, dt, b, c, a, d)
+        y, h_last, *states = scan(x, dt, b, c, a, d)
+        ctx.save_for_backward(x, dt, b, c, a, d, *states)
         ctx.scan_bwd = scan_bwd
         ctx.set_materialize_grads(False)
-        return scan(x, dt, b, c, a, d)
+        return y, h_last
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        x, dt, b, c, a, d = ctx.saved_tensors
+        x, dt, b, c, a, d, *states = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy
-        grads = ctx.scan_bwd(x, dt, b, c, a, d, dy, dh_last)
+        kw = {"states": states[0]} if states else {}
+        grads = ctx.scan_bwd(x, dt, b, c, a, d, dy, dh_last, **kw)
         return (*grads, None, None)
 
 

@@ -4,7 +4,12 @@
 // over x, dt [B, S, di], B, C [B, S, N] (each f32 or bf16, one type for
 // all four, widened to f32 on load), A f32 [di, N] (negative), D f32 [di];
 // writes y [B, S, di] in x's type and the final state h_last f32 [B, di, N]
-// (the prefill -> decode handoff). Any N up to 512.
+// (the prefill -> decode handoff). Any N up to 512. Asked for (hs not
+// null), the states variant also writes the state at the start of every
+// chunk of hk steps but the first, hs [B, ceil(S / hk) - 1, di, N] f32: the
+// backward (csrc/selective_scan_bwd.cu) rebuilds each chunk from it; with y
+// null it writes the states alone (the backward called without them): C is
+// then neither staged nor read.
 //
 // Replaces: src/repro/kernels/selective_scan.py, selective_scan /
 // _scan_kernel.
@@ -46,7 +51,14 @@
 // written with __fmul_rn / __fadd_rn and the accurate expf (no FMA
 // contraction, no fast math, no exp2 with a prescaled A: that would change
 // h's bits) in the plain version's order, so h follows it step for step and
-// h_last is bit-equal; only the order of the N-term sum in y differs.
+// h_last is bit-equal; only the order of the N-term sum in y differs. The
+// saved states are those registers at the chunk boundaries: the kernels
+// that save (selective_scan_save_kernel, f32, a __global__ of their own)
+// walk each staged chunk in runs of hk steps and write after each run, so
+// no step carries a test; 16-byte stores, coalesced like h_last's. The
+// kernels that do not save are the serving path's and keep their own code:
+// a save flag or a shared step body in one kernel made them slower on the
+// H100.
 //
 // Lane variant (2, the first port's kernel, kept as the yardstick that
 // chip_smoke.py times the states variant against; f32, N in {8, 16}): one
@@ -254,6 +266,162 @@ int dispatch(int spt, int lanes, const void* x, const void* dt, const void* bm,
 }
 
 // ---------------------------------------------------------------------------
+// states variant, saving (f32, the training forward): the chunk-start states
+// ---------------------------------------------------------------------------
+
+// The states kernel's walk, which also writes the state at the start of every
+// chunk of hk steps but the first to hs (hk divides SCAN_STEPS): it walks
+// each staged chunk in runs of hk steps and writes after each whole run, so
+// no step carries a test. y may be null (the states alone): C is then neither
+// staged nor read. A __global__ of its own, so that selective_scan_kernel
+// compiles as it did before states could be saved.
+template <int SPT, int L>
+__global__ void __launch_bounds__(SCAN_THREADS)
+    selective_scan_save_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                               const float* __restrict__ bm, const float* __restrict__ cm,
+                               const float* __restrict__ a,
+                               const float* __restrict__ dskip, float* __restrict__ y,
+                               float* __restrict__ h_last, float* __restrict__ hs, int hk,
+                               int S, int di, int N, int sb, int vec_x, int vec_bc) {
+  constexpr int CH = SCAN_THREADS / L;  // channels of one block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const ring = reinterpret_cast<float*>(smem_raw);
+  // one slot: x [STEPS][CH], dt [STEPS][CH], B [STEPS][sb], C [STEPS][sb]
+  const int slot = SCAN_STEPS * (2 * CH + 2 * sb);
+  const int b = blockIdx.y, d0 = blockIdx.x * CH;
+  const int c = threadIdx.x / L, g = threadIdx.x % L;
+  const int d = d0 + c;
+  const bool live = d < di;
+  const int cols_ok = min(CH, di - d0);
+  float av[SPT], h[SPT];
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    const int n = g * SPT + k;
+    av[k] = live && n < N ? a[static_cast<int64_t>(d) * N + n] : 0.f;
+    h[k] = 0.f;
+  }
+  const float dd = live ? dskip[d] : 0.f;
+  const int64_t row0 = static_cast<int64_t>(b) * S;  // first (b, t) row
+  const int chunks = (S + SCAN_STEPS - 1) / SCAN_STEPS;
+  const bool want_y = y != nullptr;                  // block-uniform
+  const int saved = (S + hk - 1) / hk - 1;           // chunk starts in hs
+  auto load_chunk = [&](int ch) {
+    float* s = ring + (ch & 1) * slot;
+    const int64_t r = row0 + static_cast<int64_t>(ch) * SCAN_STEPS;
+    const int tn = min(SCAN_STEPS, S - ch * SCAN_STEPS);
+    stage(s, x + r * di + d0, di, tn, CH, cols_ok, vec_x);
+    stage(s + SCAN_STEPS * CH, dt + r * di + d0, di, tn, CH, cols_ok, vec_x);
+    stage(s + 2 * SCAN_STEPS * CH, bm + r * N, N, tn, sb, N, vec_bc);
+    if (want_y)
+      stage(s + 2 * SCAN_STEPS * CH + SCAN_STEPS * sb, cm + r * N, N, tn, sb, N, vec_bc);
+  };
+  if (chunks > 0) load_chunk(0);
+  cp_async_commit();
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) load_chunk(ch + 1);  // in flight while this one scans
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk ch (cp.async or plain stores) visible to all
+    const float* sx = ring + (ch & 1) * slot;
+    const float* sdt = sx + SCAN_STEPS * CH;
+    const float* sbm = sx + 2 * SCAN_STEPS * CH + g * SPT;
+    const float* scm = sbm + SCAN_STEPS * sb;
+    const int64_t r = row0 + static_cast<int64_t>(ch) * SCAN_STEPS;
+    const int tn = min(SCAN_STEPS, S - ch * SCAN_STEPS);  // block-uniform
+    for (int t0 = 0; t0 < tn; t0 += hk) {
+      const int te = min(tn, t0 + hk);
+#pragma unroll 2
+      for (int tt = t0; tt < te; ++tt) {
+        const float xt = sx[tt * CH + c];
+        const float dtt = sdt[tt * CH + c];
+        const float dtx = __fmul_rn(dtt, xt);
+        float bv[SPT], cv[SPT];
+        load_run<SPT>(sbm + tt * sb, bv);
+        if (want_y) {
+          load_run<SPT>(scm + tt * sb, cv);
+        } else {
+#pragma unroll
+          for (int k = 0; k < SPT; ++k) cv[k] = 0.f;
+        }
+        float p = 0.f;
+#pragma unroll
+        for (int k = 0; k < SPT; ++k) {
+          const float decay = expf(__fmul_rn(dtt, av[k]));
+          h[k] = __fadd_rn(__fmul_rn(decay, h[k]), __fmul_rn(dtx, bv[k]));
+          p = fmaf(h[k], cv[k], p);
+        }
+        if (want_y) {
+#pragma unroll
+          for (int o = L / 2; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+          if (g == 0 && live) y[(r + tt) * di + d] = __fadd_rn(p, __fmul_rn(xt, dd));
+        }
+      }
+      const int t1 = ch * SCAN_STEPS + te;  // h is now the state before step t1
+      if (te == t0 + hk && t1 < S && live) {
+        float* out =
+            hs + ((static_cast<int64_t>(b) * saved + t1 / hk - 1) * di + d) * N + g * SPT;
+        if (N % 4 == 0) {  // 16-byte stores
+#pragma unroll
+          for (int k = 0; k < SPT; k += 4)
+            if (g * SPT + k < N)
+              *reinterpret_cast<float4*>(out + k) =
+                  make_float4(h[k], h[k + 1], h[k + 2], h[k + 3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < SPT; ++k)
+            if (g * SPT + k < N) out[k] = h[k];
+        }
+      }
+    }
+    __syncthreads();  // slot ch & 1 is free for chunk ch + 2
+  }
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      const int n = g * SPT + k;
+      if (n < N) h_last[(static_cast<int64_t>(b) * di + d) * N + n] = h[k];
+    }
+  }
+}
+
+template <int SPT, int L>
+int launch_save(const float* x, const float* dt, const float* bm, const float* cm,
+                const float* a, const float* dskip, float* y, float* h_last, float* hs,
+                int hk, int B, int S, int di, int N, cudaStream_t stream) {
+  constexpr int CH = SCAN_THREADS / L;
+  const int sb = (SPT * L + 7) / 8 * 8;  // B/C row in shared memory: 16-byte multiple
+  const size_t smem = 2 * SCAN_STEPS * (2 * CH + 2 * sb) * sizeof(float);
+  auto kernel = selective_scan_save_kernel<SPT, L>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int vec_x = aligned16(x) && aligned16(dt) && di % 4 == 0 && CH % 4 == 0;
+  const int vec_bc = aligned16(bm) && aligned16(cm) && N % 4 == 0;
+  const dim3 grid((di + CH - 1) / CH, B);
+  kernel<<<grid, SCAN_THREADS, smem, stream>>>(x, dt, bm, cm, a, dskip, y, h_last, hs, hk, S,
+                                               di, N, sb, vec_x, vec_bc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int SPT>
+int dispatch_save_lanes(int lanes, const float* x, const float* dt, const float* bm,
+                        const float* cm, const float* a, const float* dskip, float* y,
+                        float* h_last, float* hs, int hk, int B, int S, int di, int N,
+                        cudaStream_t stream) {
+  switch (lanes) {
+#define SAVE_CASE(LANES)                                                                 \
+  case LANES:                                                                            \
+    return launch_save<SPT, LANES>(x, dt, bm, cm, a, dskip, y, h_last, hs, hk, B, S, di, \
+                                   N, stream);
+    SAVE_CASE(1) SAVE_CASE(2) SAVE_CASE(4) SAVE_CASE(8) SAVE_CASE(16) SAVE_CASE(32)
+#undef SAVE_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // lane variant (the first port's design): one thread a state, f32, N in {8, 16}
 // ---------------------------------------------------------------------------
 
@@ -349,6 +517,32 @@ extern "C" int selective_scan_launch(const void* x, const void* dt, const void* 
                                    di, N, stream);
   return dispatch<float>(spt, lanes, x, dt, bm, cm, a, dskip, y, h_last, B, S, di, N,
                          stream);
+}
+
+// The states variant saving the chunk-start states (f32 only): as
+// selective_scan_launch, and hs [B, ceil(S / hk) - 1, di, N] the state at
+// the start of every chunk of hk steps but the first (hk a power of two up
+// to SCAN_STEPS = 16; hs may be null only where there is none, S <= hk);
+// y may be null (the states alone, C not read) where hs is not. Anything
+// else returns cudaErrorInvalidValue without launching.
+extern "C" int selective_scan_save_launch(const float* x, const float* dt, const float* bm,
+                                          const float* cm, const float* a,
+                                          const float* dskip, float* y, float* h_last,
+                                          float* hs, int B, int S, int di, int N, int spt,
+                                          int lanes, int hk, cudaStream_t stream) {
+  if (N <= 0 || N > spt * lanes || hk <= 0 || hk > SCAN_STEPS || (hk & (hk - 1)) != 0 ||
+      (hs == nullptr && (S > hk || y == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || di <= 0) return static_cast<int>(cudaGetLastError());
+  switch (spt) {
+#define SAVE_SPT(SPT)                                                                     \
+  case SPT:                                                                               \
+    return dispatch_save_lanes<SPT>(lanes, x, dt, bm, cm, a, dskip, y, h_last, hs, hk, B, \
+                                    S, di, N, stream);
+    SAVE_SPT(4) SAVE_SPT(8) SAVE_SPT(16)
+#undef SAVE_SPT
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The lane variant: f32 only, N 16 (falcon-mamba-7b) or 8; any other N

@@ -240,7 +240,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     """Mamba-1 selective scan, the state on-chip for the whole sequence
     (O(S d) device-memory traffic). Returns (y [B, S, di], h_last
     [B, di, N] f32). Under grad through ``autograd.SelectiveScan``, whose
-    backward is ``selective_scan_bwd``."""
+    backward is ``selective_scan_bwd``; on the card the forward kernel then
+    also saves the chunk-start states that the backward rebuilds from."""
     with _scope(lambda: (f"selective_scan[B={x.shape[0]},S={x.shape[1]},"
                          f"di={x.shape[2]},N={a.shape[-1]}]")):
         scan = _scan_kernel if x.is_cuda else _ref.selective_scan_ref
@@ -248,17 +249,25 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
             if any(t.dtype != torch.float32 for t in (x, dt, b, c, a, d)):
                 raise TypeError("selective_scan's backward takes f32 operands, got "
                                 f"{[str(t.dtype) for t in (x, dt, b, c, a, d)]}")
+            if x.is_cuda:
+                scan = _scan_saving_states
             return autograd.SelectiveScan.apply(x, dt, b, c, a, d, scan, selective_scan_bwd)
         return scan(x, dt, b, c, a, d)
 
 
+def _scan_saving_states(x, dt, b, c, a, d):
+    return _scan_kernel(x, dt, b, c, a, d, save_states=True)
+
+
 def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
-                       dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None):
+                       dy: torch.Tensor, dh_last: Optional[torch.Tensor] = None, *,
+                       states: Optional[torch.Tensor] = None):
     """The scan's backward: (dx, ddt, db, dc, da, dd); the kernel on the
-    card, its plain version on the CPU."""
+    card (from the forward's chunk-start ``states`` where given), its plain
+    version on the CPU."""
     with _scope(lambda: (f"selective_scan_bwd[B={x.shape[0]},S={x.shape[1]},"
                          f"di={x.shape[2]},N={a.shape[-1]}]")):
         if x.is_cuda:
-            return _scan_bwd_kernel(x, dt, b, c, a, d, dy, dh_last)
+            return _scan_bwd_kernel(x, dt, b, c, a, d, dy, dh_last, states=states)
         return _ref.selective_scan_bwd_ref(x, dt, b, c, a, d, dy, dh_last)
